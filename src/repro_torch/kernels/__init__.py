@@ -1,0 +1,56 @@
+"""Hand-written CUDA kernels of the port, one subpackage each.
+
+Every kernel has, in its ``ops.py``:
+
+  * a wrapper (the public op) that dispatches on the device of the
+    tensor it is given, with no mode switch: a CPU tensor goes to the
+    plain PyTorch version, a CUDA tensor launches the kernel (or raises —
+    there is no fallback), any other device raises;
+  * the plain PyTorch version (``*_ref``), which the CPU tests hold
+    against the JAX package and ``chip_smoke.py`` holds the kernel
+    against on the card;
+  * a ``launches`` counter on the wrapper: a plain integer, raised by one
+    where the kernel is launched and nowhere else.
+
+Kernels (sources in ``repro_torch/csrc/``, built by ``_build``):
+  proxy_plan    — fused proxy head + threshold + detector-grid mapping +
+                  per-frame plan stats (replaces the JAX package's
+                  ``kernels/proxy_plan`` Pallas kernel).
+  window_gather — crop one size class of windows out of a chunk of
+                  frames by a (frame, cy, cx) table (replaces
+                  ``kernels/window_gather``'s ``window_gather_batch``).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+
+def on_cuda(t: torch.Tensor) -> bool:
+    """The dispatch rule: True for a CUDA tensor (launch the kernel),
+    False for a CPU tensor (plain version).  Any other device raises."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel or plain version for device {t.device}")
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
+    """PyTorch's current stream on the tensor's device."""
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def check_launch(err: int, lib: ctypes.CDLL, name: str) -> None:
+    """Raise if the C launcher reported a CUDA error (a refused launch
+    never runs, and a later synchronise would not report it)."""
+    if err != 0:
+        fn = lib.kernel_error_string
+        fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_char_p
+        msg = fn(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err}: {msg}")

@@ -1,0 +1,108 @@
+"""Build and load the port's CUDA kernels.
+
+Each source ``csrc/<name>.cu`` exposes a plain C interface and is
+compiled on first use by ``nvcc`` for Hopper (``sm_90a``) into its own
+shared library, which is loaded with ``ctypes``.  Libraries are keyed by
+a hash of the source and the flags, and live in ``build/repro_torch/``
+at the root of the checkout (listed in ``.gitignore``).  ``build()``
+compiles several sources at once, one ``nvcc`` process each.
+
+A missing ``nvcc`` or a failed build raises: there is no fallback.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Optional, Sequence
+
+SRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LOCK = threading.Lock()
+_LIBS: Dict[str, ctypes.CDLL] = {}      # guarded-by: _LOCK
+
+
+def sources() -> Sequence[str]:
+    """Names of every kernel source under ``csrc/``."""
+    return sorted(p.stem for p in SRC_DIR.glob("*.cu"))
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" \
+        / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the port's CUDA kernels are "
+                       "compiled at first use and need the CUDA toolkit")
+
+
+def library_path(name: str) -> Path:
+    src = SRC_DIR / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes())
+    for hdr in sorted(SRC_DIR.glob("*.cuh")):
+        h.update(hdr.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_log(name: str) -> str:
+    """The compiler's output (``-Xptxas -v``: registers, shared memory,
+    spills) from the build of ``name``, or "" if it was not built here."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+def build(names: Optional[Sequence[str]] = None) -> Dict[str, float]:
+    """Compile the named sources (default: all) that are not built yet,
+    one ``nvcc`` each, all started together.  Returns the seconds each
+    build took (0.0 for one already built)."""
+    names = list(sources() if names is None else names)
+    todo = {n: library_path(n) for n in names}
+    todo = {n: p for n, p in todo.items() if not p.exists()}
+    secs = {n: 0.0 for n in names}
+    if not todo:
+        return secs
+    nvcc = nvcc_path()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for n, out in todo.items():
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{n}.cu")]
+        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True),
+                    tmp, out, time.perf_counter())
+    failed = []
+    for n, (proc, tmp, out, t0) in procs.items():
+        log, _ = proc.communicate()
+        secs[n] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"{n}.cu (exit {proc.returncode}):\n{log}")
+            tmp.unlink(missing_ok=True)
+            continue
+        out.with_suffix(".log").write_text(log)
+        os.replace(tmp, out)          # atomic: readers never see a partial
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return secs
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built if needed."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            _LIBS[name] = lib
+        return lib

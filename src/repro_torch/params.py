@@ -1,0 +1,86 @@
+"""Weights for the port: the bridge from the JAX package's parameter
+dicts.
+
+The JAX package keeps parameters as nested dicts of arrays, with conv
+weights in HWIO layout.  The ``*_from_params`` functions take such a
+dict (any leaves ``np.asarray`` accepts; the tests pass the reference's
+own initialised weights) and build the port's modules, with conv weights
+moved to PyTorch's OIHW.  The tracker's ``det_proj``, ``gru`` and
+``match`` dicts stay numpy, as the host tracker uses them.
+
+The port's own untrained weights, drawn from a ``torch.Generator`` with
+the reference's shapes and scales, come from ``Detector(arch, seed=)``,
+``ProxyModel(..., seed=)`` and ``tracker.init_tracker(cfg, seed=)``, so
+the port runs without JAX (as ``chip_smoke.py`` does).  The two inits do
+not give the same numbers.
+"""
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch import Device, resolve_device
+from repro_torch.configs.multiscope import TrackerConfig
+from repro_torch.core.detector import DetectorNet, SameConv2d
+from repro_torch.core.proxy import ProxyEncoder
+from repro_torch.core.tracker import CropCNN
+
+
+def _f32(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _load_conv(conv: SameConv2d, w_hwio, b) -> None:
+    w = _f32(w_hwio).permute(3, 2, 0, 1)            # HWIO -> OIHW
+    if tuple(w.shape) != tuple(conv.weight.shape):
+        raise ValueError(f"conv weight {tuple(w.shape)} != "
+                         f"{tuple(conv.weight.shape)}")
+    with torch.no_grad():
+        conv.weight.copy_(w)
+        conv.bias.copy_(_f32(b).reshape(conv.bias.shape))
+
+
+def _load(p: nn.Parameter, value) -> None:
+    with torch.no_grad():
+        p.copy_(_f32(value).reshape(p.shape))
+
+
+def detector_from_params(arch: str, params: Mapping) -> DetectorNet:
+    """The reference's ``init_detector`` / trained dict -> DetectorNet."""
+    net = DetectorNet(arch)
+    for name, conv in net.convs.items():
+        _load_conv(conv, params[name]["w"], params[name]["b"])
+    return net
+
+
+def proxy_from_params(cell: int, base_channels: int, params: Mapping
+                      ) -> ProxyEncoder:
+    """The reference's ``init_proxy`` / trained dict -> ProxyEncoder."""
+    enc = ProxyEncoder(cell, base_channels)
+    for i, conv in enumerate(enc.enc):
+        _load_conv(conv, params[f"enc{i}"]["w"], params[f"enc{i}"]["b"])
+    _load_conv(enc.dec0, params["dec0"]["w"], params["dec0"]["b"])
+    _load(enc.head_w, params["head"]["w"])
+    _load(enc.head_b, params["head"]["b"])
+    return enc
+
+
+def tracker_from_params(cfg: TrackerConfig, params: Mapping,
+                        device: Device = "cuda") -> Dict[str, object]:
+    """The reference's ``init_tracker`` / trained dict -> the port's
+    tracker params (``CropCNN`` on ``device`` + numpy head dicts)."""
+    p = params["crop_cnn"]
+    cnn = CropCNN(cfg)
+    _load_conv(cnn.conv0, p["w0"], p["b0"])
+    _load_conv(cnn.conv1, p["w1"], p["b1"])
+    _load(cnn.wd, p["wd"])
+    _load(cnn.bd, p["bd"])
+    out: Dict[str, object] = {
+        "crop_cnn": cnn.to(resolve_device(device)).eval()}
+    for scope in ("det_proj", "gru", "match"):
+        out[scope] = {k: np.array(v, dtype=np.float32)
+                      for k, v in params[scope].items()}
+    return out

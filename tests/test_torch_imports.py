@@ -1,0 +1,58 @@
+"""Import isolation of the port: ``repro_torch`` and ``chip_smoke.py``
+import nothing of JAX and nothing of the JAX package ``repro``."""
+import ast
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+
+
+def _modules():
+    out = []
+    for p in sorted(PKG.rglob("*.py")):
+        rel = p.relative_to(ROOT / "src").with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        out.append(".".join(parts))
+    return out
+
+
+def test_modules_pull_in_no_jax_or_repro():
+    mods = _modules()
+    assert "repro_torch.core.executor" in mods and len(mods) > 15
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "print(json.dumps(bad))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300,
+                         check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def _imported_names(path: Path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py"))
+                         + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_sources_import_no_jax_or_repro(path):
+    for name in _imported_names(path):
+        top = name.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), (path, name)
