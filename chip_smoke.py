@@ -7,13 +7,17 @@ Run from the root of a checkout, with one card:
 
 It builds every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc``
 per source, started together), holds each kernel against its plain
-PyTorch version on the card at the main path's shapes and times both,
-then runs the main path once — one 64-frame clip through the streaming
-``ClipExecutor`` at the full-width MultiScope configuration (detector
-ssd-deep at 960x544, proxy 416x256, recurrent tracker, chunks of 16) with
-untrained weights drawn from a seed — and checks that every kernel of the
-path was launched and that the output is right.  Every phase runs
-uncaught: any failure exits non-zero before the result line.
+PyTorch version on the card at the main path's shapes and times both
+(``assign`` and ``track_step`` bit for bit), then runs the main path —
+one 64-frame clip through the streaming ``ClipExecutor`` at the
+full-width MultiScope configuration (detector ssd-deep at 960x544, proxy
+416x256, recurrent tracker, chunks of 16) with untrained weights drawn
+from a seed — three times with the host tracker and twice with TRACK on
+the device (``ExecutorOptions(device_tracker=True)`` and
+``device_assign=True``), whose tracks must equal the host tracker's.  It
+checks that every kernel of each path was launched and that the output is
+right, and profiles three more runs for the device's busy share.  Every
+phase runs uncaught: any failure exits non-zero before the result line.
 
 The last three lines of standard output are the kernels' JSON record,
 the card's name and power limit as ``nvidia-smi`` reports them, and
@@ -39,10 +43,16 @@ from repro_torch.configs.multiscope import MULTISCOPE_PIPELINE  # noqa: E402
 from repro_torch.core import pipeline as pl  # noqa: E402
 from repro_torch.core.detector import Detector, next_bucket  # noqa: E402
 from repro_torch.core.proxy import ProxyModel  # noqa: E402
-from repro_torch.core.tracker import init_tracker  # noqa: E402
+from repro_torch.core.executor import (ClipExecutor,  # noqa: E402
+                                       ExecutorOptions)
+from repro_torch.core.tracker import _host_params, init_tracker  # noqa: E402
 from repro_torch.core.windows import plan_from_mapped  # noqa: E402
 from repro_torch.data.video_synth import make_clip  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.assign import (assign_batch,  # noqa: E402
+                                        assign_batch_ref)
+from repro_torch.kernels.track_step import (  # noqa: E402
+    LOG1P_TABLE_2D, pack_params, track_step, track_step_ref)
 from repro_torch.kernels.proxy_plan import (proxy_plan,  # noqa: E402
                                             proxy_plan_ref)
 from repro_torch.kernels.proxy_plan.ops import (FLIP_ULPS,  # noqa: E402
@@ -90,12 +100,12 @@ def event_ms(fn, reps: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, kernel_name: str, reps: int = 50):
-    """Mean device time of the CUDA kernel whose name contains
-    ``kernel_name``, from the profiler's trace, with the L2 cache
-    overwritten before each launch so that the inputs come from device
-    memory, as the bound assumes; None if the profiler recorded no
-    device time for it."""
+def device_ms_by_kernel(fn, kernel_names, reps: int = 50):
+    """Device time per call of ``fn`` of each CUDA kernel whose name
+    contains one of ``kernel_names``, from the profiler's trace, with the
+    L2 cache overwritten before each call so that the inputs come from
+    device memory, as the bound assumes.  {name: ms, or None if the
+    profiler recorded no device time for it}."""
     from torch.profiler import ProfilerActivity, profile
     flush = torch.empty(L2_FLUSH_BYTES // 4, device=DEVICE)
     fn()
@@ -106,14 +116,22 @@ def device_ms(fn, kernel_name: str, reps: int = 50):
             flush.zero_()
             fn()
         torch.cuda.synchronize()
+    out = {name: None for name in kernel_names}
     for ev in prof.key_averages():
-        if kernel_name in ev.key and ev.count:
-            total = getattr(ev, "device_time_total", None)
-            if total is None:
-                total = getattr(ev, "cuda_time_total", 0.0)
-            if total:
-                return total / ev.count / 1e3       # us -> ms
-    return None
+        for name in kernel_names:
+            if name in ev.key and ev.count and out[name] is None:
+                total = getattr(ev, "device_time_total", None)
+                if total is None:
+                    total = getattr(ev, "cuda_time_total", 0.0)
+                if total:
+                    out[name] = total / reps / 1e3       # us -> ms
+    return out
+
+
+def device_ms(fn, kernel_name: str, reps: int = 50):
+    """Mean device time of the CUDA kernel whose name contains
+    ``kernel_name`` (``device_ms_by_kernel``), per call of ``fn``."""
+    return device_ms_by_kernel(fn, (kernel_name,), reps)[kernel_name]
 
 
 def bound(n_bytes: float, n_ops: float):
@@ -318,6 +336,173 @@ def check_proxy_plan(feat, w, b, thr, grid_hw):
     return row
 
 
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Exact equality of two outputs, f32 compared as bit patterns."""
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and torch.equal(a.cpu(), b.cpu())
+
+
+def host_ms(fn, reps: int = 2) -> float:
+    """Per-call host time of ``fn`` (a plain version on a CPU copy)."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def check_assign():
+    """The JV kernel against its plain version, bit for bit: costs
+    quantised to 1/64 (so ties are frequent), K = 4 at N = 8, 64, 128,
+    and one case restricted to the leading eff_n square.  The plain
+    version is a Python loop of tiny tensor ops, so it runs on a CPU copy
+    of the inputs."""
+    rng = np.random.default_rng(SEED)
+    rows = []
+    for N, eff in ((8, None), (64, None), (128, None), (128, 40)):
+        costs = torch.from_numpy(
+            rng.integers(0, 256, (4, N, N)).astype(np.float32) / 64.0)
+        dev = costs.to(DEVICE)
+        got = assign_batch(dev, eff)
+        torch.cuda.synchronize()
+        want = assign_batch_ref(costs, eff)
+        if not bits_equal(got, want):
+            raise AssertionError(f"assign_batch N={N} eff_n={eff}: kernel "
+                                 "!= plain version")
+        # (K, N) int32 out, (K, N, N) f32 in: the solve is sequential, so
+        # the bound is bytes only and far below what a solve can reach
+        b_ms, b_by = bound(costs.numel() * 4 + got.numel() * 4, 0)
+        row = dict(N=N, eff_n=eff, max_abs_err=0.0,
+                   ms=event_ms(lambda: assign_batch(dev, eff)),
+                   device_ms=device_ms(lambda: assign_batch(dev, eff),
+                                       "assign_kernel"),
+                   plain_ms=host_ms(lambda: assign_batch_ref(costs, eff),
+                                    reps=1),
+                   bound_ms=b_ms, bound_by=b_by)
+        log(f"assign_batch (4, {N}, {N}) eff_n={eff}: exact against the "
+            f"plain version on a CPU copy; kernel {row['ms']:.4f} ms/call "
+            f"(device, cold L2 {row['device_ms']}), plain (CPU) "
+            f"{row['plain_ms']:.2f} ms, bound {b_ms:.6f} ms ({b_by}: "
+            "matrices read once, columns written once)")
+        rows.append(row)
+    # non-finite costs never end the search: the step cap must raise
+    # (through the kernel's error flag), not hang the card
+    try:
+        assign_batch(torch.full((2, 8, 8), float("nan"), device=DEVICE))
+    except RuntimeError as exc:
+        log(f"assign_batch on NaN costs raises, as it must: {exc}")
+    else:
+        raise AssertionError("assign_batch answered for NaN costs")
+    return rows
+
+
+def track_step_operands(rng, K, Q, heads, live=None):
+    """Seeded operands in the slot layout: live tracks and valid
+    detections as prefixes (``live`` = (T, n) per stream, else random),
+    integer gaps, boxes in unit coordinates near each other so that some
+    pairs pass the threshold."""
+    H = heads[2].shape[1]
+    e = heads[0].shape[1]
+    ops = [np.zeros(s, np.float32) for s in
+           ((K, Q, H), (K, Q, 4), (K, Q), (K, Q), (K, Q), (K, Q, e),
+            (K, Q, 4), (K, Q))]
+    h_r, tbox_r, alive_r, te_gap_r, te_match, x, dbox, dvalid = ops
+    for k in range(K):
+        T, n = live if live is not None else rng.integers(0, 65, 2)
+        h_r[k, :T] = np.tanh(rng.standard_normal((T, H)))
+        tbox_r[k, :T] = rng.random((T, 4)) * [1, 1, 0.1, 0.1]
+        alive_r[k, :T] = 1.0
+        te_gap_r[k, :T] = rng.integers(1, 9, T)
+        te_match[k] = float(rng.integers(1, 4))
+        x[k, :n] = np.tanh(rng.standard_normal((n, e)))
+        dbox[k, :n] = rng.random((n, 4)) * [1, 1, 0.1, 0.1]
+        dvalid[k, :n] = 1.0
+    return [torch.from_numpy(a) for a in ops]
+
+
+def check_track_step(tracker_params, thr: float):
+    """The fused step against its plain version, bit for bit on all three
+    outputs, at the main path's widths (Q = 128 slots: up to 64 tracks +
+    64 detections): one stream with 40 live tracks and 30 detections at
+    the tracker's threshold, and a batch of 16 streams at threshold 0.5,
+    where the untrained heads forbid about half the pairs.  The plain
+    version also runs on a CPU copy, so that a mismatch can be placed
+    (the kernel, or PyTorch on the card)."""
+    rng = np.random.default_rng(SEED)
+    heads_cpu = pack_params(_host_params(tracker_params), "cpu")
+    heads = [p.to(DEVICE) for p in heads_cpu]
+    table_cpu = torch.from_numpy(LOG1P_TABLE_2D)
+    table = table_cpu.to(DEVICE)
+    rows = []
+    for K, live, t in ((1, (40, 30), thr), (16, None, 0.5)):
+        thr_cpu = torch.full((1, 1), t)
+        ops_cpu = track_step_operands(rng, K, 128, heads_cpu, live)
+        ops = [a.to(DEVICE) for a in ops_cpu]
+
+        thr_dev = thr_cpu.to(DEVICE)
+
+        def kern():
+            return track_step(*ops, thr_dev, heads, table)
+
+        def plain():
+            return track_step_ref(*ops, thr_dev, heads, table)
+        got = kern()
+        card = plain()
+        torch.cuda.synchronize()
+        cpu = track_step_ref(*ops_cpu, thr_cpu, heads_cpu, table_cpu)
+        for name, a, b, c in zip(("matched", "h_upd", "h_new"), got, card,
+                                 cpu):
+            if not bits_equal(b, c):
+                raise AssertionError(f"track_step K={K}: plain version on "
+                                     f"the card != on the CPU ({name})")
+            if not bits_equal(a, b):
+                raise AssertionError(f"track_step K={K}: kernel != plain "
+                                     f"version ({name})")
+        alive, dvalid = ops_cpu[2], ops_cpu[7]
+        T = (alive > 0).sum(1)
+        n = (dvalid > 0).sum(1)
+        H = ops_cpu[0].shape[2]
+        e = ops_cpu[5].shape[2]
+        M = heads_cpu[8].shape[1]
+        Q = ops_cpu[0].shape[1]
+        # operations this data needs: the match MLP and logit over the
+        # live pairs, the match-time features of the valid columns, and
+        # both GRU batches with their features over all 2Q rows; the JV
+        # solve is sequential and outside the bound
+        feat = (e + 6) * e * 2
+        gru = 3 * (e + H) * H * 2
+        pairs = int((T * n).sum())
+        n_ops = (pairs * ((H + e + 6) * M * 2 + M * 2) + int(n.sum()) * feat
+                 + 2 * Q * K * (feat + gru))
+        n_bytes = (sum(a.numel() for a in ops_cpu) + 1
+                   + sum(p.numel() for p in heads_cpu)
+                   + table_cpu.numel()) * 4 + K * Q * (1 + 2 * H) * 4
+        b_ms, b_by = bound(n_bytes, n_ops)
+        q2_ms = K * (Q * Q * (H + e + 6) * M * 2 + Q * Q * M * 2) \
+            / F32_OPS_PER_S * 1e3
+        parts = device_ms_by_kernel(kern, ("track_cost_kernel",
+                                           "track_assign_kernel",
+                                           "track_gru_kernel"))
+        dev_total = None if None in parts.values() else sum(parts.values())
+        row = dict(K=K, Q=Q, live_pairs=pairs,
+                   matched=int((got[0] >= 0).sum()), max_abs_err=0.0,
+                   ms=event_ms(kern, reps=20),
+                   device_ms=dev_total, device_ms_parts=parts,
+                   plain_ms=event_ms(plain, reps=1, warmup=0),
+                   bound_ms=b_ms, bound_by=b_by, bound_q2_ms=q2_ms)
+        log(f"track_step K={K} Q={Q} H={H} e={e} M={M}: {pairs} live pairs,"
+            f" {row['matched']} rows matched; kernel == plain on the card =="
+            f" plain on the CPU, bit for bit on matched/h_upd/h_new; kernel "
+            f"{row['ms']:.4f} ms/call (device, cold L2 {dev_total}: "
+            f"{json.dumps(parts)}), plain (card) {row['plain_ms']:.2f} ms, "
+            f"bound {b_ms:.6f} ms ({b_by}: live-pair MLP + features + both "
+            f"GRU batches at 67 TFLOP/s; JV sequential, outside it; all "
+            f"Q^2 pairs would be {q2_ms:.6f} ms)")
+        rows.append(row)
+    return rows
+
+
 def check_against_cpu(bank, frames, feat_cuda, pres):
     """Small-input agreement: the card's conv nets against the same
     weights on the CPU (TF32 off, so float32 on both), and the port's
@@ -347,17 +532,18 @@ def check_against_cpu(bank, frames, feat_cuda, pres):
         raise AssertionError("conv nets on the card disagree with the CPU")
 
 
-def device_busy(bank, params, clip) -> None:
-    """One more run of the main path (a fresh clip, so decode is paid)
-    under the profiler, recording the device only: the card's busy time
-    summed over every kernel and copy it ran, against the run's wall
-    time.  The profiler adds some host time, so the idle share is an
+def device_busy(bank, params, clip, options=None,
+                label: str = "host tracker") -> None:
+    """One more run of the main path under the profiler, recording the
+    device only: the card's busy time summed over every kernel and copy
+    it ran, against the run's wall time, and the time of the track_step
+    kernels.  The profiler adds some host time, so the idle share is an
     upper bound."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pl.run_clip(bank, params, clip)
+        res = ClipExecutor(bank, params, options).run(clip)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     from torch.autograd import DeviceType
@@ -367,13 +553,21 @@ def device_busy(bank, params, clip) -> None:
             per_name[ev.name] = per_name.get(ev.name, 0.0) \
                 + ev.time_range.elapsed_us()
     busy_us = sum(per_name.values())
+    track_us = sum(us for k, us in per_name.items() if "track_" in k
+                   and "_kernel" in k)
     top = sorted(((us, k) for k, us in per_name.items()), reverse=True)
-    log(f"device busy (profiled run, clip {clip.clip_id}): "
+    log(f"device busy ({label}, profiled run, clip {clip.clip_id}): "
         f"{busy_us / 1e3:.1f} ms of {wall * 1e3:.1f} ms wall = "
         f"{100 * busy_us / 1e6 / wall:.1f}% busy, "
-        f"{100 - 100 * busy_us / 1e6 / wall:.1f}% idle; top device "
-        "time: " + "; ".join(f"{k[:60]} {us / 1e3:.1f} ms"
-                             for us, k in top[:6]))
+        f"{100 - 100 * busy_us / 1e6 / wall:.1f}% idle; TRACK stage "
+        f"{res.stage_seconds['track']['wall'] * 1e3:.1f} ms wall, "
+        f"track_step kernels {track_us / 1e3:.1f} ms; top device time: "
+        + "; ".join(f"{k[:60]} {us / 1e3:.1f} ms" for us, k in top[:6]))
+
+
+def same_tracks(a, b) -> bool:
+    return len(a.tracks) == len(b.tracks) and all(
+        np.array_equal(x, y) for x, y in zip(a.tracks, b.tracks))
 
 
 def check_result(res, n_frames):
@@ -418,44 +612,84 @@ def main() -> int:
                               params.proxy_threshold, grid_hw)
     check_against_cpu(bank, frames, feat, pres)
 
+    asg = check_assign()
+    ts = check_track_step(bank.tracker_params,
+                          bank.cfg.tracker.match_threshold)
+
     # the main path through its entry point, the launch counts set to 0
     # just before each run and read just after.  Run 1 is cold (cuDNN
     # and allocator warm-up at every shape); run 2, on another clip of
     # the same profile, is warm with decode paid in full (fps); run 3
-    # repeats run 1's clip, which must give the same tracks.
+    # repeats run 1's clip, which must give the same tracks.  Then TRACK
+    # on the device, both flavours, on run 1's clip: the tracks must be
+    # the host tracker's, array for array.
     clip2 = make_clip("caldot1", "test", SEED + 1, n_frames=N_FRAMES)
-    runs = []
-    for label, c in (("cold", clip), ("warm", clip2), ("repeat", clip)):
-        proxy_plan.launches = 0
-        window_gather_batch.launches = 0
+    counters = (proxy_plan, window_gather_batch, track_step, assign_batch)
+    runs = {}
+    for label, c, opts in (
+            ("cold", clip, None), ("warm", clip2, None),
+            ("repeat", clip, None),
+            ("device_tracker", clip, ExecutorOptions(device_tracker=True)),
+            ("device_assign", clip, ExecutorOptions(device_assign=True))):
+        for k in counters:
+            k.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = pl.run_clip(bank, params, c)        # streaming executor
+        if opts is None:
+            res = pl.run_clip(bank, params, c)    # streaming executor
+        else:
+            res = ClipExecutor(bank, params, opts).run(c)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {"proxy_plan": proxy_plan.launches,
-                    "window_gather_batch": window_gather_batch.launches}
+        launches = {k.__name__: k.launches for k in counters}
         check_result(res, N_FRAMES)
-        for name, n in launches.items():
-            if n <= 0:
+        on_path = ["proxy_plan", "window_gather_batch"]
+        if opts is None:
+            if launches["track_step"]:
+                raise AssertionError("the host tracker launched track_step")
+        else:
+            on_path.append("track_step")
+        for name in on_path:
+            if launches[name] <= 0:
                 raise AssertionError(f"{name} was not launched on the "
                                      f"main path ({label} run)")
-        runs.append((res, launches))
+        runs[label] = (res, launches)
         log(f"main path ({label}, clip {c.clip_id}): {N_FRAMES} frames in "
             f"{wall:.3f} s wall = {N_FRAMES / wall:.2f} fps; windows "
             f"{res.detector_windows}, full frames {res.full_frames}, "
             f"skipped {res.skipped_frames}, tracks {len(res.tracks)}; "
             f"dispatches {res.dispatches}; launches {launches}")
         log(f"  stage_seconds {json.dumps(res.stage_seconds)}")
-    (res, launches), _, (res3, launches3) = runs
-    if launches != launches3 or len(res.tracks) != len(res3.tracks) or \
-            not all(np.array_equal(a, b)
-                    for a, b in zip(res.tracks, res3.tracks)):
+    res, launches = runs["cold"]
+    res3, launches3 = runs["repeat"]
+    if launches != launches3 or not same_tracks(res, res3):
         raise AssertionError("two runs of the main path differ")
-    device_busy(bank, params,
-                make_clip("caldot1", "test", SEED + 2, n_frames=N_FRAMES))
+    for label in ("device_tracker", "device_assign"):
+        dres = runs[label][0]
+        if not same_tracks(res, dres):
+            raise AssertionError(f"{label}: tracks differ from the host "
+                                 "tracker's on the same clip")
+        for k in ("frames_processed", "detector_windows", "full_frames",
+                  "skipped_frames"):
+            if getattr(dres, k) != getattr(res, k):
+                raise AssertionError(f"{label}: RunResult.{k} differs")
+        for k in ("proxy", "detect"):
+            if dres.dispatches[k] != res.dispatches[k]:
+                raise AssertionError(f"{label}: dispatches[{k!r}] differs")
+        log(f"{label}: {len(dres.tracks)} tracks identical to the host "
+            "tracker's, array for array; counters equal (track dispatches "
+            f"{dres.dispatches['track']} against {res.dispatches['track']})")
+    clip3 = make_clip("caldot1", "test", SEED + 2, n_frames=N_FRAMES)
+    device_busy(bank, params, clip3)
+    device_busy(bank, params, clip3, ExecutorOptions(device_tracker=True),
+                "device tracker, frames cached")
+    device_busy(bank, params, clip3, ExecutorOptions(device_assign=True),
+                "device assign, frames cached")
 
     src = "src/repro_torch/csrc/"
+    dev_launches = runs["device_tracker"][1]
+    a_main = max(asg, key=lambda r: (r["eff_n"] is None, r["N"]))
+    t_main = ts[0]                      # K = 1, the main path's shape
     kernels = [
         dict(name="proxy_plan", route="cuda", source=src + "proxy_plan.cu",
              replaces="src/repro/kernels/proxy_plan/kernel.py:67",
@@ -472,6 +706,25 @@ def main() -> int:
              bound_by=wg["bound_by"], library_ms=None,
              device_ms=wg["device_ms"],
              shape=f"{wg['n']} windows of {wg['size']} cells"),
+        dict(name="track_step", route="cuda", source=src + "track_step.cu",
+             replaces="src/repro/kernels/track_step/kernel.py:160",
+             launches=dev_launches["track_step"],
+             launches_device_assign=runs["device_assign"][1]["track_step"],
+             max_abs_err=t_main["max_abs_err"], ms=t_main["ms"],
+             plain_ms=t_main["plain_ms"], bound_ms=t_main["bound_ms"],
+             bound_by=t_main["bound_by"], library_ms=None,
+             device_ms=t_main["device_ms"],
+             device_ms_parts=t_main["device_ms_parts"],
+             shape=f"K=1 Q={t_main['Q']}, {t_main['live_pairs']} live pairs"),
+        dict(name="assign_batch", route="cuda", source=src + "assign.cu",
+             replaces="src/repro/kernels/assign/kernel.py:118",
+             launches=dev_launches["assign_batch"],
+             solve_runs_in="track_step (jv.cuh), once per launch",
+             max_abs_err=a_main["max_abs_err"], ms=a_main["ms"],
+             plain_ms=a_main["plain_ms"], plain_on="cpu",
+             bound_ms=a_main["bound_ms"], bound_by=a_main["bound_by"],
+             library_ms=None, device_ms=a_main["device_ms"],
+             shape=f"K=4 N={a_main['N']}"),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)

@@ -2,8 +2,9 @@
 
 The port runs the pipeline's main path (one clip through
 ``core.executor.ClipExecutor``: decode -> proxy -> detect -> track) on an
-NVIDIA GPU.  Its two kernels, ``kernels.proxy_plan`` and
-``kernels.window_gather``, are hand-written CUDA; everything else is
+NVIDIA GPU, with TRACK on the host or on the device.  Its kernels,
+``kernels.proxy_plan``, ``kernels.window_gather``, ``kernels.assign`` and
+``kernels.track_step``, are hand-written CUDA; everything else is
 ordinary PyTorch or host numpy.  It imports nothing of JAX and nothing
 of ``repro``; the tests hold it against ``repro`` on the CPU.
 

@@ -15,8 +15,11 @@ path.  One clip is cut into chunks of B frames; each chunk runs:
             chunk's device buffer; batch dims padded to power-of-two
             buckets; ``decode_detections`` + ``nms`` on the host;
   TRACK   — crop embeddings for the whole chunk in one device call
-            (``tracker.embed_dets_chunk``), then the host tracker in
-            frame order (the only stage with cross-chunk state).
+            (``tracker.embed_dets_chunk``), then the tracker in frame
+            order (the only stage with cross-chunk state): on the host by
+            default, one ``track_step`` launch per frame with
+            ``device_assign``, the chunk's recurrence on the device with
+            ``device_tracker``.
 
 Two schedulers drive the graph: ``SequentialScheduler`` (every stage of
 chunk k completes before chunk k+1 starts) and ``StreamingScheduler``
@@ -31,8 +34,8 @@ worker (double buffering) or lazily by DETECT, is needed only for
 sub-frame window gathers, and is dropped as soon as DETECT finishes, so
 at most ``prefetch_depth`` + 1 such buffers exist.
 
-Not ported yet: the decode pool, the cross-stream brokers, the mesh and
-multi-device options, the device tracker, and tracing.
+Not ported yet: the decode pool, the cross-stream brokers (the track
+broker among them), the mesh and multi-device options, and tracing.
 """
 from __future__ import annotations
 
@@ -88,7 +91,16 @@ class ExecutorOptions:
     ``fused_plan``     — PROXY plans through the fused ``proxy_plan``
                          kernel.  The score-map path (False) needs the
                          ``proxy_score`` kernel, which is not ported yet,
-                         so False raises when a proxy is active.
+                         so False raises when a proxy is active;
+    ``device_assign``  — TRACK runs each per-frame step as ONE fused
+                         ``track_step`` launch (GRU + match logits + cost
+                         + JV assignment on the device) instead of the
+                         host numpy twins.  Tracks are bit-identical (the
+                         fastmath contract);
+    ``device_tracker`` — TRACK holds its state in device slot buffers
+                         for a whole chunk (``tracker.DeviceTracker``;
+                         implies the device step).  Tracks are
+                         bit-identical.
 
     The run's device is the bank's (``ModelBank.device``).
     """
@@ -97,6 +109,8 @@ class ExecutorOptions:
     double_buffer: bool = True
     chunk_size: Optional[int] = None
     fused_plan: bool = True
+    device_assign: bool = False
+    device_tracker: bool = False
 
 
 @dataclass
@@ -137,7 +151,9 @@ class _RunContext:
         self.sizeset = make_sizeset(bank, params)
         self.grid = det_grid(params.det_res)
         self.detector = bank.detectors[params.det_arch]
-        self.tracker = make_tracker(bank, params)
+        self.tracker = make_tracker(
+            bank, params, device_assign=options.device_assign,
+            device_tracker=options.device_tracker)
         self.batch_embed = isinstance(self.tracker, RecurrentTracker)
         # upload in the decode worker only when the buffer can be used:
         # sub-frame gathers need an active proxy, and the previous

@@ -1,10 +1,13 @@
-"""Bitwise-pinned host math for the recurrent tracker (numpy flavour).
+"""Bitwise-pinned math for the recurrent tracker, in three flavours.
 
 The port's host tracker runs its small heads (detection projection, GRU,
-match MLP) in numpy through these functions, exactly as the JAX
+match MLP) in numpy through the ``np_*`` functions, exactly as the JAX
 package's host tracker does, so that fed the same detections and crop
-embeddings both produce the same track bits.  Each function pins one
-algorithm:
+embeddings both produce the same track bits.  The device tracker's plain
+PyTorch version (``kernels/track_step``'s ``track_step_ref``) runs the
+same algorithms on tensors through the ``t_*`` functions, and its CUDA
+kernel through ``csrc/fastmath.cuh``; all three give the same f32 bits
+on the CPU and on the card.  Each function pins one algorithm:
 
 * ``np_fmadd`` — a single-rounding f32 fma emulated in f64 via
   Boldo-Melquiond round-to-odd (the 24+24-bit product is exact in f64;
@@ -23,12 +26,18 @@ algorithm:
   weights are padded to 8 columns (einsum switches to a SIMD dot at
   width 1) and the result sliced back.
 
-The torch and CUDA flavours, which the device tracker needs, are not
-part of this module yet.
+The torch flavour keeps every operation a separate eager PyTorch call,
+so each rounds to f32 on its own: ``a * b + c`` is two roundings and
+``t_fmadd`` is the only multiply-add; ``torch.addcmul``, ``torch.lerp``,
+``@``, ``torch.matmul``, ``einsum`` and ``addmm`` (BLAS sums in other
+orders) do not appear on this path.  Division is written tensor by
+tensor: PyTorch computes ``1 / t`` as ``t.reciprocal() * 1`` and, on the
+card, ``t / s`` for a Python scalar ``s`` as ``t * (1 / s)``.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 _LOG2E = np.float32(1.44269504088896341)
 # Cody-Waite split of ln2 (Cephes expf): ln2 ~= LN2_HI + LN2_LO
@@ -122,3 +131,86 @@ def np_matmul(a: np.ndarray, w: np.ndarray) -> np.ndarray:
         wp[:, :1] = w
         return np.einsum("ik,kh->ih", a, wp, optimize=False)[:, :1]
     return np.einsum("ik,kh->ih", a, w, optimize=False)
+
+
+# ---------------------------------------------------------------------------
+# torch flavour (plain versions of the device tracker, CPU or card)
+# ---------------------------------------------------------------------------
+
+def _t64(v):
+    """float64 view of an operand: tensors are cast (exact), scalars stay
+    Python floats (a float32 constant is exact in float64)."""
+    if isinstance(v, torch.Tensor):
+        return v.to(torch.float64)
+    return float(v)
+
+
+def t_fmadd(a, b, c) -> torch.Tensor:
+    """Exact f32 fma(a, b, c): ``np_fmadd``'s float64 round-to-odd
+    algorithm on tensors (``torch.nextafter`` for the odd nudge).  At
+    least one operand is a tensor; the result is f32 on its device."""
+    like = next(v for v in (a, b, c) if isinstance(v, torch.Tensor))
+    a64, b64, c64 = (_t64(v) for v in (a, b, c))
+    p = a64 * b64                       # exact
+    if not isinstance(p, torch.Tensor):
+        p = torch.tensor(p, dtype=torch.float64, device=like.device)
+    s = p + c64
+    bv = s - p
+    err = (p - (s - bv)) + (c64 - bv)   # exact: s + err == p + c
+    s = s.expand_as(err).contiguous()
+    bits = s.view(torch.int64)
+    fix = (err != 0) & ((bits & 1) == 0) & torch.isfinite(s)
+    inf = torch.full_like(s, float("inf"))
+    s = torch.where(fix, torch.nextafter(s, torch.where(err > 0, inf, -inf)),
+                    s)
+    return s.to(torch.float32)
+
+
+def _t_pow2(k: torch.Tensor) -> torch.Tensor:
+    ki = k.to(torch.int32)
+    return ((ki + 127) << 23).view(torch.float32)
+
+
+def t_exp(x: torch.Tensor) -> torch.Tensor:
+    x = x.to(torch.float32).clamp(float(_EXP_LO), float(_EXP_HI))
+    k = torch.floor(t_fmadd(x, _LOG2E, _HALF))
+    r = t_fmadd(k, -_LN2_HI, x)
+    r = t_fmadd(k, -_LN2_LO, r)
+    p = t_fmadd(_EXP_POLY[0], r, _EXP_POLY[1])
+    for c in _EXP_POLY[2:]:
+        p = t_fmadd(p, r, c)
+    s = t_fmadd(p, r * r, r) + 1.0
+    return s * _t_pow2(k)
+
+
+def t_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    x = x.to(torch.float32).clamp(-float(_SIG_CLAMP), float(_SIG_CLAMP))
+    den = 1.0 + t_exp(-x)
+    return torch.ones_like(den) / den
+
+
+def t_tanh(x: torch.Tensor) -> torch.Tensor:
+    return 2.0 * t_sigmoid(2.0 * x.to(torch.float32)) - 1.0
+
+
+def t_log1p_int(te: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """log1p of integer-valued nonnegative f32 gaps by lookup in
+    ``table`` (``LOG1P_TABLE`` as a flat f32 tensor on te's device)."""
+    idx = te.to(torch.int32).clamp(0, table.shape[0] - 1)
+    return table[idx.long()]
+
+
+def t_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(n, k) x (k, m) with ``np_matmul``'s pinned accumulation: from
+    zeros, ``acc + a[:, k] * w[k]`` in ascending k, the product and the
+    sum each rounded to f32.  Single-column weights are padded to 8
+    columns, as ``np_matmul`` pads them, and the result sliced back."""
+    a = a.to(torch.float32)
+    w = w.to(torch.float32)
+    if w.shape[1] == 1:
+        return t_matmul(a, torch.nn.functional.pad(w, (0, 7)))[:, :1]
+    acc = torch.zeros((a.shape[0], w.shape[1]), dtype=torch.float32,
+                      device=a.device)
+    for k in range(a.shape[1]):
+        acc = acc + a[:, k, None] * w[None, k, :]
+    return acc

@@ -6,13 +6,18 @@ C solver when present, else the pure-numpy Jonker-Volgenant
 (``solve_device_np``) that the recurrent tracker's association runs
 through ``hungarian_device_np``.  Rectangular matrices are padded with a
 large cost; pairs matched to padding are reported as unmatched.  Used by
-the recurrent tracker and the SORT tracker.
+the recurrent tracker and the SORT tracker.  ``hungarian_batch`` solves
+many problems in one launch of the ``assign`` kernel.
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
+import torch
+
+from repro_torch import Device, resolve_device
+from repro_torch.kernels.assign import assign_batch
 
 try:                                    # optional dependency
     from scipy.optimize import linear_sum_assignment as _lsa
@@ -191,3 +196,35 @@ def hungarian_device_np(cost: np.ndarray) -> List[Tuple[int, int]]:
     cols = solve_device_np(sq)
     return [(r, int(cols[r])) for r in range(n)
             if cols[r] < m and cost[r, cols[r]] < BIG / 2]
+
+
+def hungarian_batch(costs: Sequence[np.ndarray], device: Device = "cuda"
+                    ) -> List[List[Tuple[int, int]]]:
+    """Solve K independent (possibly rectangular) assignment problems in
+    ONE launch of the batched ``assign`` kernel on ``device`` (its plain
+    version for ``device="cpu"``).
+
+    Same contract as ``hungarian`` per problem: entries >= BIG/2 are
+    forbidden and never reported.  Matrices are padded to a common square
+    with the finite ``FORBIDDEN_DEVICE`` sentinel (the solver runs f32, so
+    real costs must stay << 2^13 — association costs here are <= 1).
+    Tie-breaking between equal-cost optima may differ from the host
+    solvers; totals never do."""
+    mats = [np.asarray(c, np.float32) for c in costs]
+    if not mats:
+        return []
+    side = max(max(c.shape[0] for c in mats), max(c.shape[1] for c in mats))
+    if side == 0 or all(c.shape[0] == 0 or c.shape[1] == 0 for c in mats):
+        return [[] for _ in mats]
+    batch = np.full((len(mats), side, side), FORBIDDEN_DEVICE, np.float32)
+    for k, c in enumerate(mats):
+        n, m = c.shape
+        batch[k, :n, :m] = np.minimum(c, FORBIDDEN_DEVICE)
+    cols = assign_batch(torch.from_numpy(batch).to(resolve_device(device)))
+    cols = cols.cpu().numpy()
+    out: List[List[Tuple[int, int]]] = []
+    for k, c in enumerate(mats):
+        n, m = c.shape
+        out.append([(r, int(cols[k, r])) for r in range(n)
+                    if cols[k, r] < m and c[r, cols[k, r]] < BIG / 2])
+    return out

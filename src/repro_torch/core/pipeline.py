@@ -29,7 +29,7 @@ from repro_torch.configs.multiscope import PipelineConfig
 from repro_torch.core.detector import Detector
 from repro_torch.core.proxy import ProxyModel
 from repro_torch.core.sort import SortTracker
-from repro_torch.core.tracker import RecurrentTracker
+from repro_torch.core.tracker import DeviceTracker, RecurrentTracker
 from repro_torch.core.windows import SizeSet
 from repro_torch.data.video_synth import Clip
 
@@ -111,11 +111,23 @@ class ModelBank:
                                  f"on {self.device}")
 
 
-def make_tracker(bank: ModelBank, params: PipelineParams):
+def make_tracker(bank: ModelBank, params: PipelineParams,
+                 device_assign: bool = False,
+                 device_tracker: bool = False):
     """θ's tracker instance — THE selection rule: recurrent iff θ asks
-    for it and the bank has tracker params, SORT otherwise."""
+    for it and the bank has tracker params, SORT otherwise.
+
+    ``device_assign``/``device_tracker`` mirror ``ExecutorOptions``: the
+    per-frame step as one ``track_step`` launch, or the whole chunk's
+    recurrence on the device (``DeviceTracker``).  Both give tracks
+    bit-identical to the host tracker, so they are scheduling knobs like
+    the rest of the options, never part of θ."""
     if params.tracker == "recurrent" and bank.tracker_params is not None:
-        return RecurrentTracker(bank.cfg.tracker, bank.tracker_params)
+        if device_tracker:
+            return DeviceTracker(bank.cfg.tracker, bank.tracker_params)
+        return RecurrentTracker(
+            bank.cfg.tracker, bank.tracker_params,
+            assign="device" if device_assign else "host")
     return SortTracker()
 
 
@@ -198,7 +210,8 @@ class RunResult:
     # "process" is CPU actually spent in the stage's thread(s)
     stage_seconds: Optional[Dict[str, Dict[str, float]]] = None
     # device dispatches per stage ("proxy" plan calls, "detect" detector
-    # batches, "track" crop-CNN calls)
+    # batches, "track" crop-CNN calls plus the tracker's own: one per
+    # device step, one per chunk for the device tracker)
     dispatches: Optional[Dict[str, int]] = None
 
 

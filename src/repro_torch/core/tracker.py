@@ -1,6 +1,6 @@
 """Recurrent reduced-rate tracker (§3.4), inference only.
 
-The port of the JAX package's ``repro.core.tracker`` host path:
+The port of the JAX package's ``repro.core.tracker``:
 
   1. detection-level features: the crop CNN (``CropCNN``, on the device)
      over each detection's image crop, batched per chunk by
@@ -14,9 +14,18 @@ Every host head goes through ``core.fastmath``'s ``np_*`` functions, so
 fed the same detections and crop embeddings the port's tracks are
 bit-identical to the reference's host tracker.
 
+Steps 2 and 3 also run on the device, through the ``track_step`` kernel
+(``kernels/track_step``), with the same tracks bit for bit:
+``RecurrentTracker(assign="device")`` launches it once per frame and
+replays its outputs onto the host track objects; ``DeviceTracker`` keeps
+the track state in slot buffers on the device for a whole chunk (one
+launch per frame, the slot bookkeeping in PyTorch ops on the device) and
+replays the chunk's events on the host once.  Both run on the device of
+the crop CNN's weights.
+
 Parameters are a dict: ``"crop_cnn"`` -> ``CropCNN`` and the reference's
 ``"det_proj"``, ``"gru"`` and ``"match"`` dicts of numpy arrays.
-Training, the device tracker and ``assign="device"`` are not ported yet.
+Training and the cross-stream track broker are not ported yet.
 """
 from __future__ import annotations
 
@@ -33,6 +42,8 @@ from repro_torch.configs.multiscope import TrackerConfig
 from repro_torch.core import fastmath as fm
 from repro_torch.core.detector import SameConv2d, next_bucket, to_device
 from repro_torch.core.hungarian import BIG, hungarian_device_np
+from repro_torch.kernels.track_step import (LOG1P_TABLE_2D, pack_params,
+                                            track_step)
 
 BOX_FEATS = 6      # cx, cy, w, h, t_elapsed/8, log1p(t_elapsed)
 REL_FEATS = 6      # dcx, dcy, dcx/te, dcy/te, dw, dh (candidate vs track)
@@ -143,24 +154,49 @@ def _host_params(params) -> Dict[str, np.ndarray]:
 
 
 class RecurrentTracker:
-    """Online inference: incremental GRU states + JV matching, on the
-    host.  The crop CNN runs on the device, once per chunk under the
-    executor (``embed_dets_chunk``) or once per frame when ``step`` is
-    given no embeddings."""
+    """Online inference: incremental GRU states + JV matching.  The crop
+    CNN runs on the device, once per chunk under the executor
+    (``embed_dets_chunk``) or once per frame when ``step`` is given no
+    embeddings.  With ``assign="host"`` the rest of a step runs on the
+    host in numpy; with ``assign="device"`` it is one ``track_step``
+    launch per frame (detection features, match logits, cost, JV
+    assignment and both GRU batches), whose outputs the host replays onto
+    its track objects."""
 
     def __init__(self, cfg: TrackerConfig, params, max_misses: int = 2,
-                 min_hits: int = 2):
+                 min_hits: int = 2, assign: str = "host"):
+        if assign not in ("host", "device"):
+            raise ValueError(f"assign must be 'host' or 'device', got "
+                             f"{assign!r}")
         self.cfg = cfg
         self.params = params
         self.np_params = _host_params(params)
         self.max_misses = max_misses
         self.min_hits = min_hits
+        self.assign = assign
+        self.device = next(params["crop_cnn"].parameters()).device
         self.active: List[_ActiveTrack] = []
         self.finished: List[_ActiveTrack] = []
         self._next_id = 0
         self._last_frame: Optional[int] = None
-        # device dispatches issued by this tracker (per-frame crop CNN)
+        # device-step operands, moved to the device once (lazily: a host
+        # tracker never needs them)
+        self._packed = None
+        # device dispatches issued by this tracker (per-frame crop CNN,
+        # track-step launches; one per chunk for DeviceTracker's scan)
         self.dispatches = 0
+
+    def _device_operands(self):
+        """(packed heads, log1p table (T, 1), threshold (1, 1)) on the
+        tracker's device."""
+        if self._packed is None:
+            dev = self.device
+            self._packed = (
+                pack_params(self.np_params, dev),
+                torch.from_numpy(LOG1P_TABLE_2D).to(dev),
+                torch.full((1, 1), self.cfg.match_threshold,
+                           dtype=torch.float32, device=dev))
+        return self._packed
 
     def _det_feats_np(self, x: np.ndarray, boxes: np.ndarray,
                       te: np.ndarray) -> np.ndarray:
@@ -232,19 +268,25 @@ class RecurrentTracker:
             np.zeros((0, 4), np.float32)
 
         T = len(self.active)
-        pairs = []
-        if T > 0 and n > 0:
-            feats = self._det_feats_np(
-                x, boxes, np.full((n,), te_scalar, np.float32))
-            hs = np.stack([t.h for t in self.active])
-            tboxes = np.stack([t.boxes[-1] for t in self.active])
-            te_arr = np.full((n,), max(te_scalar, 1.0), np.float32)
-            logits = self._match_np(hs, tboxes, feats, boxes, te_arr)
-            probs = fm.np_sigmoid(logits)
-            cost = np.where(
-                probs >= np.float32(cfg.match_threshold),
-                np.float32(1.0) - probs, np.float32(BIG))
-            pairs = hungarian_device_np(cost)
+        use_dev = self.assign == "device" and n > 0
+        h_upd = h_new = None
+        if use_dev:
+            pairs, h_upd, h_new = self._device_step(
+                frame_idx, te_scalar, x, boxes)
+        else:
+            pairs = []
+            if T > 0 and n > 0:
+                feats = self._det_feats_np(
+                    x, boxes, np.full((n,), te_scalar, np.float32))
+                hs = np.stack([t.h for t in self.active])
+                tboxes = np.stack([t.boxes[-1] for t in self.active])
+                te_arr = np.full((n,), max(te_scalar, 1.0), np.float32)
+                logits = self._match_np(hs, tboxes, feats, boxes, te_arr)
+                probs = fm.np_sigmoid(logits)
+                cost = np.where(
+                    probs >= np.float32(cfg.match_threshold),
+                    np.float32(1.0) - probs, np.float32(BIG))
+                pairs = hungarian_device_np(cost)
 
         matched_t, matched_d = set(), set()
         upd_feats, upd_tracks = [], []
@@ -254,6 +296,8 @@ class RecurrentTracker:
             gap = float(frame_idx - t.frames[-1])
             upd_tracks.append(t)
             upd_feats.append((di, gap))
+            if use_dev:
+                t.h = np.asarray(h_upd[ti], np.float32)
             t.frames.append(frame_idx)
             t.boxes.append(dets[di, :4].astype(np.float32))
             t.misses = 0
@@ -274,11 +318,21 @@ class RecurrentTracker:
 
         # GRU advance: matched-track updates (t_elapsed = within-track
         # gap, h = track state) and new-track starts (t_elapsed = 0,
-        # h = 0) reuse the crop embeddings — no second CNN pass
+        # h = 0) reuse the crop embeddings — no second CNN pass.  On the
+        # device path both GRU batches already ran in the kernel; the
+        # loop only scatters the returned rows.
         new_idx = [di for di in range(n) if di not in matched_d]
         n_upd = len(upd_tracks)
         m = n_upd + len(new_idx)
-        if m > 0:
+        if use_dev:
+            for di in new_idx:
+                t = _ActiveTrack(self._next_id,
+                                 np.asarray(h_new[di], np.float32),
+                                 [frame_idx],
+                                 [dets[di, :4].astype(np.float32)])
+                self.active.append(t)
+                self._next_id += 1
+        elif m > 0:
             rows = [di for di, _ in upd_feats] + new_idx
             te_u = np.asarray([g for _, g in upd_feats]
                               + [0.0] * len(new_idx), np.float32)
@@ -301,12 +355,52 @@ class RecurrentTracker:
             self.finished.extend(self.active[self.cfg.max_tracks:])
             self.active = self.active[:self.cfg.max_tracks]
 
+    def _device_step(self, frame_idx: int, te_scalar: float,
+                     x: np.ndarray, boxes: np.ndarray):
+        """One tracker step as one ``track_step`` launch: the active set
+        (live tracks as the row prefix, in active-list order) and the
+        frame's detections (the column prefix) packed into Q slots.
+        Returns (pairs, h_upd rows per track row, h_new rows per
+        detection column) on the host.  The kernel restricts its JV
+        solve to the ``assoc_side`` square the host solves, so any Q
+        gives the host tracker's result."""
+        T, n = len(self.active), len(boxes)
+        e, H = self.cfg.embed_dim, self.cfg.rnn_dim
+        Q = next_bucket(max(T, n, 1), min_bucket=8)
+        h_r = np.zeros((Q, H), np.float32)
+        tbox_r = np.zeros((Q, 4), np.float32)
+        alive_r = np.zeros((Q,), np.float32)
+        te_gap_r = np.zeros((Q,), np.float32)
+        for ti, t in enumerate(self.active):
+            h_r[ti] = t.h
+            tbox_r[ti] = t.boxes[-1]
+            alive_r[ti] = 1.0
+            te_gap_r[ti] = frame_idx - t.frames[-1]
+        te_match = np.full((Q,), te_scalar, np.float32)
+        x_p = np.zeros((Q, e), np.float32)
+        x_p[:n] = x
+        dbox = np.zeros((Q, 4), np.float32)
+        dbox[:n] = boxes
+        dvalid = np.zeros((Q,), np.float32)
+        dvalid[:n] = 1.0
+        params, table, thr = self._device_operands()
+        self.dispatches += 1
+        ops = [torch.from_numpy(a[None]).to(self.device)
+               for a in (h_r, tbox_r, alive_r, te_gap_r, te_match, x_p,
+                         dbox, dvalid)]
+        matched, h_upd, h_new = (o[0].cpu().numpy() for o in
+                                 track_step(*ops, thr, params, table))
+        pairs = [(ti, int(matched[ti])) for ti in range(T)
+                 if matched[ti] >= 0]
+        return pairs, h_upd, h_new
+
     def step_chunk(self, frame_ids: Sequence[int],
                    dets_per_frame: Sequence[np.ndarray],
                    frames: Sequence[np.ndarray],
                    embeds: Optional[Sequence[np.ndarray]] = None
                    ) -> None:
-        """Feed one chunk in frame order."""
+        """Feed one chunk in frame order (``DeviceTracker`` overrides
+        this with its chunk scan)."""
         for k, f in enumerate(frame_ids):
             self.step(int(f), dets_per_frame[k], frames[k],
                       det_embeds=None if embeds is None else embeds[k])
@@ -315,6 +409,237 @@ class RecurrentTracker:
         tracks = self.finished + self.active
         return [t.as_array() for t in tracks
                 if len(t.frames) >= self.min_hits]
+
+
+# sorting key for dead slots: past any live track's recency rank
+_BIGK = 1 << 30
+
+
+def _set_drop(buf: torch.Tensor, idx: torch.Tensor, val) -> torch.Tensor:
+    """``buf.at[idx].set(val, mode="drop")``: rows of ``idx`` equal to
+    len(buf) are dropped.  The write goes to a buffer one row longer, so
+    the dropped index is never out of range on the device."""
+    ext = torch.cat([buf, buf[:1]])
+    ext[idx] = val
+    return ext[:buf.shape[0]]
+
+
+def _device_chunk_scan(carry, fidx: Sequence[int], te_m: Sequence[float],
+                       x: torch.Tensor, dbox: torch.Tensor,
+                       dvalid: torch.Tensor, thr, params, table, *,
+                       max_misses: int, max_tracks: int):
+    """The whole chunk's tracker recurrence on the device: the JAX
+    package's ``_device_chunk_scan`` with its ``lax.scan`` as a loop over
+    the chunk's frames, one ``track_step`` launch per frame and the slot
+    bookkeeping in PyTorch ops on the device.
+
+    carry (slot space, Q slots, on the device): h (Q, H), tbox (Q, 4),
+    alive (Q,) f32, last_f/misses/length/order (Q,) int32, next_key ()
+    int32 (the next active-list rank to issue).  Per frame b: its index
+    fidx[b] and the gap te_m[b] since the previously processed frame (0
+    for the first frame of a stream); x (B, Q, e), dbox (B, Q, 4) and
+    dvalid (B, Q) hold each frame's detections as a column prefix.
+
+    ``order`` is the host tracker's active-LIST position (matched tracks
+    keep their rank, new tracks append, a max_tracks overflow re-sorts by
+    track length); each step gathers slots into rank order, so the kernel
+    sees exactly the rows the per-frame path would build.
+
+    Returns the per-frame events, stacked on the device: matched
+    detection column per slot (or -1), assigned slot per detection
+    column (Q for none), and the post-step h per slot."""
+    h, tbox, alive, last_f, misses, length, order, next_key = carry
+    Q = h.shape[0]
+    dev = h.device
+    slot = torch.arange(Q, dtype=torch.int32, device=dev)
+    dead_key = _BIGK + slot
+    m_ev, new_ev, h_ev = [], [], []
+    for b, f in enumerate(fidx):
+        xk, dbk, dvk = x[b], dbox[b], dvalid[b]
+        live = alive > 0
+        # ranks first, dead slots after (keys are unique: stable or not,
+        # the sort is the same; stable as jnp.argsort is)
+        perm = torch.argsort(torch.where(live, order, dead_key), stable=True)
+        alive_r = alive[perm]
+        te_gap_r = torch.where(alive_r > 0,
+                               (f - last_f[perm]).to(torch.float32), 0.0)
+        te_match = torch.full((1, Q), float(te_m[b]), device=dev)
+        matched_r, h_upd_r, h_new = (o[0] for o in track_step(
+            h[perm][None], tbox[perm][None], alive_r[None],
+            te_gap_r[None], te_match, xk[None], dbk[None], dvk[None], thr,
+            params, table))
+        # back to slot space; apply matched-track updates
+        m_slot = torch.empty_like(matched_r)
+        m_slot[perm] = matched_r
+        is_m = m_slot >= 0
+        mcol = m_slot.clamp(0, Q - 1).long()
+        h_upd = torch.zeros_like(h)
+        h_upd[perm] = h_upd_r
+        h = torch.where(is_m[:, None], h_upd, h)
+        tbox = torch.where(is_m[:, None], dbk[mcol], tbox)
+        last_f = torch.where(is_m, f, last_f)
+        length = torch.where(is_m, length + 1, length)
+        misses = torch.where(is_m, 0, misses)
+        # age out unmatched live tracks
+        aged = live & ~is_m
+        misses = torch.where(aged, misses + 1, misses)
+        alive = torch.where(aged & (misses > max_misses), 0.0, alive)
+        # unmatched detections start new tracks in ascending free slots,
+        # ranks appended after every existing track (host list append)
+        det_hit = _set_drop(torch.zeros(Q, dtype=torch.int32, device=dev),
+                            torch.where(matched_r >= 0, matched_r, Q).long(),
+                            1)
+        new_mask = (dvk > 0) & (det_hit == 0)
+        free = alive <= 0
+        free_rank = torch.cumsum(free.to(torch.int32), 0,
+                                 dtype=torch.int32) - 1
+        slot_for_rank = _set_drop(torch.full_like(slot, Q),
+                                  torch.where(free, free_rank, Q).long(),
+                                  slot)
+        new_rank = torch.cumsum(new_mask.to(torch.int32), 0,
+                                dtype=torch.int32) - 1
+        tgt = torch.where(new_mask,
+                          slot_for_rank[new_rank.clamp(0, Q - 1).long()], Q)
+        ti = tgt.long()
+        alive = _set_drop(alive, ti, 1.0)
+        h = _set_drop(h, ti, h_new)
+        tbox = _set_drop(tbox, ti, dbk)
+        last_f = _set_drop(last_f, ti, f)
+        misses = _set_drop(misses, ti, 0)
+        length = _set_drop(length, ti, 1)
+        order = _set_drop(order, ti, next_key + new_rank)
+        next_key = next_key + new_mask.sum(dtype=torch.int32)
+        # capacity overflow: keep the max_tracks longest tracks (stable on
+        # list order, the host's in-place sort) and renumber ranks;
+        # jnp.lexsort((a, b)) is two stable sorts, the secondary key first
+        over = (alive > 0).sum() > max_tracks
+        a_live = alive > 0
+        by_rank = torch.argsort(torch.where(a_live, order, dead_key),
+                                stable=True)
+        by_len = torch.where(a_live, -length, _BIGK)[by_rank]
+        perm2 = by_rank[torch.argsort(by_len, stable=True)]
+        pos = torch.empty_like(slot)
+        pos[perm2] = slot
+        alive = torch.where(over & a_live & (pos >= max_tracks), 0.0, alive)
+        order = torch.where(over, pos, order)
+        next_key = torch.where(over, max_tracks, next_key)
+        m_ev.append(m_slot)
+        new_ev.append(tgt)
+        h_ev.append(h)
+    return torch.stack(m_ev), torch.stack(new_ev), torch.stack(h_ev)
+
+
+class DeviceTracker(RecurrentTracker):
+    """Chunk-scan tracker: the track state of a whole chunk stays in
+    padded slot buffers on the device, with one ``track_step`` launch per
+    frame (``_device_chunk_scan``), and the host materialises track
+    objects once per chunk by replaying the scan's (matched, new-slot, h)
+    events.  Same tracks, bit for bit, as ``RecurrentTracker``; a chunk
+    counts as one dispatch, as the JAX package's one scan dispatch."""
+
+    def __init__(self, cfg: TrackerConfig, params, max_misses: int = 2,
+                 min_hits: int = 2):
+        super().__init__(cfg, params, max_misses=max_misses,
+                         min_hits=min_hits, assign="device")
+
+    def step_chunk(self, frame_ids: Sequence[int],
+                   dets_per_frame: Sequence[np.ndarray],
+                   frames: Sequence[np.ndarray],
+                   embeds: Optional[Sequence[np.ndarray]] = None
+                   ) -> None:
+        B = len(frame_ids)
+        if B == 0:
+            return
+        cfg = self.cfg
+        if embeds is None:
+            self.dispatches += 1
+            embeds = embed_dets_chunk(self.params, cfg, frames,
+                                      dets_per_frame)
+        T = len(self.active)
+        D = max((len(d) for d in dets_per_frame), default=0)
+        Q = next_bucket(max(T, cfg.max_tracks) + D, min_bucket=8)
+        H, e = cfg.rnn_dim, cfg.embed_dim
+        h0 = np.zeros((Q, H), np.float32)
+        tbox0 = np.zeros((Q, 4), np.float32)
+        alive0 = np.zeros((Q,), np.float32)
+        ints0 = np.zeros((4, Q), np.int32)     # last_f, misses, length, order
+        for i, t in enumerate(self.active):
+            h0[i] = t.h
+            tbox0[i] = t.boxes[-1]
+            alive0[i] = 1.0
+            ints0[:, i] = (t.frames[-1], t.misses, len(t.frames), i)
+        fidx = [int(f) for f in frame_ids]
+        te_m, prev = [], self._last_frame
+        for f in fidx:
+            te_m.append(0.0 if prev is None else float(f - prev))
+            prev = f
+        x = np.zeros((B, Q, e), np.float32)
+        dbox = np.zeros((B, Q, 4), np.float32)
+        dvalid = np.zeros((B, Q), np.float32)
+        for k in range(B):
+            n = len(dets_per_frame[k])
+            if n:
+                x[k, :n] = embeds[k]
+                dbox[k, :n] = np.asarray(
+                    dets_per_frame[k], np.float32)[:, :4]
+                dvalid[k, :n] = 1.0
+        dev = self.device
+        ints = torch.from_numpy(ints0).to(dev)
+        carry = (torch.from_numpy(h0).to(dev),
+                 torch.from_numpy(tbox0).to(dev),
+                 torch.from_numpy(alive0).to(dev), ints[0], ints[1],
+                 ints[2], ints[3],
+                 torch.tensor(T, dtype=torch.int32, device=dev))
+        params, table, thr = self._device_operands()
+        self.dispatches += 1
+        m_ev, new_ev, h_ev = (t.cpu().numpy() for t in _device_chunk_scan(
+            carry, fidx, te_m, torch.from_numpy(x).to(dev),
+            torch.from_numpy(dbox).to(dev), torch.from_numpy(dvalid).to(dev),
+            thr, params, table, max_misses=self.max_misses,
+            max_tracks=cfg.max_tracks))
+
+        # replay the event stream onto host track objects; ``slots``
+        # stays parallel to ``self.active``
+        slots = list(range(T))
+        for k in range(B):
+            f = fidx[k]
+            dets = dets_per_frame[k]
+            ms, hs = m_ev[k], h_ev[k]
+            keep_t: List[_ActiveTrack] = []
+            keep_s: List[int] = []
+            for t, s in zip(self.active, slots):
+                di = int(ms[s])
+                if di >= 0:
+                    t.h = hs[s].copy()
+                    t.frames.append(f)
+                    t.boxes.append(dets[di, :4].astype(np.float32))
+                    t.misses = 0
+                    keep_t.append(t)
+                    keep_s.append(s)
+                else:
+                    t.misses += 1
+                    if t.misses > self.max_misses:
+                        self.finished.append(t)
+                    else:
+                        keep_t.append(t)
+                        keep_s.append(s)
+            self.active, slots = keep_t, keep_s
+            for di in range(len(dets)):
+                s = int(new_ev[k][di])
+                if s < Q:
+                    t = _ActiveTrack(self._next_id, hs[s].copy(), [f],
+                                     [dets[di, :4].astype(np.float32)])
+                    self.active.append(t)
+                    slots.append(s)
+                    self._next_id += 1
+            if len(self.active) > cfg.max_tracks:
+                ranked = sorted(zip(self.active, slots),
+                                key=lambda ts: -len(ts[0].frames))
+                self.finished.extend(
+                    t for t, _ in ranked[cfg.max_tracks:])
+                self.active = [t for t, _ in ranked[:cfg.max_tracks]]
+                slots = [s for _, s in ranked[:cfg.max_tracks]]
+            self._last_frame = f
 
 
 def embed_dets_chunk(params, cfg: TrackerConfig,

@@ -19,6 +19,17 @@ Kernels (sources in ``repro_torch/csrc/``, built by ``_build``):
   window_gather — crop one size class of windows out of a chunk of
                   frames by a (frame, cy, cx) table (replaces
                   ``kernels/window_gather``'s ``window_gather_batch``).
+  assign        — batched Jonker-Volgenant assignment, one warp per
+                  matrix (replaces ``kernels/assign``'s ``assign_pallas``;
+                  its solve, ``csrc/jv.cuh``, also runs inside
+                  track_step).
+  track_step    — one fused recurrent-tracker step for K streams: match
+                  MLP, cost, JV and both GRU batches (replaces
+                  ``kernels/track_step``'s ``track_step_pallas``).
+
+assign and track_step give the host tracker's f32 bits: their math goes
+through ``csrc/fastmath.cuh`` and they are built with -fmad=false
+(``_build.SOURCE_FLAGS``).
 """
 from __future__ import annotations
 

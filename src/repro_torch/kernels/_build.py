@@ -19,12 +19,21 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 SRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# flags added per source.  The tracker kernels must give the host
+# tracker's f32 bits: ``fastmath.cuh`` writes every rounding out with
+# intrinsics, and -fmad=false keeps nvcc from contracting any plain
+# multiply and add it missed into an fma.  No source is ever built with
+# --use_fast_math.
+SOURCE_FLAGS: Dict[str, Tuple[str, ...]] = {
+    "assign": ("-fmad=false",),
+    "track_step": ("-fmad=false",),
+}
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}      # guarded-by: _LOCK
@@ -47,12 +56,17 @@ def nvcc_path() -> str:
                        "compiled at first use and need the CUDA toolkit")
 
 
+def nvcc_flags(name: str) -> Tuple[str, ...]:
+    """The nvcc flags of ``csrc/<name>.cu``."""
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
+
+
 def library_path(name: str) -> Path:
     src = SRC_DIR / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
     for hdr in sorted(SRC_DIR.glob("*.cuh")):
         h.update(hdr.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(nvcc_flags(name)).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -78,7 +92,7 @@ def build(names: Optional[Sequence[str]] = None) -> Dict[str, float]:
     procs = {}
     for n, out in todo.items():
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{n}.cu")]
+        cmd = [nvcc, *nvcc_flags(n), "-o", str(tmp), str(SRC_DIR / f"{n}.cu")]
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True),
                     tmp, out, time.perf_counter())

@@ -1,0 +1,154 @@
+"""The port's device tracker flavours against its host tracker and the JAX
+package's trackers, on the CPU, at the reduced tracker config.
+
+``RecurrentTracker(assign="device")`` (one ``track_step`` per frame) and
+``DeviceTracker`` (the chunk's recurrence in slot buffers) run here on
+CPU tensors, so ``track_step`` takes its plain version.  Fed the same
+detections, crop embeddings and weights (the reference's, moved by
+``repro_torch.params``), every flavour must give the host tracker's
+tracks and GRU states bit for bit, and the reference's same flavour must
+give them too.  The streams have frame gaps > 1, objects that drop out
+and come back, and a max_tracks overflow (more detections than slots).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+
+import repro.core.tracker as jtrk  # noqa: E402
+from repro.configs.multiscope import MULTISCOPE_PIPELINE as J_CFG  # noqa: E402
+
+import repro_torch.core.pipeline as tpl  # noqa: E402
+import repro_torch.core.tracker as ttrk  # noqa: E402
+from repro_torch import params as bridge  # noqa: E402
+from repro_torch.configs.multiscope import MULTISCOPE_PIPELINE as T_CFG  # noqa: E402
+from repro_torch.kernels.track_step import track_step  # noqa: E402
+
+CFG = J_CFG.reduced().tracker          # embed 16, GRU 32, max_tracks 32
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """Small eager ops run faster on one thread than on many."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def weights():
+    jp = jtrk.init_tracker(CFG, seed=3)
+    tp = bridge.tracker_from_params(CFG, jax.tree.map(np.asarray, jp), "cpu")
+    return jp, tp
+
+
+def _stream(seed, n_frames, n_obj):
+    """Per frame (frame index, (n, 5) detections, (n, e) embeddings):
+    objects moving linearly, each seen with probability 0.8, shuffled;
+    frame gaps of 1 to 3."""
+    rng = np.random.default_rng(seed)
+    pos = rng.random((n_obj, 2))
+    vel = (rng.random((n_obj, 2)) - 0.5) * 0.02
+    emb = rng.standard_normal((n_obj, CFG.embed_dim)).astype(np.float32)
+    f, out = 0, []
+    for _ in range(n_frames):
+        idx = np.flatnonzero(rng.random(n_obj) < 0.8)
+        rng.shuffle(idx)
+        dets = np.zeros((len(idx), 5), np.float32)
+        dets[:, :2] = pos[idx] + vel[idx] * f
+        dets[:, 2:4] = 0.05
+        dets[:, 4] = 0.9
+        x = (emb[idx] + 0.1 * rng.standard_normal((len(idx), CFG.embed_dim))
+             ).astype(np.float32)
+        out.append((f, dets, x))
+        f += int(rng.integers(1, 4))
+    return out
+
+
+def _run(tracker, data, chunk):
+    for c in range(0, len(data), chunk):
+        part = data[c:c + chunk]
+        tracker.step_chunk([d[0] for d in part], [d[1] for d in part],
+                           [None] * len(part), embeds=[d[2] for d in part])
+    return tracker
+
+
+def _assert_same(a, b):
+    ra, rb = a.result(), b.result()
+    assert len(ra) == len(rb) > 0
+    for x, y in zip(ra, rb):
+        np.testing.assert_array_equal(x, y)
+    assert len(a.active) == len(b.active)
+    for s, t in zip(a.active, b.active):
+        assert s.track_id == t.track_id and s.misses == t.misses
+        np.testing.assert_array_equal(np.asarray(s.h).view(np.int32),
+                                      np.asarray(t.h).view(np.int32))
+
+
+def _port(kind, tp):
+    if kind == "scan":
+        return ttrk.DeviceTracker(CFG, tp)
+    return ttrk.RecurrentTracker(CFG, tp, assign=kind)
+
+
+def _reference(kind, jp):
+    if kind == "scan":
+        return jtrk.DeviceTracker(CFG, jp)
+    return jtrk.RecurrentTracker(CFG, jp, assign=kind)
+
+
+@pytest.mark.parametrize("kind,chunk", [("device", 1), ("device", 6),
+                                        ("scan", 1), ("scan", 6)])
+def test_device_flavours_match_host_and_reference(weights, kind, chunk):
+    jp, tp = weights
+    data = _stream(1, 18, 10)
+    host = _run(ttrk.RecurrentTracker(CFG, tp), data, chunk)
+    dev = _run(_port(kind, tp), data, chunk)
+    _assert_same(dev, host)
+    _assert_same(dev, _run(_reference(kind, jp), data, chunk))
+
+
+@pytest.mark.parametrize("kind", ["device", "scan"])
+def test_max_tracks_overflow(weights, kind):
+    """40 objects against 32 slots of capacity: the overflow keeps the
+    longest tracks (stable on list order) in every flavour."""
+    jp, tp = weights
+    data = _stream(2, 8, 40)
+    assert max(len(d[1]) for d in data) > CFG.max_tracks
+    host = _run(ttrk.RecurrentTracker(CFG, tp), data, 4)
+    assert len(host.active) == CFG.max_tracks
+    dev = _run(_port(kind, tp), data, 4)
+    _assert_same(dev, host)
+    _assert_same(dev, _run(_reference(kind, jp), data, 4))
+
+
+def test_dispatch_counts(weights):
+    """A device step counts one dispatch per frame with detections, the
+    chunk scan one per chunk, as the reference counts them; the plain
+    version on CPU tensors counts no kernel launch."""
+    _, tp = weights
+    data = _stream(4, 6, 5)
+    before = track_step.launches
+    dev = _run(ttrk.RecurrentTracker(CFG, tp, assign="device"), data, 3)
+    scan = _run(ttrk.DeviceTracker(CFG, tp), data, 3)
+    host = _run(ttrk.RecurrentTracker(CFG, tp), data, 3)
+    assert dev.dispatches == sum(len(d[1]) > 0 for d in data)
+    assert scan.dispatches == 2
+    assert host.dispatches == 0
+    assert track_step.launches == before
+
+
+def test_make_tracker_selects_flavour(weights):
+    _, tp = weights
+    cfg = T_CFG.reduced()
+    bank = tpl.ModelBank(cfg, {}, tracker_params=tp, device="cpu")
+    p = tpl.PipelineParams("ssd-lite", (128, 80), 0.5)
+    assert tpl.make_tracker(bank, p).assign == "host"
+    assert tpl.make_tracker(bank, p, device_assign=True).assign == "device"
+    assert isinstance(tpl.make_tracker(bank, p, device_tracker=True),
+                      ttrk.DeviceTracker)
+    with pytest.raises(ValueError):
+        ttrk.RecurrentTracker(CFG, tp, assign="gpu")

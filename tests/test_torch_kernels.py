@@ -9,12 +9,16 @@ arithmetic with ``check_plan`` — cells whose sigmoid lies within
 ``FLIP_ULPS`` f32 ulps of the threshold may flip, nothing else may —
 and outside that band the port's grids and stats equal the JAX ones.
 window_gather_batch: a pure copy, so exact.
+assign and track_step: the port's plain versions, the JAX package's
+Pallas kernels in interpret mode and its numpy oracles agree bit for bit
+(columns, and f32 outputs compared as bits).
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.proxy_plan.kernel import proxy_plan_pallas  # noqa: E402
@@ -24,6 +28,20 @@ from repro.kernels.window_gather.kernel import (  # noqa: E402
     window_gather_batch_pallas)
 from repro.kernels.window_gather.ref import (  # noqa: E402
     window_gather_batch_ref as jx_gather)
+from repro.kernels.assign.kernel import assign_pallas, solve_one  # noqa: E402
+from repro.kernels.assign.ops import _solve_vmapped  # noqa: E402
+from repro.core.hungarian import (  # noqa: E402
+    BIG, hungarian_batch as jx_hungarian_batch, solve_device_np)
+from repro.kernels.track_step import (  # noqa: E402
+    pack_params as jx_pack, track_step_ref as jx_step_ref)
+from repro.kernels.track_step.kernel import track_step_pallas  # noqa: E402
+from repro.kernels.track_step.ops import (  # noqa: E402
+    LOG1P_TABLE_2D as JX_TABLE)
+from repro_torch.core.hungarian import hungarian_batch  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.assign import assign_batch  # noqa: E402
+from repro_torch.kernels.track_step import (  # noqa: E402
+    LOG1P_TABLE_2D, pack_params, track_step)
 from repro_torch.kernels.proxy_plan import (  # noqa: E402
     proxy_plan, span_matrix)
 from repro_torch.kernels.proxy_plan.ops import check_plan  # noqa: E402
@@ -133,15 +151,27 @@ def test_window_gather_batch_matches_jax(B, H, W, sizes):
         np.testing.assert_array_equal(got[rows], np.asarray(pal))
 
 
+def _counts():
+    return (proxy_plan.launches, window_gather_batch.launches,
+            assign_batch.launches, track_step.launches)
+
+
 def test_wrappers_run_plain_version_on_cpu_tensors():
     """A CPU tensor takes the plain version: no launch is counted."""
-    before = (proxy_plan.launches, window_gather_batch.launches)
+    before = _counts()
     proxy_plan(torch.ones(1, 2, 2, 4), torch.ones(4), torch.zeros(1), 0.5,
                grid_hw=(2, 2))
     window_gather_batch(torch.ones(1, 32, 32, 3),
                         np.zeros((1, 3), np.int32), win_h=16, win_w=16,
                         cell=16)
-    assert (proxy_plan.launches, window_gather_batch.launches) == before
+    assert assign_batch(torch.ones(2, 3, 3)).shape == (2, 3)
+    rng = np.random.default_rng(0)
+    arrs, thr, np_params = _track_step_operands(rng, 1, 8, 4, 4, 4)
+    out = track_step(*(torch.from_numpy(a) for a in arrs),
+                     torch.from_numpy(thr), pack_params(np_params, "cpu"),
+                     torch.from_numpy(LOG1P_TABLE_2D))
+    assert [o.device.type for o in out] == ["cpu"] * 3
+    assert _counts() == before
 
 
 def test_wrappers_reject_other_devices():
@@ -154,6 +184,10 @@ def test_wrappers_reject_other_devices():
         window_gather_batch(torch.empty((1, 32, 32, 3), device="meta"),
                             np.zeros((1, 3), np.int32), win_h=16,
                             win_w=16, cell=16)
+    with pytest.raises(ValueError):
+        assign_batch(torch.empty((1, 4, 4), device="meta"))
+    with pytest.raises(ValueError):
+        track_step(*([torch.empty((1, 8, 4), device="meta")] + [None] * 10))
 
 
 @pytest.mark.parametrize("src,fn,ops", [
@@ -161,6 +195,9 @@ def test_wrappers_reject_other_devices():
      "repro_torch.kernels.proxy_plan.ops"),
     ("window_gather.cu", "window_gather_batch_launch",
      "repro_torch.kernels.window_gather.ops"),
+    ("assign.cu", "assign_launch", "repro_torch.kernels.assign.ops"),
+    ("track_step.cu", "track_step_launch",
+     "repro_torch.kernels.track_step.ops"),
 ])
 def test_ctypes_signature_matches_c_source(src, fn, ops):
     """The ctypes argtypes each wrapper declares match the C launcher's
@@ -183,3 +220,196 @@ def test_ctypes_signature_matches_c_source(src, fn, ops):
             assert param.startswith("int "), param
             want.append(ctypes.c_int)
     assert list(importlib.import_module(ops).LAUNCH_ARGTYPES) == want
+
+
+def test_bit_matched_kernels_build_without_fma_contraction(tmp_path,
+                                                           monkeypatch):
+    """track_step.cu and assign.cu are compiled with -fmad=false (and no
+    source with --use_fast_math), so nvcc cannot fuse a multiply and an
+    add that fastmath.cuh left separate; the other kernels keep the
+    common flags."""
+    cmds = {}
+
+    class FakeNvcc:
+        def __init__(self, cmd, **_):
+            out = cmd[cmd.index("-o") + 1]
+            cmds[cmd[-1].rsplit("/", 1)[-1]] = cmd
+            open(out, "w").close()
+            self.returncode = 0
+
+        def communicate(self):
+            return "", None
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "nvcc_path", lambda: "nvcc")
+    monkeypatch.setattr(_build.subprocess, "Popen", FakeNvcc)
+    _build.build()
+    assert set(cmds) == {f"{n}.cu" for n in _build.sources()}
+    assert {"assign.cu", "track_step.cu"} <= set(cmds)
+    for src, cmd in cmds.items():
+        assert "--use_fast_math" not in cmd and "-use_fast_math" not in cmd
+        assert ("-fmad=false" in cmd) == (src in ("assign.cu",
+                                                  "track_step.cu")), src
+        assert "arch=compute_90a,code=sm_90a" in cmd
+
+
+# ---------------------------------------------------------------------------
+# assign: the JV solve
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("K,N", [(1, 1), (3, 4), (2, 9), (4, 16)])
+def test_assign_matches_jax(K, N):
+    """Costs quantised to 1/64, so f32 potentials are exact and equal-cost
+    ties are frequent: the first-index tie-break must agree too."""
+    rng = np.random.default_rng(10 * K + N)
+    costs = rng.integers(0, 256, (K, N, N)).astype(np.float32) / 64.0
+    got = assign_batch(torch.from_numpy(costs)).numpy()
+    assert got.dtype == np.int32 and got.shape == (K, N)
+    np.testing.assert_array_equal(
+        got, np.asarray(_solve_vmapped(jnp.asarray(costs))))
+    np.testing.assert_array_equal(
+        got, np.asarray(assign_pallas(jnp.asarray(costs), interpret=True)))
+    for k in range(K):
+        assert sorted(got[k]) == list(range(N))
+
+
+@pytest.mark.parametrize("levels", [4, 256])
+def test_assign_eff_n_restriction(levels):
+    """eff_n < N solves exactly the leading square (rows past it report
+    column 0), whatever the padding holds; few cost levels give ties."""
+    rng = np.random.default_rng(levels)
+    N, eff = 16, 6
+    costs = rng.integers(0, levels, (3, N, N)).astype(np.float32) / 64.0
+    got = assign_batch(torch.from_numpy(costs), eff_n=eff).numpy()
+    ref = np.asarray(jax.vmap(lambda c: solve_one(c, eff_n=eff))(
+        jnp.asarray(costs)))
+    np.testing.assert_array_equal(got, ref)
+    for k in range(3):
+        np.testing.assert_array_equal(got[k, :eff],
+                                      solve_device_np(costs[k, :eff, :eff]))
+        np.testing.assert_array_equal(got[k, eff:], 0)
+
+
+def test_assign_raises_instead_of_looping():
+    """Non-finite costs never let the search end: the step cap raises
+    rather than return a partial answer or loop for ever."""
+    with pytest.raises(RuntimeError, match="did not converge"):
+        assign_batch(torch.full((1, 4, 4), float("nan")))
+
+
+def test_hungarian_batch_matches_jax():
+    """Rectangular problems with forbidden (BIG) pairs, padded to one
+    square: the same pairs as the JAX package's hungarian_batch."""
+    rng = np.random.default_rng(5)
+    mats = []
+    for n, m in ((3, 5), (6, 2), (0, 4), (7, 7), (1, 1)):
+        c = (rng.integers(0, 64, (n, m)) / 64.0).astype(np.float32)
+        c[rng.random((n, m)) < 0.3] = BIG
+        mats.append(c)
+    got = hungarian_batch(mats, device="cpu")
+    assert got == jx_hungarian_batch(mats)
+    assert any(got)
+
+
+# ---------------------------------------------------------------------------
+# track_step: the fused tracker step
+# ---------------------------------------------------------------------------
+
+def _track_step_operands(rng, K, Q, H, e, M):
+    """tests/test_kernels.py's operands: live tracks and valid detections
+    as PREFIXES, integer te gaps, boxes in roughly world units."""
+    def g(*s):
+        return rng.standard_normal(s).astype(np.float32)
+
+    params = {
+        "det_proj/w": g(e + 6, e) * 0.5, "det_proj/b": g(e) * 0.1,
+        "gru/wz": g(e + H, H) * 0.5, "gru/wr": g(e + H, H) * 0.5,
+        "gru/wh": g(e + H, H) * 0.5,
+        "gru/bz": g(H) * 0.1, "gru/br": g(H) * 0.1, "gru/bh": g(H) * 0.1,
+        "match/w0": g(H + e + 6, M) * 0.5, "match/b0": g(M) * 0.1,
+        "match/w1": g(M, 1) * 0.5, "match/b1": g(1) * 0.1,
+    }
+    h_r = np.zeros((K, Q, H), np.float32)
+    tbox_r = np.zeros((K, Q, 4), np.float32)
+    alive_r = np.zeros((K, Q), np.float32)
+    te_gap_r = np.zeros((K, Q), np.float32)
+    te_match = np.zeros((K, Q), np.float32)
+    x = np.zeros((K, Q, e), np.float32)
+    dbox = np.zeros((K, Q, 4), np.float32)
+    dvalid = np.zeros((K, Q), np.float32)
+    for k in range(K):
+        T = int(rng.integers(0, Q + 1))
+        n = int(rng.integers(0, Q + 1))
+        h_r[k, :T] = g(T, H) * 0.5
+        tbox_r[k, :T] = rng.random((T, 4), np.float32)
+        alive_r[k, :T] = 1.0
+        te_gap_r[k, :T] = rng.integers(1, 9, T)
+        te_match[k] = float(rng.integers(0, 9))
+        x[k, :n] = g(n, e) * 0.5
+        dbox[k, :n] = rng.random((n, 4), np.float32)
+        dvalid[k, :n] = 1.0
+    thr = np.full((1, 1), 0.35, np.float32)
+    return (h_r, tbox_r, alive_r, te_gap_r, te_match, x, dbox,
+            dvalid), thr, params
+
+
+def _port_step(arrs, thr, np_params):
+    out = track_step(*(torch.from_numpy(a) for a in arrs),
+                     torch.from_numpy(thr), pack_params(np_params, "cpu"),
+                     torch.from_numpy(LOG1P_TABLE_2D))
+    return [o.numpy() for o in out]
+
+
+def _assert_bits(got, want):
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        assert g.dtype == w.dtype and g.shape == w.shape
+        if g.dtype == np.float32:
+            g, w = g.view(np.int32), w.view(np.int32)
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("K,Q,H,e,M", [(1, 8, 16, 8, 16),
+                                       (2, 16, 24, 16, 24),
+                                       (3, 8, 20, 12, 20)])
+def test_track_step_matches_jax(K, Q, H, e, M):
+    """The reference test's shapes: the port's plain version against the
+    Pallas kernel in interpret mode and the numpy oracle, bit for bit."""
+    rng = np.random.default_rng(1000 * K + Q + H + e)
+    arrs, thr, np_params = _track_step_operands(rng, K, Q, H, e, M)
+    got = _port_step(arrs, thr, np_params)
+    packed = jx_pack(np_params)
+    _assert_bits(got, jx_step_ref(*arrs, thr, packed, JX_TABLE))
+    _assert_bits(got, track_step_pallas(
+        *[jnp.asarray(a) for a in arrs], jnp.asarray(thr), packed,
+        JX_TABLE, interpret=True))
+    matched, alive, dvalid = got[0], arrs[2], arrs[7]
+    for k in range(K):
+        cols = matched[k][matched[k] >= 0]
+        assert len(set(cols.tolist())) == len(cols)
+        assert np.all(dvalid[k][cols] > 0)
+        assert np.all(matched[k][alive[k] <= 0] == -1)
+
+
+@pytest.mark.parametrize("Q", [8, 16])
+def test_track_step_full_width_heads(Q):
+    """The full-width tracker heads (H 64, e 32, M 64: pairs 102 wide)
+    against the numpy oracle."""
+    rng = np.random.default_rng(Q)
+    arrs, thr, np_params = _track_step_operands(rng, 2, Q, 64, 32, 64)
+    _assert_bits(_port_step(arrs, thr, np_params),
+                 jx_step_ref(*arrs, thr, jx_pack(np_params), JX_TABLE))
+
+
+def test_track_step_slot_padding_invariance():
+    """The same stream in Q and in 2Q slots: the solve runs on the
+    assoc_side square of the live counts, so the first Q rows agree."""
+    rng = np.random.default_rng(3)
+    Q = 16
+    arrs, thr, np_params = _track_step_operands(rng, 1, Q, 16, 8, 16)
+    wide = [np.concatenate([a, np.zeros_like(a)], axis=1) for a in arrs]
+    wide[4][:] = arrs[4][0, 0]                 # te_match is a broadcast
+    small = _port_step(arrs, thr, np_params)
+    big = _port_step(wide, thr, np_params)
+    _assert_bits([b[:, :Q] for b in big], small)
+    assert (small[0] >= 0).any()

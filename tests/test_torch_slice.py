@@ -11,9 +11,11 @@ must plan the same windows, find the same detections and extract the
 same tracks.
 
 Stage by stage, each port stage is fed the reference's output of the
-stage before; end to end, both run their streaming executors.  Host
-numpy stages must be bit-identical; values computed from conv outputs
-(boxes, embeddings) agree to the stated tolerances.
+stage before; end to end, both run their streaming executors, with the
+host tracker and with TRACK on the device (``device_assign``,
+``device_tracker``).  Host numpy stages and the device tracker must be
+bit-identical; values computed from conv outputs (boxes, embeddings)
+agree to the stated tolerances.
 """
 import numpy as np
 import pytest
@@ -224,6 +226,54 @@ def test_end_to_end(slice_setup, engine):
         np.testing.assert_array_equal(x[:, [0, 5]], y[:, [0, 5]])
         np.testing.assert_allclose(x, y, rtol=BOX_RTOL, atol=BOX_ATOL)
     assert set(got.stage_seconds) == set(tex.STAGES)
+
+
+TRACK_MODES = {"host": {}, "device_assign": {"device_assign": True},
+               "device_tracker": {"device_tracker": True}}
+
+
+@pytest.fixture
+def one_thread():
+    """Small eager ops run faster on one thread than on many."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _run_port(s, chunk, **flags):
+    return tex.ClipExecutor(s["tbank"], _port_params(s["params"]),
+                            tex.ExecutorOptions(chunk_size=chunk, **flags)
+                            ).run(s["clip"])
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("chunk", [1, 16])
+@pytest.mark.parametrize("mode", list(TRACK_MODES))
+def test_end_to_end_track_modes(slice_setup, mode, chunk):
+    """Each TRACK flavour against the reference's executor run with the
+    same options (same decisions, boxes to the conv tolerance, same
+    counters), and the device flavours against the port's host tracker
+    on the same run, bit for bit."""
+    s = slice_setup
+    flags = TRACK_MODES[mode]
+    ref = jex.ClipExecutor(s["jbank"], s["params"], jex.ExecutorOptions(
+        chunk_size=chunk, **flags)).run(s["clip"])
+    got = _run_port(s, chunk, **flags)
+    for k in ("frames_processed", "detector_windows", "full_frames",
+              "skipped_frames"):
+        assert getattr(got, k) == getattr(ref, k), k
+    assert got.dispatches == ref.dispatches
+    assert len(got.tracks) == len(ref.tracks) > 0
+    for x, y in zip(got.tracks, ref.tracks):
+        np.testing.assert_array_equal(x[:, [0, 5]], y[:, [0, 5]])
+        np.testing.assert_allclose(x, y, rtol=BOX_RTOL, atol=BOX_ATOL)
+    if mode != "host":
+        host = _run_port(s, chunk)
+        assert len(got.tracks) == len(host.tracks)
+        for x, y in zip(got.tracks, host.tracks):
+            np.testing.assert_array_equal(x, y)
+        assert got.dispatches["track"] > host.dispatches["track"]
 
 
 def test_entry_points_default_to_the_card():
