@@ -14,10 +14,18 @@ full-width MultiScope configuration (detector ssd-deep at 960x544, proxy
 416x256, recurrent tracker, chunks of 16) with untrained weights drawn
 from a seed — three times with the host tracker and twice with TRACK on
 the device (``ExecutorOptions(device_tracker=True)`` and
-``device_assign=True``), whose tracks must equal the host tracker's.  It
-checks that every kernel of each path was launched and that the output is
-right, and profiles three more runs for the device's busy share.  Every
-phase runs uncaught: any failure exits non-zero before the result line.
+``device_assign=True``), whose tracks must equal the host tracker's.
+Then the per-frame engine (``run_clip(engine="frame")``: ``proxy_score``
+at batch 1 and the single-frame ``window_gather``) twice, the unfused
+proxy path (``ExecutorOptions(fused_plan=False)``), whose plans must be
+the fused path's wherever no proxy cell lies in the flip band, both
+engines again with a track refiner (refined tracks must contain the
+unrefined ones), and the quality readout (MOTA with the host Hungarian
+and with every frame in one ``assign`` launch, count accuracy).  It
+checks that every kernel of each path was launched and that the output
+is right, and profiles four more runs for the device's busy share.
+Every phase runs uncaught: any failure exits non-zero before the result
+line.
 
 The last three lines of standard output are the kernels' JSON record,
 the card's name and power limit as ``nvidia-smi`` reports them, and
@@ -26,6 +34,8 @@ the rest of the checkout, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -45,8 +55,11 @@ from repro_torch.core.detector import Detector, next_bucket  # noqa: E402
 from repro_torch.core.proxy import ProxyModel  # noqa: E402
 from repro_torch.core.executor import (ClipExecutor,  # noqa: E402
                                        ExecutorOptions)
-from repro_torch.core.tracker import _host_params, init_tracker  # noqa: E402
-from repro_torch.core.windows import plan_from_mapped  # noqa: E402
+from repro_torch.core.metrics import clip_count_accuracy, mota  # noqa: E402
+from repro_torch.core.refine import TrackRefiner  # noqa: E402
+from repro_torch.core.tracker import (RecurrentTracker,  # noqa: E402
+                                      _host_params, init_tracker)
+from repro_torch.core.windows import plan_chunk, plan_from_mapped  # noqa: E402
 from repro_torch.data.video_synth import make_clip  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.assign import (assign_batch,  # noqa: E402
@@ -57,8 +70,11 @@ from repro_torch.kernels.proxy_plan import (proxy_plan,  # noqa: E402
                                             proxy_plan_ref)
 from repro_torch.kernels.proxy_plan.ops import (FLIP_ULPS,  # noqa: E402
                                                 _spans_on, check_plan)
+from repro_torch.kernels.proxy_score import (  # noqa: E402
+    check_scores, proxy_score, proxy_score_ref)
 from repro_torch.kernels.window_gather import (  # noqa: E402
-    window_gather_batch, window_gather_batch_ref)
+    window_gather, window_gather_batch, window_gather_batch_ref,
+    window_gather_ref)
 
 DEVICE = "cuda"
 CFG = MULTISCOPE_PIPELINE       # full width
@@ -336,6 +352,113 @@ def check_proxy_plan(feat, w, b, thr, grid_hw):
     return row
 
 
+def check_window_gather_single(frame):
+    """The single-frame gather against its plain version, exactly, on
+    one 960x544 frame: for each sub-frame size, a table of 8 rows (6
+    seeded windows, one at the far edge, one zero padding row)."""
+    CELL_PX = pl.CELL_PX
+    dev_frame = torch.from_numpy(np.ascontiguousarray(frame)).to(DEVICE)
+    H, W, _ = frame.shape
+    rng = np.random.default_rng(SEED)
+    rows = []
+    for size in SIZES_CELLS[1:]:
+        tbl = np.zeros((8, 2), np.int32)
+        tbl[:6] = np.stack([rng.integers(0, H // CELL_PX - size[1] + 1, 6),
+                            rng.integers(0, W // CELL_PX - size[0] + 1, 6)],
+                           1)
+        tbl[6] = (H // CELL_PX - size[1], W // CELL_PX - size[0])
+        win_h, win_w = size[1] * CELL_PX, size[0] * CELL_PX
+        t_dev = torch.from_numpy(tbl).to(DEVICE)
+
+        def kern():
+            return window_gather(dev_frame, t_dev, win_h=win_h, win_w=win_w,
+                                 cell=CELL_PX)
+
+        def plain():
+            return window_gather_ref(dev_frame, t_dev, win_h=win_h,
+                                     win_w=win_w, cell=CELL_PX)
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"window_gather {size}: kernel != plain "
+                                 "version")
+        if not torch.equal(got[7], dev_frame[:win_h, :win_w]):
+            raise AssertionError(f"window_gather {size}: the padding row "
+                                 "is not cell (0, 0)")
+        err = float((got - want).abs().max())
+        out_bytes = tbl.shape[0] * win_h * win_w * 3 * 4
+        b_ms, b_by = bound(2 * out_bytes + tbl.nbytes, 0)
+        row = dict(size=size, n=tbl.shape[0], max_abs_err=err,
+                   ms=event_ms(kern), plain_ms=event_ms(plain),
+                   device_ms=device_ms(kern, "window_gather_kernel"),
+                   bound_ms=b_ms, bound_by=b_by)
+        log(f"window_gather {size} cells, 8 rows (6 seeded, far edge, "
+            f"padding) from one {H}x{W} frame: exact; kernel "
+            f"{row['ms']:.4f} ms/call (device, cold L2 {row['device_ms']}), "
+            f"plain {row['plain_ms']:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+        rows.append(row)
+    # the scalar-copy branch (rows not 16-byte aligned)
+    small = torch.randn((64, 48, 1), device=DEVICE)
+    tbl = torch.tensor([[1, 0], [0, 1]], dtype=torch.int32, device=DEVICE)
+    if not torch.equal(
+            window_gather(small, tbl, win_h=32, win_w=16, cell=16),
+            window_gather_ref(small, tbl, win_h=32, win_w=16, cell=16)):
+        raise AssertionError("window_gather scalar branch differs")
+    return rows
+
+
+def check_proxy_score(feat, w, b, thr):
+    """The score-map head against its plain version on the encoder's
+    real features of the set-up chunk, at the per-frame path's (1, 8,
+    13, 64) and a chunk's (16, 8, 13, 64): scores to 1e-6, both held to
+    float64 by ``check_scores`` (flips only in the 8-ulp band), at the
+    main path's threshold and at one ON a cell's score."""
+    rows = {}
+    for B in (1, feat.shape[0]):
+        f = feat[:B].contiguous()
+        with torch.inference_mode():
+            on_cell = float(torch.sigmoid(
+                f[B // 2, f.shape[1] // 2, f.shape[2] // 2] @ w + b))
+        err = 0.0
+        flips = band = 0
+        for t in (thr, on_cell):
+            with torch.inference_mode():
+                sk, pk = proxy_score(f, w, b, t)
+                sp, pp = proxy_score_ref(f, w, b, t)
+            torch.cuda.synchronize()
+            band += check_scores(f, w, b, t, sk, pk)
+            check_scores(f, w, b, t, sp, pp)
+            d = float((sk - sp).abs().max())
+            if d > 1e-6:
+                raise AssertionError(f"proxy_score B={B}: |d score| {d!r} "
+                                     "> 1e-6")
+            err = max(err, d)
+            flips += int((pk != pp).sum())
+
+        def kern():
+            return proxy_score(f, w, b, thr)
+
+        def plain():
+            return proxy_score_ref(f, w, b, thr)
+        n_rows = f.numel() // f.shape[-1]
+        C = f.shape[-1]
+        n_bytes = (f.numel() + w.numel() + 1) * 4 + n_rows * (4 + 1)
+        b_ms, b_by = bound(n_bytes, n_rows * (2 * C + 4))
+        with torch.inference_mode():
+            row = dict(shape=tuple(f.shape), max_abs_err=err, flips=flips,
+                       band=band, ms=event_ms(kern),
+                       plain_ms=event_ms(plain),
+                       device_ms=device_ms(kern, "proxy_score_kernel"),
+                       bound_ms=b_ms, bound_by=b_by)
+        log(f"proxy_score {tuple(f.shape)}: max |d score| {err!r}, {flips} "
+            f"flipped cells, all within {FLIP_ULPS} ulp ({band} cells in "
+            f"the band, thresholds {thr!r} and {on_cell!r}); kernel "
+            f"{row['ms']:.4f} ms/call (device, cold L2 {row['device_ms']}), "
+            f"plain {row['plain_ms']:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+        rows[B] = row
+    return rows
+
+
 def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     """Exact equality of two outputs, f32 compared as bit patterns."""
     if a.dtype == torch.float32:
@@ -522,28 +645,54 @@ def check_against_cpu(bank, frames, feat_cuda, pres):
         one = det.net(x[:1].to(DEVICE))
         sixteen = det.net(torch.from_numpy(frames).to(DEVICE))[:1]
         d_bucket = float((one - sixteen).abs().max())
+        # the crop CNN embeds per frame (padded to 8 crops) on the
+        # per-frame path and per chunk (padded to a bucket) on the
+        # streaming one
+        cnn = bank.tracker_params["crop_cnn"]
+        crop = bank.cfg.tracker.crop
+        crops = torch.from_numpy(np.random.default_rng(SEED).random(
+            (64, crop, crop, 3), np.float32)).to(DEVICE)
+        full = cnn(crops)
+        d_embed = max(float((cnn(crops[:n]) - full[:n]).abs().max())
+                      for n in (8, 16, 24, 40))
+        # sub-frame windows: per frame at a bucket of that frame's
+        # windows, per chunk at a bucket of the chunk's
+        CELL_PX = pl.CELL_PX
+        ph, pw = SIZES_CELLS[1][1] * CELL_PX, SIZES_CELLS[1][0] * CELL_PX
+        wins = torch.from_numpy(np.ascontiguousarray(
+            frames[:, :ph, :pw])).to(DEVICE)
+        w16 = det.net(wins)
+        d_window = max(float((det.net(wins[:n]) - w16[:n]).abs().max())
+                       for n in (1, 2, 4, 8))
     log(f"card vs CPU, same weights, 2 frames of {frames.shape[1:3]}: "
         f"detector head "
         f"max |d| {d_det!r}, proxy features max |d| {d_proxy!r} "
         f"(tolerance {CONV_ATOL})")
     log(f"port's detector across buckets on the card (batch 1 vs 16): "
-        f"max |d| {d_bucket!r} (reported, not asserted)")
+        f"max |d| {d_bucket!r}; detector on {pw}x{ph} windows (batch 1, 2,"
+        f" 4, 8 vs 16): max |d| {d_window!r}; crop CNN (batch 8, 16, 24, 40"
+        f" vs 64): max |d| {d_embed!r} (reported, not asserted)")
     if not (d_det < CONV_ATOL and d_proxy < CONV_ATOL):
         raise AssertionError("conv nets on the card disagree with the CPU")
 
 
 def device_busy(bank, params, clip, options=None,
-                label: str = "host tracker") -> None:
-    """One more run of the main path under the profiler, recording the
-    device only: the card's busy time summed over every kernel and copy
-    it ran, against the run's wall time, and the time of the track_step
-    kernels.  The profiler adds some host time, so the idle share is an
-    upper bound."""
+                label: str = "host tracker", engine: str = "streaming"
+                ) -> None:
+    """One more run of the main path (or, with ``engine="frame"``, of
+    the per-frame engine) under the profiler, recording the device only:
+    the card's busy time summed over every kernel and copy it ran,
+    against the run's wall time, and the time of the track_step kernels.
+    The profiler adds some host time, so the idle share is an upper
+    bound."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        res = ClipExecutor(bank, params, options).run(clip)
+        if engine == "frame":
+            res = pl.run_clip(bank, params, clip, engine="frame")
+        else:
+            res = ClipExecutor(bank, params, options).run(clip)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     from torch.autograd import DeviceType
@@ -556,13 +705,159 @@ def device_busy(bank, params, clip, options=None,
     track_us = sum(us for k, us in per_name.items() if "track_" in k
                    and "_kernel" in k)
     top = sorted(((us, k) for k, us in per_name.items()), reverse=True)
+    stage = "" if res.stage_seconds is None else (
+        f"TRACK stage {res.stage_seconds['track']['wall'] * 1e3:.1f} ms "
+        "wall, ")
     log(f"device busy ({label}, profiled run, clip {clip.clip_id}): "
         f"{busy_us / 1e3:.1f} ms of {wall * 1e3:.1f} ms wall = "
         f"{100 * busy_us / 1e6 / wall:.1f}% busy, "
-        f"{100 - 100 * busy_us / 1e6 / wall:.1f}% idle; TRACK stage "
-        f"{res.stage_seconds['track']['wall'] * 1e3:.1f} ms wall, "
+        f"{100 - 100 * busy_us / 1e6 / wall:.1f}% idle; {stage}"
         f"track_step kernels {track_us / 1e3:.1f} ms; top device time: "
         + "; ".join(f"{k[:60]} {us / 1e3:.1f} ms" for us, k in top[:6]))
+
+
+@contextlib.contextmanager
+def wrapped(owner, name: str, wrap):
+    """Replace ``owner.name`` by ``wrap(original)`` inside the block (an
+    instrumented run), and restore the original after it."""
+    fn = getattr(owner, name)
+    setattr(owner, name, wrap(fn))
+    try:
+        yield
+    finally:
+        setattr(owner, name, fn)
+
+
+def frame_breakdown(bank, params, clip) -> None:
+    """Where one per-frame run's wall time goes: host clocks around the
+    decode (``render_frame``), the proxy (``ProxyModel.scores``: encoder,
+    ``proxy_score`` and the copy back), the detector
+    (``Detector.detect_batch``, which synchronises on its outputs) and
+    the tracker step (its crop CNN synchronises too), wrapped in place
+    for this one measured run and restored after it.  The rest is host
+    planning, the frame upload, ``window_gather`` and NMS."""
+    spent = {"decode": 0.0, "proxy": 0.0, "detect": 0.0, "track": 0.0}
+
+    def timed(phase):
+        def wrap(fn):
+            def wrapper(*args, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    spent[phase] += time.perf_counter() - t0
+            return wrapper
+        return wrap
+    with contextlib.ExitStack() as hooks:
+        for owner, name, phase in ((pl, "render_frame", "decode"),
+                                   (ProxyModel, "scores", "proxy"),
+                                   (Detector, "detect_batch", "detect"),
+                                   (RecurrentTracker, "step", "track")):
+            hooks.enter_context(wrapped(owner, name, timed(phase)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pl.run_clip(bank, params, clip, engine="frame")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rest = wall - sum(spent.values())
+    log(f"per-frame run by phase (clip {clip.clip_id}, host clocks): "
+        f"{wall:.3f} s wall = "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in spent.items())
+        + f", other (planning, frame upload, window_gather, NMS) "
+        f"{rest:.3f} s")
+
+
+def engine_drift(bank, params, clip) -> None:
+    """Where the per-frame engine parts from the streaming engine on the
+    same clip (reported, not asserted: the two run their conv nets at
+    other batch sizes): the detections each feeds the host tracker,
+    frame by frame, recorded around ``RecurrentTracker.step`` for these
+    two runs only."""
+    seen = {"streaming": {}, "frame": {}}
+
+    def recording(store):
+        def wrap(step):
+            def wrapper(self, frame_idx, dets, frame, det_embeds=None):
+                store[frame_idx] = np.array(dets, copy=True)
+                return step(self, frame_idx, dets, frame, det_embeds)
+            return wrapper
+        return wrap
+    with wrapped(RecurrentTracker, "step", recording(seen["streaming"])):
+        a = pl.run_clip(bank, params, clip)
+    with wrapped(RecurrentTracker, "step", recording(seen["frame"])):
+        b = pl.run_clip(bank, params, clip, engine="frame")
+    differ = []
+    for f, d in sorted(seen["frame"].items()):
+        o = seen["streaming"][f]
+        if d.shape != o.shape or not np.array_equal(d, o):
+            gap = float(np.abs(d - o).max()) if d.shape == o.shape else None
+            differ.append((f, d.shape[0], o.shape[0], gap))
+    log(f"engine drift (clip {clip.clip_id}): streaming {len(a.tracks)} "
+        f"tracks, per-frame {len(b.tracks)}; detections fed to the tracker"
+        f" differ on {len(differ)} of {len(seen['frame'])} frames"
+        + ("" if not differ else
+           f", first (frame, per-frame count, streaming count, max |d|): "
+           f"{differ[:4]}"))
+
+
+def compare_plans(bank, params, clip):
+    """Both PROXY paths' plans for every chunk of ``clip``: fused
+    (``plan_batch`` -> ``plan_from_mapped``) and unfused
+    (``scores_batch`` -> ``map_proxy_grid`` -> ``plan_chunk``).  They
+    must plan the same windows on every frame where ``check_scores``
+    finds no proxy cell in the flip band.  Returns (frames compared,
+    frames with a cell in the band)."""
+    proxy = bank.proxies[params.proxy_res]
+    enc = proxy.encoder
+    sizeset = pl.make_sizeset(bank, params)
+    grid = pl.det_grid(params.det_res)
+    mw = bank.cfg.windows.max_windows
+    thr = params.proxy_threshold
+    ids = list(range(0, clip.n_frames, params.gap))
+    compared = in_band = 0
+    for c0 in range(0, len(ids), 16):
+        frames = np.stack([pl.render_frame(clip, f, *params.det_res)[0]
+                           for f in ids[c0:c0 + 16]])
+        pframes = pl.downsample_chunk(frames, params.proxy_res)
+        grids, stats = proxy.plan_batch(pframes, thr, grid)
+        fused = plan_from_mapped(grids, stats, sizeset, mw, chunk_size=16)
+        _, pos = proxy.scores_batch(pframes, thr)
+        unfused = plan_chunk([pl.map_proxy_grid(p, grid) for p in pos],
+                             sizeset, mw, chunk_size=16)
+        feat = proxy.features(pframes)
+        with torch.inference_mode():
+            sc, ps = proxy_score(feat, enc.head_w, enc.head_b, thr)
+        for k in range(len(frames)):
+            if check_scores(feat[k:k + 1], enc.head_w, enc.head_b, thr,
+                            sc[k:k + 1], ps[k:k + 1]):
+                in_band += 1
+                continue
+            compared += 1
+            if fused.windows[k] != unfused.windows[k]:
+                raise AssertionError(f"frame {ids[c0 + k]}: fused and "
+                                     "unfused plans differ with no cell "
+                                     "in the flip band")
+    return compared, in_band
+
+
+def check_refined(refined, plain, label: str) -> int:
+    """Every refined track contains its unrefined track's rows
+    unchanged: refinement only prepends a start row and appends an end
+    row.  Returns how many tracks it extended."""
+    if len(refined.tracks) != len(plain.tracks):
+        raise AssertionError(f"refined {label} run has another track count")
+    extended = 0
+    for r, u in zip(refined.tracks, plain.tracks):
+        if not np.isfinite(r).all():
+            raise AssertionError(f"refined {label} track not finite")
+        if np.array_equal(r, u):
+            continue
+        if len(r) != len(u) + 2 or not np.array_equal(r[1:-1], u) \
+                or r[0, 0] != u[0, 0] or r[-1, 0] != u[-1, 0]:
+            raise AssertionError(f"refined {label} track does not contain "
+                                 "its unrefined rows")
+        extended += 1
+    return extended
 
 
 def same_tracks(a, b) -> bool:
@@ -607,9 +902,12 @@ def main() -> int:
     enc = bank.proxies[pres].encoder
 
     wg = check_window_gather(frames, first_plan)
+    wg1 = check_window_gather_single(frames[0])
     with torch.inference_mode():
         pp = check_proxy_plan(feat, enc.head_w, enc.head_b,
                               params.proxy_threshold, grid_hw)
+    ps = check_proxy_score(feat, enc.head_w, enc.head_b,
+                           params.proxy_threshold)
     check_against_cpu(bank, frames, feat, pres)
 
     asg = check_assign()
@@ -624,26 +922,35 @@ def main() -> int:
     # on the device, both flavours, on run 1's clip: the tracks must be
     # the host tracker's, array for array.
     clip2 = make_clip("caldot1", "test", SEED + 1, n_frames=N_FRAMES)
-    counters = (proxy_plan, window_gather_batch, track_step, assign_batch)
+    counters = (proxy_plan, window_gather_batch, track_step, assign_batch,
+                proxy_score, window_gather)
+
+    def counted(run):
+        """Run ``run`` with every launch count set to 0 just before it;
+        -> (result, launches, wall seconds)."""
+        for k in counters:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        return out, {k.__name__: k.launches for k in counters}, \
+            time.perf_counter() - t0
+
     runs = {}
     for label, c, opts in (
             ("cold", clip, None), ("warm", clip2, None),
             ("repeat", clip, None),
             ("device_tracker", clip, ExecutorOptions(device_tracker=True)),
             ("device_assign", clip, ExecutorOptions(device_assign=True))):
-        for k in counters:
-            k.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        if opts is None:
-            res = pl.run_clip(bank, params, c)    # streaming executor
-        else:
-            res = ClipExecutor(bank, params, opts).run(c)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {k.__name__: k.launches for k in counters}
+        res, launches, wall = counted(
+            lambda: pl.run_clip(bank, params, c) if opts is None
+            else ClipExecutor(bank, params, opts).run(c))
         check_result(res, N_FRAMES)
         on_path = ["proxy_plan", "window_gather_batch"]
+        if launches["proxy_score"] or launches["window_gather"]:
+            raise AssertionError("the fused streaming path launched a "
+                                 "per-frame or unfused kernel")
         if opts is None:
             if launches["track_step"]:
                 raise AssertionError("the host tracker launched track_step")
@@ -679,12 +986,105 @@ def main() -> int:
         log(f"{label}: {len(dres.tracks)} tracks identical to the host "
             "tracker's, array for array; counters equal (track dispatches "
             f"{dres.dispatches['track']} against {res.dispatches['track']})")
+
+    # the per-frame engine on clip 0 (frames cached), twice: batch-1
+    # proxy through proxy_score, crops through the single-frame gather
+    frame_runs = []
+    for i in range(2):
+        fres, flaunch, fwall = counted(
+            lambda: pl.run_clip(bank, params, clip, engine="frame"))
+        check_result(fres, N_FRAMES)
+        for name in ("proxy_score", "window_gather"):
+            if flaunch[name] <= 0:
+                raise AssertionError(f"{name} was not launched on the "
+                                     "per-frame path")
+        for name in ("proxy_plan", "window_gather_batch", "track_step"):
+            if flaunch[name]:
+                raise AssertionError(f"the per-frame path launched {name}")
+        frame_runs.append((fres, flaunch))
+        log(f"per-frame engine (run {i + 1}, clip {clip.clip_id}, frames "
+            f"cached): {N_FRAMES} frames in {fwall:.3f} s wall = "
+            f"{N_FRAMES / fwall:.2f} fps; windows {fres.detector_windows}, "
+            f"full frames {fres.full_frames}, skipped "
+            f"{fres.skipped_frames}, tracks {len(fres.tracks)}; launches "
+            f"{flaunch}; stage_seconds {fres.stage_seconds}")
+    fres, flaunch = frame_runs[0]
+    if flaunch != frame_runs[1][1] or not same_tracks(fres, frame_runs[1][0]):
+        raise AssertionError("two per-frame runs differ")
+    log(f"per-frame engine: both runs give the same {len(fres.tracks)} "
+        "tracks and launch counts; the streaming repeat of the same clip "
+        f"planned {res3.detector_windows} windows against "
+        f"{fres.detector_windows}")
+
+    engine_drift(bank, params, clip)
+
+    # the unfused proxy path: one proxy_score launch per chunk
+    ures, ulaunch, uwall = counted(lambda: ClipExecutor(
+        bank, params, ExecutorOptions(fused_plan=False)).run(clip))
+    check_result(ures, N_FRAMES)
+    if ulaunch["proxy_score"] <= 0 or ulaunch["proxy_plan"]:
+        raise AssertionError(f"fused_plan=False launches {ulaunch}")
+    compared, in_band = compare_plans(bank, params, clip)
+    log(f"fused_plan=False (clip {clip.clip_id}): {N_FRAMES} frames in "
+        f"{uwall:.3f} s wall = {N_FRAMES / uwall:.2f} fps; launches "
+        f"{ulaunch}; plans equal the fused path's on {compared} frames, "
+        f"{in_band} frames with a proxy cell in the flip band")
+    if in_band == 0:
+        if not same_tracks(res, ures):
+            raise AssertionError("fused_plan=False: tracks differ from the "
+                                 "fused run's with no cell in the band")
+        log(f"fused_plan=False: {len(ures.tracks)} tracks identical to the "
+            "fused run's, array for array")
+
+    # refinement: a refiner from the streaming run's tracks on a train
+    # clip, then both engines on clip 0 with θ's refine on
+    train = make_clip("caldot1", "train", SEED, n_frames=N_FRAMES)
+    train_tracks = pl.run_clip(bank, params, train).tracks
+    refiner = TrackRefiner(bank.cfg.refine, train_tracks,
+                           frame_scale=1.0 / params.det_res[0])
+    bank.refiner = refiner
+    params_r = dataclasses.replace(params, refine=True)
+    try:
+        rs = pl.run_clip(bank, params_r, clip)
+        rf = pl.run_clip(bank, params_r, clip, engine="frame")
+    finally:
+        bank.refiner = None
+    ext_s = check_refined(rs, res, "streaming")
+    ext_f = check_refined(rf, fres, "per-frame")
+    log(f"refinement: {len(refiner.clusters)} path clusters from "
+        f"{len(train_tracks)} tracks of the streaming run on caldot1 train "
+        f"clip {SEED}; streaming run "
+        f"extended {ext_s} of {len(rs.tracks)} tracks, per-frame run "
+        f"{ext_f} of {len(rf.tracks)}; every refined track contains its "
+        "unrefined rows unchanged")
+
+    # quality readout (untrained weights: a readout, not a gate)
+    quality = {}
+    for label, r in (("streaming", res), ("frame", fres)):
+        m_host = mota(r.tracks, clip, assign="host")
+        assign_batch.launches = 0
+        m_batch = mota(r.tracks, clip, assign="batch", device=DEVICE)
+        torch.cuda.synchronize()
+        n_asg = assign_batch.launches
+        if n_asg <= 0:
+            raise AssertionError("the batch MOTA did not launch assign")
+        acc = clip_count_accuracy(r.tracks, clip)
+        quality[label] = dict(mota_host=m_host, mota_batch=m_batch,
+                              count_accuracy=acc, assign_launches=n_asg)
+        log(f"quality ({label} run, clip {clip.clip_id}, untrained "
+            f"weights): MOTA host {m_host!r} | batch {m_batch!r} "
+            f"({n_asg} assign launch); count accuracy {acc!r}")
+
     clip3 = make_clip("caldot1", "test", SEED + 2, n_frames=N_FRAMES)
     device_busy(bank, params, clip3)
     device_busy(bank, params, clip3, ExecutorOptions(device_tracker=True),
                 "device tracker, frames cached")
     device_busy(bank, params, clip3, ExecutorOptions(device_assign=True),
                 "device assign, frames cached")
+    # the per-frame engine on clip 0, where its fps runs were taken
+    device_busy(bank, params, clip, label="per-frame engine, frames cached",
+                engine="frame")
+    frame_breakdown(bank, params, clip)
 
     src = "src/repro_torch/csrc/"
     dev_launches = runs["device_tracker"][1]
@@ -716,9 +1116,34 @@ def main() -> int:
              device_ms=t_main["device_ms"],
              device_ms_parts=t_main["device_ms_parts"],
              shape=f"K=1 Q={t_main['Q']}, {t_main['live_pairs']} live pairs"),
+        dict(name="proxy_score", route="cuda", source=src + "proxy_score.cu",
+             replaces="src/repro/kernels/proxy_score/kernel.py:40",
+             launches=flaunch["proxy_score"],
+             launches_unfused=ulaunch["proxy_score"],
+             max_abs_err=ps[1]["max_abs_err"], ms=ps[1]["ms"],
+             plain_ms=ps[1]["plain_ms"], bound_ms=ps[1]["bound_ms"],
+             bound_by=ps[1]["bound_by"], library_ms=None,
+             device_ms=ps[1]["device_ms"], flips=ps[1]["flips"],
+             shape=str(ps[1]["shape"]),
+             chunk={k: ps[16][k] for k in ("shape", "max_abs_err", "flips",
+                                           "ms", "device_ms", "plain_ms",
+                                           "bound_ms")}),
+        dict(name="window_gather", route="cuda",
+             source=src + "window_gather.cu",
+             replaces="src/repro/kernels/window_gather/kernel.py:40",
+             launches=flaunch["window_gather"],
+             max_abs_err=wg1[0]["max_abs_err"], ms=wg1[0]["ms"],
+             plain_ms=wg1[0]["plain_ms"], bound_ms=wg1[0]["bound_ms"],
+             bound_by=wg1[0]["bound_by"], library_ms=None,
+             device_ms=wg1[0]["device_ms"],
+             shape=f"{wg1[0]['n']} windows of {wg1[0]['size']} cells",
+             large={k: wg1[1][k] for k in ("size", "n", "ms", "device_ms",
+                                           "plain_ms", "bound_ms")}),
         dict(name="assign_batch", route="cuda", source=src + "assign.cu",
              replaces="src/repro/kernels/assign/kernel.py:118",
-             launches=dev_launches["assign_batch"],
+             launches=quality["streaming"]["assign_launches"],
+             launches_device_tracker=dev_launches["assign_batch"],
+             launches_from="metrics.mota(assign='batch')",
              solve_runs_in="track_step (jv.cuh), once per launch",
              max_abs_err=a_main["max_abs_err"], ms=a_main["ms"],
              plain_ms=a_main["plain_ms"], plain_on="cpu",

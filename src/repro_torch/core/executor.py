@@ -9,7 +9,11 @@ path.  One clip is cut into chunks of B frames; each chunk runs:
   PROXY   — the proxy encoder on the device, then ONE ``proxy_plan``
             kernel launch for the chunk (head + threshold + detector-grid
             mapping + plan stats), then host window planning from the
-            kernel's grids and stats (``windows.plan_from_mapped``);
+            kernel's grids and stats (``windows.plan_from_mapped``); or,
+            with ``fused_plan=False``, ONE ``proxy_score`` launch whose
+            score map comes back to the host, is mapped onto the
+            detector grid (``pipeline.map_proxy_grid``) and planned by
+            ``windows.plan_chunk``;
   DETECT  — cross-frame size-class batches through the detector; window
             crops through the ``window_gather_batch`` kernel on the
             chunk's device buffer; batch dims padded to power-of-two
@@ -26,7 +30,8 @@ chunk k completes before chunk k+1 starts) and ``StreamingScheduler``
 (DECODE, and with double buffering the device upload, of chunk k+1 runs
 on a background thread while chunk k is in PROXY/DETECT/TRACK; the
 hand-off queue holds at most ``prefetch_depth`` chunks).  Tracks do not
-depend on the scheduler.
+depend on the scheduler.  When θ asks for refinement and the bank has a
+refiner, ``finish`` refines the tracks.
 
 Buffer ownership: the padded device copy of a chunk (``frames_dev``,
 (B, H, W, 3) f32, about 100 MB at 960x544) is uploaded by the decode
@@ -53,10 +58,11 @@ from repro_torch.core.detector import next_bucket, nms
 from repro_torch.core.pipeline import (CELL_PX, ModelBank, PipelineParams,
                                        RunResult, det_grid,
                                        downsample_chunk, make_sizeset,
-                                       make_tracker, render_frame)
+                                       make_tracker, map_proxy_grid,
+                                       render_frame)
 from repro_torch.core.tracker import RecurrentTracker, embed_dets_chunk
 from repro_torch.core.windows import (ChunkPlan, full_frame_plan,
-                                      plan_from_mapped)
+                                      plan_chunk, plan_from_mapped)
 from repro_torch.data.video_synth import Clip
 from repro_torch.kernels.window_gather import window_gather_batch
 from repro_torch.obs.metrics import RunProfile
@@ -89,9 +95,10 @@ class ExecutorOptions:
                          plans never need the buffer);
     ``chunk_size``     — override θ's B;
     ``fused_plan``     — PROXY plans through the fused ``proxy_plan``
-                         kernel.  The score-map path (False) needs the
-                         ``proxy_score`` kernel, which is not ported yet,
-                         so False raises when a proxy is active;
+                         kernel; False takes the score-map path
+                         (``proxy_score``, host mapping and planning).
+                         Both give the same plans up to cells within a
+                         few ulps of the threshold;
     ``device_assign``  — TRACK runs each per-frame step as ONE fused
                          ``track_step`` launch (GRU + match logits + cost
                          + JV assignment on the device) instead of the
@@ -144,10 +151,8 @@ class _RunContext:
         self.W, self.H = params.det_res
         self.proxy = bank.proxies.get(params.proxy_res) \
             if params.proxy_res is not None else None
-        if self.proxy is not None and not options.fused_plan:
-            raise NotImplementedError(
-                "fused_plan=False needs the proxy_score kernel, which the "
-                "port does not have yet")
+        self.fused_plan = bool(options.fused_plan
+                               and self.proxy is not None)
         self.sizeset = make_sizeset(bank, params)
         self.grid = det_grid(params.det_res)
         self.detector = bank.detectors[params.det_arch]
@@ -202,16 +207,26 @@ def stage_decode(ctx: _RunContext, task: ChunkTask) -> ChunkTask:
 
 
 def stage_proxy(ctx: _RunContext, task: ChunkTask) -> ChunkTask:
-    """Proxy-score the whole chunk in one ``proxy_plan`` launch and plan
-    its windows on the host from the mapped grids + plan stats."""
+    """Proxy-score the whole chunk in one launch and plan its windows on
+    the host: from the ``proxy_plan`` kernel's mapped grids + plan stats
+    (fused), or from the ``proxy_score`` kernel's score map, mapped onto
+    the detector grid per frame (``fused_plan=False``)."""
     if ctx.proxy is not None:
         ctx.profile.dispatch("proxy")
         pframes = downsample_chunk(task.frames, ctx.proxy.resolution)
-        grids, stats = ctx.proxy.plan_batch(
-            pframes, ctx.params.proxy_threshold, ctx.grid)
-        task.plan = plan_from_mapped(grids, stats, ctx.sizeset,
-                                     ctx.cfg.windows.max_windows,
-                                     chunk_size=ctx.chunk)
+        if ctx.fused_plan:
+            grids, stats = ctx.proxy.plan_batch(
+                pframes, ctx.params.proxy_threshold, ctx.grid)
+            task.plan = plan_from_mapped(grids, stats, ctx.sizeset,
+                                         ctx.cfg.windows.max_windows,
+                                         chunk_size=ctx.chunk)
+        else:
+            _, pos = ctx.proxy.scores_batch(pframes,
+                                            ctx.params.proxy_threshold)
+            grids = [map_proxy_grid(p, ctx.grid) for p in pos]
+            task.plan = plan_chunk(grids, ctx.sizeset,
+                                   ctx.cfg.windows.max_windows,
+                                   chunk_size=ctx.chunk)
     else:
         task.plan = full_frame_plan(len(task.frame_ids), ctx.sizeset)
     return task
@@ -459,6 +474,8 @@ class ClipExecutor:
         t0 = time.process_time()
         self.scheduler.drain(ctx, run.handle, self.stages)
         tracks = ctx.tracker.result()
+        if ctx.params.refine and ctx.bank.refiner is not None:
+            tracks = [ctx.bank.refiner.refine(t) for t in tracks]
         seconds = time.process_time() - t0 + max(ctx.charged, 0.0)
         track_disp = int(getattr(ctx.tracker, "dispatches", 0)) \
             + ctx.profile.dispatches("embed")

@@ -1,17 +1,20 @@
 """The MultiScope execution pipeline (Figure 2): decode -> proxy ->
-windows -> detector -> recurrent tracker.
+windows -> detector -> recurrent tracker -> refinement.
 
 The port of the JAX package's ``repro.core.pipeline``.  One
 ``PipelineParams`` instance is one tuner configuration θ; ``run_clip``
 executes θ over a clip through the stage-graph executor
-(``repro_torch.core.executor``) and returns the extracted tracks.
+(``repro_torch.core.executor``), or strictly frame by frame
+(``run_clip_frames``), and returns the extracted tracks.
 
 Cell grid convention: the canonical positive-cell grid is the DETECTOR
 resolution divided by ``CELL_PX``.  Proxy models run at their own lower
-resolution; the ``proxy_plan`` kernel maps their cell grids onto the
-detector grid with max-pooling semantics.  The window-size set S is
-given in cell units at a reference detector grid and rescaled
-fractionally to others.
+resolution; their cell grids are mapped onto the detector grid with
+max-pooling semantics, by the ``proxy_plan`` kernel on the fused path
+and by ``map_proxy_grid`` on the host otherwise.  The window-size set S
+is given in cell units at a reference detector grid and rescaled
+fractionally to others.  The per-frame path crops windows through the
+single-frame ``window_gather`` kernel.
 """
 from __future__ import annotations
 
@@ -26,12 +29,14 @@ import torch
 
 from repro_torch import Device, resolve_device
 from repro_torch.configs.multiscope import PipelineConfig
-from repro_torch.core.detector import Detector
+from repro_torch.core.detector import Detector, next_bucket, nms
 from repro_torch.core.proxy import ProxyModel
+from repro_torch.core.refine import TrackRefiner
 from repro_torch.core.sort import SortTracker
 from repro_torch.core.tracker import DeviceTracker, RecurrentTracker
-from repro_torch.core.windows import SizeSet
+from repro_torch.core.windows import SizeSet, Window, group_cells
 from repro_torch.data.video_synth import Clip
+from repro_torch.kernels.window_gather import window_gather
 
 CELL_PX = 16      # detector-grid cell edge at detector resolution (px)
 
@@ -91,8 +96,9 @@ class PipelineParams:
 class ModelBank:
     """Everything trained offline for one dataset, on one device.  Its
     models must live on that device (``Detector``/``ProxyModel`` take
-    the same ``device=``).  Track refinement is not ported yet, so
-    ``PipelineParams.refine`` has no effect."""
+    the same ``device=``).  With a ``refiner``, runs whose θ has
+    ``refine`` extend each track's start and end (``refine.TrackRefiner``,
+    host numpy)."""
     cfg: PipelineConfig
     detectors: Dict[str, Detector]
     proxies: Dict[Tuple[int, int], ProxyModel] = field(default_factory=dict)
@@ -101,6 +107,7 @@ class ModelBank:
     ref_grid: Optional[Tuple[int, int]] = None           # (wc, hc) of ref
     win_times: Dict = field(default_factory=dict)        # (arch,size)->s
     device: Device = "cuda"
+    refiner: Optional[TrackRefiner] = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -134,6 +141,27 @@ def make_tracker(bank: ModelBank, params: PipelineParams,
 def det_grid(res: Tuple[int, int]) -> Tuple[int, int]:
     W, H = res
     return W // CELL_PX, H // CELL_PX
+
+
+def map_proxy_grid(pos: np.ndarray, grid: Tuple[int, int]) -> np.ndarray:
+    """(hp, wp) proxy grid -> (hc, wc) detector grid, max-pool semantics.
+
+    A detector cell (i, j) is positive iff ANY proxy cell in the
+    (possibly overlapping) source span [ys_i, ye_i) x [xs_j, xe_j) is.
+    Vectorized with a 2D integral image: span-any == span-count > 0."""
+    wc, hc = grid
+    hp, wp = pos.shape
+    ys = np.minimum((np.arange(hc) * hp) // hc, hp - 1)
+    ye = np.minimum(((np.arange(hc) + 1) * hp + hp - 1) // hc, hp)
+    ye = np.maximum(ye, ys + 1)
+    xs = np.minimum((np.arange(wc) * wp) // wc, wp - 1)
+    xe = np.minimum(((np.arange(wc) + 1) * wp + wp - 1) // wc, wp)
+    xe = np.maximum(xe, xs + 1)
+    acc = np.zeros((hp + 1, wp + 1), np.int64)
+    acc[1:, 1:] = np.cumsum(np.cumsum(pos != 0, axis=0), axis=1)
+    cnt = acc[ye[:, None], xe[None, :]] - acc[ys[:, None], xe[None, :]] \
+        - acc[ye[:, None], xs[None, :]] + acc[ys[:, None], xs[None, :]]
+    return (cnt > 0).astype(np.int8)
 
 
 def scale_sizes(sizes_cells: Sequence[Tuple[int, int]],
@@ -189,12 +217,28 @@ def make_sizeset(bank: ModelBank, params: PipelineParams) -> SizeSet:
     return SizeSet(sizes, times)
 
 
+def _downsample_indices(shape_hw: Tuple[int, int], res: Tuple[int, int]
+                        ) -> Tuple[np.ndarray, np.ndarray]:
+    """Nearest-neighbor (ys, xs) index vectors — the ONE formula both
+    the per-frame and chunked proxy paths share, so that both score the
+    same pixels."""
+    W, H = res
+    ys = (np.arange(H) * shape_hw[0]) // H
+    xs = (np.arange(W) * shape_hw[1]) // W
+    return ys, xs
+
+
+def _downsample(frame: np.ndarray, res: Tuple[int, int]) -> np.ndarray:
+    """Nearest-neighbor resize of one frame (host-side, cheap)."""
+    ys, xs = _downsample_indices(frame.shape[:2], res)
+    return frame[np.ix_(ys, xs)]
+
+
 def downsample_chunk(frames: np.ndarray, res: Tuple[int, int]
                      ) -> np.ndarray:
-    """Nearest-neighbor resize of a chunk: (B, H, W, 3) -> (B, h, w, 3)."""
-    W, H = res
-    ys = (np.arange(H) * frames.shape[1]) // H
-    xs = (np.arange(W) * frames.shape[2]) // W
+    """Batched ``_downsample``: (B, H, W, 3) -> (B, h, w, 3) in one
+    gather, identical per-frame values."""
+    ys, xs = _downsample_indices(frames.shape[1:3], res)
     return frames[:, ys[:, None], xs[None, :]]
 
 
@@ -206,13 +250,70 @@ class RunResult:
     detector_windows: int        # total windows run through the detector
     full_frames: int             # of which full-frame applications
     skipped_frames: int          # frames with zero windows
-    # per-stage profile: stage -> {"wall": s, "process": s}, where
-    # "process" is CPU actually spent in the stage's thread(s)
+    # per-stage profile, filled by the executor (None on the per-frame
+    # path): stage -> {"wall": s, "process": s}, where "process" is CPU
+    # actually spent in the stage's thread(s)
     stage_seconds: Optional[Dict[str, Dict[str, float]]] = None
-    # device dispatches per stage ("proxy" plan calls, "detect" detector
-    # batches, "track" crop-CNN calls plus the tracker's own: one per
-    # device step, one per chunk for the device tracker)
+    # device dispatches per stage ("proxy" plan/score calls, "detect"
+    # detector batches, "track" crop-CNN calls plus the tracker's own:
+    # one per device step, one per chunk for the device tracker); None
+    # on the per-frame path, as in the reference
     dispatches: Optional[Dict[str, int]] = None
+
+
+def detect_with_windows(bank: ModelBank, params: PipelineParams,
+                        frame: np.ndarray, sizeset: SizeSet,
+                        proxy: Optional[ProxyModel],
+                        max_windows: int) -> Tuple[np.ndarray, List[Window]]:
+    """Proxy-gated detection on one frame.  Returns (dets, windows).
+
+    The proxy scores the frame at batch 1 (``proxy_score``); windows of
+    one size class are cropped from the frame's device copy through the
+    single-frame ``window_gather`` kernel, their count zero-padded to a
+    power-of-two bucket as the reference pads it (padding rows crop cell
+    (0, 0) and are never decoded)."""
+    detector = bank.detectors[params.det_arch]
+    grid = det_grid(params.det_res)
+    if proxy is None:
+        dets = detector.detect_batch(frame[None], params.det_conf)[0]
+        return dets, [(0, 0, (grid[0], grid[1]))]
+    pframe = _downsample(frame, proxy.resolution)
+    _, pos = proxy.scores(pframe, params.proxy_threshold)
+    cell_grid = map_proxy_grid(pos, grid)
+    windows = group_cells(cell_grid, sizeset, max_windows)
+    if not windows:
+        return np.zeros((0, 5), np.float32), []
+    full = sizeset.full
+    if len(windows) == 1 and windows[0][2] == full:
+        dets = detector.detect_batch(frame[None], params.det_conf)[0]
+        return dets, windows
+    # batch windows by size class (the paper's fixed-size batching)
+    by_size: Dict[Tuple[int, int], List[Window]] = {}
+    for wdw in windows:
+        by_size.setdefault(wdw[2], []).append(wdw)
+    all_dets = []
+    W, H = params.det_res
+    frame_dev = torch.from_numpy(
+        np.ascontiguousarray(frame, np.float32)).to(detector.device)
+    for size, wins in by_size.items():
+        pw, ph = size[0] * CELL_PX, size[1] * CELL_PX
+        n = len(wins)
+        tbl = np.zeros((next_bucket(n), 2), np.int32)
+        for k, (x, y, _) in enumerate(wins):
+            tbl[k] = (y, x)
+        crops = window_gather(frame_dev, tbl, win_h=ph, win_w=pw,
+                              cell=CELL_PX)
+        origins = [(x * CELL_PX / W, y * CELL_PX / H)
+                   for (x, y, _) in wins]
+        scales = [(pw / W, ph / H)] * n
+        # crops stay on the device: the detector takes them as is
+        dets = detector.detect_batch(crops, params.det_conf,
+                                     origins=origins, scales=scales,
+                                     n_valid=n)
+        all_dets.extend(dets)
+    merged = np.concatenate(all_dets) if all_dets else \
+        np.zeros((0, 5), np.float32)
+    return nms(merged), windows
 
 
 def run_clip(bank: ModelBank, params: PipelineParams, clip: Clip,
@@ -222,15 +323,59 @@ def run_clip(bank: ModelBank, params: PipelineParams, clip: Clip,
       * "streaming" (default) — the stage-graph executor with async
         decode prefetch and double-buffered device uploads;
       * "chunked"             — the same stage graph on the sequential
-        scheduler.
+        scheduler;
+      * "frame"               — the strictly per-frame path
+        (``run_clip_frames``).
 
-    Both produce identical tracks and counters."""
+    The first two produce identical tracks and counters.  The per-frame
+    path plans the same windows but runs its conv nets at other batch
+    sizes, so it matches them only as far as those nets are
+    batch-invariant (in the reference as in the port)."""
     from repro_torch.core.executor import ClipExecutor, ExecutorOptions
     if engine == "streaming":
         opts = ExecutorOptions()
     elif engine == "chunked":
         opts = ExecutorOptions(prefetch=False, double_buffer=False)
+    elif engine == "frame":
+        return run_clip_frames(bank, params, clip)
     else:
         raise ValueError(f"unknown engine {engine!r} (expected "
-                         "'streaming' or 'chunked')")
+                         "'streaming', 'chunked' or 'frame')")
     return ClipExecutor(bank, params, opts).run(clip)
+
+
+def run_clip_frames(bank: ModelBank, params: PipelineParams, clip: Clip
+                    ) -> RunResult:
+    """The strictly per-frame path: one proxy launch and one detector
+    dispatch per size class PER FRAME, the host tracker stepped frame by
+    frame (its crop CNN runs per frame).  ``seconds`` is process time
+    plus the charged decode cost, as in the reference."""
+    cfg = bank.cfg
+    W, H = params.det_res
+    proxy = bank.proxies.get(params.proxy_res) \
+        if params.proxy_res is not None else None
+    sizeset = make_sizeset(bank, params)
+    tracker = make_tracker(bank, params)
+    n_windows = full_frames = skipped = processed = 0
+    decode_charged = 0.0
+    t0 = time.process_time()
+    for f in range(0, clip.n_frames, params.gap):
+        # thread_time brackets match render_frame's cost clock
+        t_r = time.thread_time()
+        frame, cost = render_frame(clip, f, W, H)   # decode @ det res
+        decode_charged += cost - (time.thread_time() - t_r)
+        dets, windows = detect_with_windows(
+            bank, params, frame, sizeset, proxy, cfg.windows.max_windows)
+        n_windows += len(windows)
+        if len(windows) == 1 and windows[0][2] == sizeset.full:
+            full_frames += 1
+        if not windows:
+            skipped += 1
+        tracker.step(f, dets, frame)
+        processed += 1
+    tracks = tracker.result()
+    if params.refine and bank.refiner is not None:
+        tracks = [bank.refiner.refine(t) for t in tracks]
+    seconds = time.process_time() - t0 + max(decode_charged, 0.0)
+    return RunResult(tracks, seconds, processed, n_windows, full_frames,
+                     skipped)

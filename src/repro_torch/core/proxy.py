@@ -5,11 +5,14 @@ The port of the JAX package's ``repro.core.proxy`` inference path: the
 encoder (log2(C) stride-2 convs, then one 3x3 decoder conv at cell
 resolution) is ``ProxyEncoder``; its 1x1 head is applied, thresholded
 and mapped onto the detector grid by the fused ``proxy_plan`` kernel in
-``ProxyModel.plan_batch``.
+``ProxyModel.plan_batch``, or applied and thresholded into a score map
+by the ``proxy_score`` kernel in ``ProxyModel.scores`` /
+``scores_batch`` (the per-frame path and ``fused_plan=False``).  The
+threshold sweep and calibration over cached score grids are host numpy.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -19,6 +22,7 @@ from torch import nn
 from repro_torch import Device, resolve_device
 from repro_torch.core.detector import SameConv2d, pad_to_bucket, to_device
 from repro_torch.kernels.proxy_plan import proxy_plan
+from repro_torch.kernels.proxy_score import proxy_score
 
 
 def _n_levels(cell: int) -> int:
@@ -26,6 +30,79 @@ def _n_levels(cell: int) -> int:
     if 2 ** n != cell:
         raise ValueError(f"cell {cell} must be a power of two")
     return n
+
+
+def threshold_sweep(score_grids: Sequence[np.ndarray],
+                    label_grids: Sequence[np.ndarray],
+                    thresholds: Sequence[float]
+                    ) -> List[Tuple[float, float, float]]:
+    """The paper's threshold sweep over CACHED validation score grids.
+
+    For each candidate threshold: cell-level recall of the labelled
+    positive cells (labels = θ_best detections rasterized with
+    ``cells_from_detections``) and the positive-cell rate (the proxy's
+    selectivity).  A cell is positive iff its score is strictly above
+    the threshold, as in ``proxy_score``.
+
+    -> [(threshold, recall, positive_rate)] in input threshold order.
+    """
+    out: List[Tuple[float, float, float]] = []
+    for th in thresholds:
+        covered = total = pos = cells = 0
+        for s, y in zip(score_grids, label_grids):
+            p = s > th
+            lab = y > 0
+            covered += int((p & lab).sum())
+            total += int(lab.sum())
+            pos += int(p.sum())
+            cells += p.size
+        out.append((float(th), covered / max(total, 1),
+                    pos / max(cells, 1)))
+    return out
+
+
+def sweep_candidates(score_grids: Sequence[np.ndarray],
+                     base_thresholds: Sequence[float] = (),
+                     quantiles: Sequence[float] = (0.5, 0.75, 0.9)
+                     ) -> List[float]:
+    """Candidate thresholds for the sweep: the configured menu plus
+    quantiles of the cached score distribution (trained proxies put
+    scores far from 0.5, untrained ones in a narrow band around it)."""
+    flat = np.concatenate([np.asarray(s).ravel() for s in score_grids])
+    qs = [float(np.quantile(flat, q)) for q in quantiles]
+    return sorted({round(float(t), 6) for t in
+                   list(base_thresholds) + qs})
+
+
+def calibrate_threshold(score_grids: Sequence[np.ndarray],
+                        label_grids: Sequence[np.ndarray],
+                        thresholds: Sequence[float] = (),
+                        min_recall: float = 0.95) -> float:
+    """Pick the LARGEST threshold (sparsest positive grids, cheapest
+    window plans) whose cell recall stays >= ``min_recall``; fall back
+    to the best-recall candidate when none reaches the target."""
+    cand = sweep_candidates(score_grids, thresholds)
+    sweep = threshold_sweep(score_grids, label_grids, cand)
+    ok = [th for th, recall, _ in sweep if recall >= min_recall]
+    if ok:
+        return max(ok)
+    return max(sweep, key=lambda e: (e[1], e[0]))[0]
+
+
+def cells_from_detections(dets: np.ndarray, hc: int, wc: int
+                          ) -> np.ndarray:
+    """Label a cell 1 if any detection box INTERSECTS it (paper wording).
+
+    dets: (n, >=4) [cx, cy, w, h] world units -> (hc, wc) int8."""
+    grid = np.zeros((hc, wc), np.int8)
+    for row in dets:
+        cx, cy, w, h = row[:4]
+        x0 = int(np.clip((cx - w / 2) * wc, 0, wc - 1e-6))
+        x1 = int(np.clip((cx + w / 2) * wc, 0, wc - 1e-6))
+        y0 = int(np.clip((cy - h / 2) * hc, 0, hc - 1e-6))
+        y1 = int(np.clip((cy + h / 2) * hc, 0, hc - 1e-6))
+        grid[y0:y1 + 1, x0:x1 + 1] = 1
+    return grid
 
 
 class ProxyEncoder(nn.Module):
@@ -80,6 +157,36 @@ class ProxyModel:
         with torch.inference_mode():
             return self.encoder(to_device(pad_to_bucket(frames),
                                           self.device))
+
+    def _scores(self, frames: np.ndarray, threshold: float
+                ) -> Tuple[np.ndarray, np.ndarray]:
+        feat = self.features(frames)
+        with torch.inference_mode():
+            s, p = proxy_score(feat, self.encoder.head_w,
+                               self.encoder.head_b, threshold)
+            return s.cpu().numpy(), p.cpu().numpy()
+
+    def scores(self, frame: np.ndarray, threshold: float = 0.5
+               ) -> Tuple[np.ndarray, np.ndarray]:
+        """One frame (H, W, 3), scored at batch 1 through the
+        ``proxy_score`` kernel -> ((Hc, Wc) f32 scores, (Hc, Wc) int8
+        positives) on the host."""
+        s, p = self._scores(frame[None], threshold)
+        return s[0], p[0]
+
+    def scores_batch(self, frames: np.ndarray, threshold: float = 0.5
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+        """Score a CHUNK of frames in one ``proxy_score`` launch.
+        frames: (B, H, W, 3) -> ((B, Hc, Wc) scores, (B, Hc, Wc) int8
+        positives).  The batch is zero-padded to a power-of-two bucket,
+        as the reference pads it; padding rows are dropped."""
+        n = int(frames.shape[0])
+        if n == 0:
+            hc, wc = self.grid_shape()
+            return (np.zeros((0, hc, wc), np.float32),
+                    np.zeros((0, hc, wc), np.int8))
+        s, p = self._scores(frames, threshold)
+        return s[:n], p[:n]
 
     def plan_batch(self, frames: np.ndarray, threshold: float,
                    det_grid: Tuple[int, int]

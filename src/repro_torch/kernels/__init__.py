@@ -16,9 +16,15 @@ Kernels (sources in ``repro_torch/csrc/``, built by ``_build``):
   proxy_plan    — fused proxy head + threshold + detector-grid mapping +
                   per-frame plan stats (replaces the JAX package's
                   ``kernels/proxy_plan`` Pallas kernel).
+  proxy_score   — proxy head + sigmoid + strict threshold into a score
+                  map and a positive grid, one warp per cell (replaces
+                  ``kernels/proxy_score``'s ``proxy_score_pallas``).
   window_gather — crop one size class of windows out of a chunk of
-                  frames by a (frame, cy, cx) table (replaces
-                  ``kernels/window_gather``'s ``window_gather_batch``).
+                  frames by a (frame, cy, cx) table, or out of one frame
+                  by a (cy, cx) table: two launchers over one row copy
+                  (replace ``kernels/window_gather``'s
+                  ``window_gather_batch_pallas`` and
+                  ``window_gather_pallas``).
   assign        — batched Jonker-Volgenant assignment, one warp per
                   matrix (replaces ``kernels/assign``'s ``assign_pallas``;
                   its solve, ``csrc/jv.cuh``, also runs inside

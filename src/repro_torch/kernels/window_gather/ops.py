@@ -1,4 +1,4 @@
-"""Cross-frame window gather.
+"""Window gathers, cross-frame and single-frame.
 
 ``window_gather_batch(frames, table, win_h=, win_w=, cell=)`` crops n
 windows of (win_h, win_w) px from a chunk of frames (B, H, W, C) by an
@@ -7,9 +7,17 @@ windows of (win_h, win_w) px from a chunk of frames (B, H, W, C) by an
 JAX package's oracle clamps them, so the executor's zero padding rows
 crop frame 0 at cell (0, 0).
 
-On a CUDA tensor it launches ``csrc/window_gather.cu``; on a CPU tensor
-it runs ``window_gather_batch_ref``, the plain PyTorch version (indexing).
-Both are pure copies, so they agree exactly.
+``window_gather(frame, cell_origins, win_h=, win_w=, cell=)`` is the
+per-frame path's op: n windows from ONE frame (H, W, C) by an (n, 2)
+int32 table of (cy, cx) rows, clamped the same way (``dynamic_slice``
+semantics), so ``detect_with_windows``' zero padding rows crop cell
+(0, 0).
+
+On a CUDA tensor each launches its kernel in ``csrc/window_gather.cu``
+(``window_gather_batch_launch``, ``window_gather_launch``); on a CPU
+tensor it runs its plain PyTorch version (``window_gather_batch_ref``,
+``window_gather_ref``: indexing).  All are pure copies, so they agree
+exactly.
 """
 from __future__ import annotations
 
@@ -28,6 +36,10 @@ _MAX_WINDOWS = 65535        # the launch's grid.y limit
 #                            win_w, cell, vec4, stream)
 LAUNCH_ARGTYPES = ((ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 9
                    + (ctypes.c_void_p,))
+# window_gather_launch(frame, origins, out, n, H, W, C, win_h, win_w,
+#                      cell, vec4, stream)
+LAUNCH_ARGTYPES_SINGLE = ((ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 8
+                          + (ctypes.c_void_p,))
 
 
 def window_gather_batch_ref(frames: torch.Tensor, table: torch.Tensor, *,
@@ -45,13 +57,44 @@ def window_gather_batch_ref(frames: torch.Tensor, table: torch.Tensor, *,
     return frames[b[:, None, None], ys[:, :, None], xs[:, None, :]]
 
 
+def window_gather_ref(frame: torch.Tensor, cell_origins: torch.Tensor, *,
+                      win_h: int, win_w: int, cell: int) -> torch.Tensor:
+    """Plain version.  frame: (H, W, C); cell_origins: (n, 2) int rows
+    (cy, cx) in cell units -> (n, win_h, win_w, C)."""
+    H, W, _ = frame.shape
+    t = cell_origins.to(device=frame.device, dtype=torch.int64)
+    y = (t[:, 0] * cell).clamp(0, H - win_h)
+    x = (t[:, 1] * cell).clamp(0, W - win_w)
+    ys = y[:, None] + torch.arange(win_h, device=frame.device)
+    xs = x[:, None] + torch.arange(win_w, device=frame.device)
+    return frame[ys[:, :, None], xs[:, None, :]]
+
+
 @functools.lru_cache(maxsize=None)
-def _launcher():
+def _launcher(symbol: str, argtypes: tuple):
     lib = library("window_gather")
-    fn = lib.window_gather_batch_launch
-    fn.argtypes = list(LAUNCH_ARGTYPES)
+    fn = getattr(lib, symbol)
+    fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return lib, fn
+
+
+def _check_window(op: str, H: int, W: int, win_h: int, win_w: int,
+                  cell: int) -> None:
+    if H % cell or W % cell or win_h % cell or win_w % cell \
+            or not (0 < win_h <= H and 0 < win_w <= W):
+        raise ValueError(f"{op}: window ({win_h}, {win_w}) and frame "
+                         f"({H}, {W}) must be multiples of cell {cell}, "
+                         "the window inside the frame")
+
+
+def _vec4(src: torch.Tensor, out: torch.Tensor, W: int, C: int,
+          win_w: int, cell: int) -> int:
+    """1 when every window row starts and ends on 16 bytes, so the
+    kernel copies float4s."""
+    return int((W * C) % 4 == 0 and (win_w * C) % 4 == 0
+               and (cell * C) % 4 == 0 and src.data_ptr() % 16 == 0
+               and out.data_ptr() % 16 == 0)
 
 
 def window_gather_batch(frames: torch.Tensor,
@@ -61,11 +104,7 @@ def window_gather_batch(frames: torch.Tensor,
     (n, 3) int32 (frame, cy, cx) rows in cell units, host or device.
     Returns (n, win_h, win_w, C) on frames' device."""
     B, H, W, C = frames.shape
-    if H % cell or W % cell or win_h % cell or win_w % cell \
-            or not (0 < win_h <= H and 0 < win_w <= W):
-        raise ValueError(f"window_gather_batch: window ({win_h}, {win_w}) "
-                         f"and frame ({H}, {W}) must be multiples of cell "
-                         f"{cell}, the window inside the frame")
+    _check_window("window_gather_batch", H, W, win_h, win_w, cell)
     table = torch.as_tensor(table, dtype=torch.int32)
     if table.ndim != 2 or table.shape[1] != 3:
         raise ValueError(f"window_gather_batch: table must be (n, 3), got "
@@ -85,10 +124,8 @@ def window_gather_batch(frames: torch.Tensor,
                       device=frames.device)
     if n == 0:
         return out
-    vec4 = int((W * C) % 4 == 0 and (win_w * C) % 4 == 0
-               and (cell * C) % 4 == 0 and frames.data_ptr() % 16 == 0
-               and out.data_ptr() % 16 == 0)
-    lib, fn = _launcher()
+    vec4 = _vec4(frames, out, W, C, win_w, cell)
+    lib, fn = _launcher("window_gather_batch_launch", LAUNCH_ARGTYPES)
     with torch.cuda.device(frames.device):
         err = fn(ptr(frames), ptr(table), ptr(out), n, B, H, W, C, win_h,
                  win_w, cell, vec4, stream_of(frames))
@@ -98,3 +135,43 @@ def window_gather_batch(frames: torch.Tensor,
 
 
 window_gather_batch.launches = 0
+
+
+def window_gather(frame: torch.Tensor,
+                  cell_origins: Union[np.ndarray, torch.Tensor], *,
+                  win_h: int, win_w: int, cell: int) -> torch.Tensor:
+    """frame: (H, W, C) f32 with H, W multiples of ``cell``;
+    cell_origins: (n, 2) int32 (cy, cx) rows in cell units, host or
+    device.  Returns (n, win_h, win_w, C) on frame's device."""
+    H, W, C = frame.shape
+    _check_window("window_gather", H, W, win_h, win_w, cell)
+    origins = torch.as_tensor(cell_origins, dtype=torch.int32)
+    if origins.ndim != 2 or origins.shape[1] != 2:
+        raise ValueError(f"window_gather: cell_origins must be (n, 2), "
+                         f"got {tuple(origins.shape)}")
+    if not on_cuda(frame):
+        return window_gather_ref(frame, origins, win_h=win_h, win_w=win_w,
+                                 cell=cell)
+    n = int(origins.shape[0])
+    if frame.dtype != torch.float32 or not frame.is_contiguous():
+        raise ValueError("window_gather: frame must be a contiguous f32 "
+                         f"tensor, got {frame.dtype}")
+    if n > _MAX_WINDOWS:
+        raise ValueError(f"window_gather: {n} windows > {_MAX_WINDOWS} "
+                         "per call")
+    origins = origins.to(frame.device).contiguous()
+    out = torch.empty((n, win_h, win_w, C), dtype=frame.dtype,
+                      device=frame.device)
+    if n == 0:
+        return out
+    vec4 = _vec4(frame, out, W, C, win_w, cell)
+    lib, fn = _launcher("window_gather_launch", LAUNCH_ARGTYPES_SINGLE)
+    with torch.cuda.device(frame.device):
+        err = fn(ptr(frame), ptr(origins), ptr(out), n, H, W, C, win_h,
+                 win_w, cell, vec4, stream_of(frame))
+    check_launch(err, lib, "window_gather")
+    window_gather.launches += 1
+    return out
+
+
+window_gather.launches = 0

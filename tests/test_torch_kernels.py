@@ -8,7 +8,10 @@ proxy_plan: every implementation's plan is held against float64
 arithmetic with ``check_plan`` — cells whose sigmoid lies within
 ``FLIP_ULPS`` f32 ulps of the threshold may flip, nothing else may —
 and outside that band the port's grids and stats equal the JAX ones.
-window_gather_batch: a pure copy, so exact.
+proxy_score: scores within 1e-6 of the JAX kernel's, and every
+implementation's positives held to float64 with ``check_scores`` (the
+same 8-ulp band); outside it the positives equal the JAX ones.
+window_gather_batch and window_gather: pure copies, so exact.
 assign and track_step: the port's plain versions, the JAX package's
 Pallas kernels in interpret mode and its numpy oracles agree bit for bit
 (columns, and f32 outputs compared as bits).
@@ -24,10 +27,13 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels.proxy_plan.kernel import proxy_plan_pallas  # noqa: E402
 from repro.kernels.proxy_plan.ops import span_matrix as jx_span  # noqa: E402
 from repro.kernels.proxy_plan.ref import proxy_plan_ref as jx_plan  # noqa: E402
+from repro.kernels.proxy_score.kernel import proxy_score_pallas  # noqa: E402
+from repro.kernels.proxy_score.ref import (  # noqa: E402
+    proxy_score_ref as jx_score)
 from repro.kernels.window_gather.kernel import (  # noqa: E402
-    window_gather_batch_pallas)
+    window_gather_batch_pallas, window_gather_pallas)
 from repro.kernels.window_gather.ref import (  # noqa: E402
-    window_gather_batch_ref as jx_gather)
+    window_gather_batch_ref as jx_gather, window_gather_ref as jx_gather1)
 from repro.kernels.assign.kernel import assign_pallas, solve_one  # noqa: E402
 from repro.kernels.assign.ops import _solve_vmapped  # noqa: E402
 from repro.core.hungarian import (  # noqa: E402
@@ -45,8 +51,10 @@ from repro_torch.kernels.track_step import (  # noqa: E402
 from repro_torch.kernels.proxy_plan import (  # noqa: E402
     proxy_plan, span_matrix)
 from repro_torch.kernels.proxy_plan.ops import check_plan  # noqa: E402
+from repro_torch.kernels.proxy_score import (  # noqa: E402
+    check_scores, proxy_score)
 from repro_torch.kernels.window_gather import (  # noqa: E402
-    window_gather_batch)
+    window_gather, window_gather_batch)
 
 # (B, hp, wp, C, hc, wc): the full-width main path (proxy 416x256 at
 # cell 32 -> 13x8 cells of 64 features, detector grid 60x34) and a
@@ -109,6 +117,74 @@ def test_proxy_plan_empty_frame_sentinels():
                                   [[0, 5, -1, 7, -1, 0, 0, 0]] * 2)
 
 
+# (B, Hc, Wc, C): the per-frame path (one proxy frame of 13x8 cells of
+# 64 features), a chunk with fused_plan=False, the reduced config
+# (proxy 32x24 at cell 8, 4 base channels -> 16 features), and a shape
+# whose rows (231) are not a multiple of the Pallas kernel's 256-row block
+SCORE_SHAPES = [(1, 8, 13, 64), (16, 8, 13, 64), (4, 3, 4, 16),
+                (3, 7, 11, 24)]
+
+
+@pytest.mark.parametrize("shape", SCORE_SHAPES)
+@pytest.mark.parametrize("thr_kind", ["mid", "on_a_cell", "inf", "-inf"])
+def test_proxy_score_matches_jax(shape, thr_kind):
+    B, hc, wc, C = shape
+    feat, w, b, s64 = _plan_inputs((B, hc, wc, C, 1, 1), seed=C + hc)
+    thr = {"mid": float(np.median(s64)),
+           # ON one cell's score: that cell may go either way
+           "on_a_cell": float(np.float32(s64[B // 2, hc // 2, wc // 2])),
+           "inf": float("inf"), "-inf": float("-inf")}[thr_kind]
+    s_t, p_t = proxy_score(torch.from_numpy(feat), torch.from_numpy(w),
+                           torch.tensor([b]), thr)
+    s_t, p_t = s_t.numpy(), p_t.numpy()
+    assert s_t.dtype == np.float32 and s_t.shape == (B, hc, wc)
+    assert p_t.dtype == np.int8 and p_t.shape == (B, hc, wc)
+    band = check_scores(feat, w, b, thr, s_t, p_t)
+    if thr_kind == "on_a_cell":
+        assert band > 0
+    if thr_kind == "inf":
+        assert band == 0 and not p_t.any()
+    if thr_kind == "-inf":
+        assert band == 0 and p_t.all()
+    for name, ref in (
+            ("interpret", proxy_score_pallas(feat, w, b, thr,
+                                             interpret=True)),
+            ("jnp ref", jx_score(feat, w, b, thr))):
+        s_j, p_j = (np.asarray(a) for a in ref)
+        np.testing.assert_allclose(s_t, s_j, rtol=0, atol=1e-6,
+                                   err_msg=name)
+        assert check_scores(feat, w, b, thr, s_j, p_j) == band, name
+        # every disagreement lies in the band (checked above)
+        assert int((p_j != p_t).sum()) <= band, name
+
+
+def test_proxy_score_threshold_is_strict():
+    """A score exactly at the threshold is not positive, as in the
+    reference's ``score > threshold``."""
+    s, p = proxy_score(torch.zeros((1, 1, 2, 8)), torch.zeros(8),
+                       torch.zeros(1), 0.5)
+    assert float(s[0, 0, 0]) == 0.5 and not p.any()
+    s_j, p_j = jx_score(np.zeros((1, 1, 2, 8), np.float32),
+                        np.zeros(8, np.float32), 0.0, 0.5)
+    assert float(s_j[0, 0, 0]) == 0.5 and not np.asarray(p_j).any()
+
+
+def test_check_scores_rejects_a_flip_outside_the_band():
+    feat, w, b, s64 = _plan_inputs((1, 8, 13, 64, 1, 1), seed=3)
+    thr = float(np.median(s64))
+    s, p = proxy_score(torch.from_numpy(feat), torch.from_numpy(w),
+                       torch.tensor([b]), thr)
+    far = np.unravel_index(np.argmax(np.abs(s64 - thr)), s64.shape)
+    bad_p = p.clone()
+    bad_p[far] = 1 - bad_p[far]
+    bad_s = s.clone()
+    bad_s[far] = 1.0 if int(bad_p[far]) else 0.0
+    with pytest.raises(AssertionError, match="exact arithmetic"):
+        check_scores(feat, w, b, thr, bad_s, bad_p)
+    with pytest.raises(AssertionError, match="scores' own"):
+        check_scores(feat, w, b, thr, s, bad_p)
+
+
 def _gather_case(B, H, W, cell, sizes, seed):
     rng = np.random.default_rng(seed)
     frames = rng.standard_normal((B, H, W, 3)).astype(np.float32)
@@ -151,9 +227,59 @@ def test_window_gather_batch_matches_jax(B, H, W, sizes):
         np.testing.assert_array_equal(got[rows], np.asarray(pal))
 
 
+@pytest.mark.parametrize("H,W,sizes", [
+    (544, 960, [(15, 9), (30, 17), (60, 34)]),    # full-width per-frame path
+    (80, 128, [(3, 2), (5, 3)]),                  # reduced
+])
+def test_window_gather_matches_jax(H, W, sizes):
+    """The single-frame gather against the JAX Pallas kernel in
+    interpret mode and its dynamic_slice oracle: a table bucket-padded
+    with zero rows, a window at the far edge, exact."""
+    cell = 16
+    rng = np.random.default_rng(H + W)
+    frame = rng.standard_normal((H, W, 3)).astype(np.float32)
+    ft = torch.from_numpy(frame)
+    for (wc, hc) in sizes:
+        win_h, win_w = hc * cell, wc * cell
+        tbl = np.zeros((8, 2), np.int32)
+        tbl[:3, 0] = rng.integers(0, H // cell - hc + 1, 3)
+        tbl[:3, 1] = rng.integers(0, W // cell - wc + 1, 3)
+        tbl[3] = (H // cell - hc, W // cell - wc)       # far edge
+        got = window_gather(ft, tbl, win_h=win_h, win_w=win_w,
+                            cell=cell).numpy()
+        assert got.shape == (8, win_h, win_w, 3)
+        np.testing.assert_array_equal(got, np.asarray(jx_gather1(
+            frame, tbl * cell, win_h=win_h, win_w=win_w)))
+        for k, (cy, cx) in enumerate(tbl):     # padding rows: cell (0, 0)
+            np.testing.assert_array_equal(
+                got[k], frame[cy * cell:cy * cell + win_h,
+                              cx * cell:cx * cell + win_w])
+        # interpret mode walks every 16x16 tile: at full width it takes
+        # the far-edge window and one padding row
+        rows = slice(None) if H < 200 else [3, 7]
+        pal = window_gather_pallas(frame, tbl[rows], win_h=win_h,
+                                   win_w=win_w, cell=cell, interpret=True)
+        np.testing.assert_array_equal(got[rows], np.asarray(pal))
+
+
+def test_window_gather_clamps_like_dynamic_slice():
+    """Origins past the frame clamp into it, as ``dynamic_slice`` does."""
+    frame = np.arange(64 * 96 * 3, dtype=np.float32).reshape(64, 96, 3)
+    tbl = np.array([[9, 9], [-1, 2], [0, 5]], np.int32)
+    got = window_gather(torch.from_numpy(frame), tbl, win_h=32, win_w=48,
+                        cell=16).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jx_gather1(
+        frame, tbl * 16, win_h=32, win_w=48)))
+    np.testing.assert_array_equal(got[0], frame[32:, 48:])
+    with pytest.raises(ValueError, match="must be \\(n, 2\\)"):
+        window_gather(torch.from_numpy(frame), np.zeros((2, 3), np.int32),
+                      win_h=32, win_w=48, cell=16)
+
+
 def _counts():
     return (proxy_plan.launches, window_gather_batch.launches,
-            assign_batch.launches, track_step.launches)
+            assign_batch.launches, track_step.launches,
+            proxy_score.launches, window_gather.launches)
 
 
 def test_wrappers_run_plain_version_on_cpu_tensors():
@@ -164,6 +290,11 @@ def test_wrappers_run_plain_version_on_cpu_tensors():
     window_gather_batch(torch.ones(1, 32, 32, 3),
                         np.zeros((1, 3), np.int32), win_h=16, win_w=16,
                         cell=16)
+    s, p = proxy_score(torch.ones(1, 2, 2, 4), torch.ones(4),
+                       torch.zeros(1), 0.5)
+    assert s.device.type == p.device.type == "cpu"
+    assert window_gather(torch.ones(32, 32, 3), np.zeros((1, 2), np.int32),
+                         win_h=16, win_w=16, cell=16).shape == (1, 16, 16, 3)
     assert assign_batch(torch.ones(2, 3, 3)).shape == (2, 3)
     rng = np.random.default_rng(0)
     arrs, thr, np_params = _track_step_operands(rng, 1, 8, 4, 4, 4)
@@ -185,23 +316,40 @@ def test_wrappers_reject_other_devices():
                             np.zeros((1, 3), np.int32), win_h=16,
                             win_w=16, cell=16)
     with pytest.raises(ValueError):
+        proxy_score(meta, meta[0, 0, 0], meta[0, 0, 0, :1], 0.5)
+    with pytest.raises(ValueError):
+        window_gather(torch.empty((32, 32, 3), device="meta"),
+                      np.zeros((1, 2), np.int32), win_h=16, win_w=16,
+                      cell=16)
+    with pytest.raises(ValueError):
         assign_batch(torch.empty((1, 4, 4), device="meta"))
     with pytest.raises(ValueError):
         track_step(*([torch.empty((1, 8, 4), device="meta")] + [None] * 10))
 
 
-@pytest.mark.parametrize("src,fn,ops", [
+LAUNCHERS = [
     ("proxy_plan.cu", "proxy_plan_launch",
-     "repro_torch.kernels.proxy_plan.ops"),
+     "repro_torch.kernels.proxy_plan.ops", "LAUNCH_ARGTYPES"),
     ("window_gather.cu", "window_gather_batch_launch",
-     "repro_torch.kernels.window_gather.ops"),
-    ("assign.cu", "assign_launch", "repro_torch.kernels.assign.ops"),
+     "repro_torch.kernels.window_gather.ops", "LAUNCH_ARGTYPES"),
+    ("window_gather.cu", "window_gather_launch",
+     "repro_torch.kernels.window_gather.ops", "LAUNCH_ARGTYPES_SINGLE"),
+    ("proxy_score.cu", "proxy_score_launch",
+     "repro_torch.kernels.proxy_score.ops", "LAUNCH_ARGTYPES"),
+    ("assign.cu", "assign_launch", "repro_torch.kernels.assign.ops",
+     "LAUNCH_ARGTYPES"),
     ("track_step.cu", "track_step_launch",
-     "repro_torch.kernels.track_step.ops"),
-])
-def test_ctypes_signature_matches_c_source(src, fn, ops):
-    """The ctypes argtypes each wrapper declares match the C launcher's
-    parameter list (a mismatch only shows on the card otherwise)."""
+     "repro_torch.kernels.track_step.ops", "LAUNCH_ARGTYPES"),
+]
+
+
+# ids name the source, launcher and module (each launcher has one)
+@pytest.mark.parametrize("src,fn,ops,attr", LAUNCHERS,
+                         ids=["-".join(row[:3]) for row in LAUNCHERS])
+def test_ctypes_signature_matches_c_source(src, fn, ops, attr):
+    """The ctypes argtypes each wrapper declares (module attribute
+    ``attr``) match the C launcher's parameter list (a mismatch only
+    shows on the card otherwise)."""
     import ctypes
     import importlib
     import re
@@ -219,7 +367,7 @@ def test_ctypes_signature_matches_c_source(src, fn, ops):
         else:
             assert param.startswith("int "), param
             want.append(ctypes.c_int)
-    assert list(importlib.import_module(ops).LAUNCH_ARGTYPES) == want
+    assert list(getattr(importlib.import_module(ops), attr)) == want
 
 
 def test_bit_matched_kernels_build_without_fma_contraction(tmp_path,

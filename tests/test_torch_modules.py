@@ -23,7 +23,10 @@ import jax.numpy as jnp  # noqa: E402
 import repro.core.detector as jdet  # noqa: E402
 import repro.core.fastmath as jfm  # noqa: E402
 import repro.core.hungarian as jhung  # noqa: E402
+import repro.core.metrics as jmet  # noqa: E402
+import repro.core.pipeline as jpl  # noqa: E402
 import repro.core.proxy as jproxy  # noqa: E402
+import repro.core.refine as jref  # noqa: E402
 import repro.core.sort as jsort  # noqa: E402
 import repro.core.tracker as jtrk  # noqa: E402
 import repro.core.windows as jwin  # noqa: E402
@@ -33,6 +36,10 @@ from repro.configs.multiscope import MULTISCOPE_PIPELINE as J_CFG  # noqa: E402
 import repro_torch.core.detector as tdet  # noqa: E402
 import repro_torch.core.fastmath as tfm  # noqa: E402
 import repro_torch.core.hungarian as thung  # noqa: E402
+import repro_torch.core.metrics as tmet  # noqa: E402
+import repro_torch.core.pipeline as tpl  # noqa: E402
+import repro_torch.core.proxy as tproxy  # noqa: E402
+import repro_torch.core.refine as tref  # noqa: E402
 import repro_torch.core.sort as tsort  # noqa: E402
 import repro_torch.core.tracker as ttrk  # noqa: E402
 import repro_torch.core.windows as twin  # noqa: E402
@@ -280,3 +287,165 @@ def test_configs_copied():
         assert getattr(T_CFG, name).__dict__ == getattr(J_CFG, name).__dict__
         assert getattr(T_CFG.reduced(), name).__dict__ == \
             getattr(J_CFG.reduced(), name).__dict__
+
+
+# ---------------------------------------------------------------------------
+# The per-frame path's host stages, refinement and the quality readout
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("hp,wp,hc,wc", [(8, 13, 34, 60), (3, 4, 5, 8),
+                                         (7, 11, 3, 5), (5, 5, 5, 5)])
+def test_map_proxy_grid_identical(hp, wp, hc, wc):
+    rng = np.random.default_rng(hp * wp + hc)
+    for density in (0.0, 0.05, 0.3, 1.0):
+        pos = (rng.random((hp, wp)) < density).astype(np.int8)
+        got = tpl.map_proxy_grid(pos, (wc, hc))
+        assert got.dtype == np.int8 and got.shape == (hc, wc)
+        np.testing.assert_array_equal(got, jpl.map_proxy_grid(pos, (wc, hc)))
+
+
+def test_downsample_identical():
+    frames = np.random.default_rng(1).random((3, 80, 128, 3), np.float32)
+    for res in ((32, 24), (64, 40), (128, 80)):
+        np.testing.assert_array_equal(tpl._downsample(frames[1], res),
+                                      jpl._downsample(frames[1], res))
+        chunk = tpl.downsample_chunk(frames, res)
+        np.testing.assert_array_equal(chunk,
+                                      jpl.downsample_chunk(frames, res))
+        np.testing.assert_array_equal(chunk[1],
+                                      tpl._downsample(frames[1], res))
+
+
+def test_proxy_scores_match():
+    """``ProxyModel.scores`` (batch 1) and ``scores_batch`` (3 frames,
+    bucket-padded to 4) on the reference's weights: scores to the conv
+    tolerance, positives equal at a threshold whose margin from every
+    score exceeds it."""
+    cell, base, res = 8, 4, (32, 24)
+    jp = jproxy.init_proxy(cell, base, seed=6)
+    ref = jproxy.ProxyModel(cell, base, res, params=jp)
+    port = tproxy.ProxyModel(cell, base, res, device="cpu",
+                             encoder=bridge.proxy_from_params(
+                                 cell, base, _np_tree(jp)))
+    frames = np.random.default_rng(4).random((3, 24, 32, 3), np.float32)
+    s_ref, _ = ref.scores_batch(frames, 0.5)
+    v = np.unique(s_ref.astype(np.float64))
+    k = int(np.argmax(np.diff(v)))
+    thr = float((v[k] + v[k + 1]) / 2)
+    assert np.min(np.abs(s_ref - thr)) > CONV_ATOL
+    s_j, p_j = ref.scores_batch(frames, thr)
+    s_t, p_t = port.scores_batch(frames, thr)
+    assert s_t.shape == (3, 3, 4) and p_t.dtype == np.int8
+    np.testing.assert_allclose(s_t, s_j, rtol=0, atol=CONV_ATOL)
+    np.testing.assert_array_equal(p_t, p_j)
+    assert 0 < p_t.sum() < p_t.size
+    s1_j, p1_j = ref.scores(frames[2], thr)
+    s1_t, p1_t = port.scores(frames[2], thr)
+    np.testing.assert_allclose(s1_t, s1_j, rtol=0, atol=CONV_ATOL)
+    np.testing.assert_array_equal(p1_t, p1_j)
+    empty = port.scores_batch(frames[:0], thr)
+    assert empty[0].shape == (0, 3, 4) and empty[1].dtype == np.int8
+
+
+def test_threshold_calibration_identical():
+    rng = np.random.default_rng(12)
+    scores = [rng.beta(2, 2, (5, 8)).astype(np.float32) for _ in range(6)]
+    labels = [(s + rng.normal(0, 0.2, s.shape) > 0.6).astype(np.int8)
+              for s in scores]
+    base = (0.3, 0.5, 0.7)
+    assert tproxy.sweep_candidates(scores, base) == \
+        jproxy.sweep_candidates(scores, base)
+    cand = tproxy.sweep_candidates(scores, base)
+    assert tproxy.threshold_sweep(scores, labels, cand) == \
+        jproxy.threshold_sweep(scores, labels, cand)
+    for th, mr in ((base, 0.95), (base, 0.5), ((), 0.99), ((0.99,), 1.0)):
+        got = tproxy.calibrate_threshold(scores, labels, th, mr)
+        assert got == jproxy.calibrate_threshold(scores, labels, th, mr)
+    clip = jvs.make_clip("caldot1", "test", 0, n_frames=12)
+    for f in (0, 5, 11):
+        dets = clip.boxes_at(f)
+        np.testing.assert_array_equal(
+            tproxy.cells_from_detections(dets, 5, 8),
+            jproxy.cells_from_detections(dets, 5, 8))
+
+
+def _gt_tracks(clip, rng, noise=0.004, keep=1.0, ids=0):
+    """The clip's ground-truth tracks as (m, 6) [frame, cx, cy, w, h,
+    id] rows, with seeded box noise and dropped rows."""
+    out = []
+    for t in clip.tracks:
+        rows = np.zeros((len(t.frames), 6), np.float32)
+        rows[:, 0] = t.frames
+        rows[:, 1:5] = t.boxes + rng.normal(0, noise, t.boxes.shape)
+        rows[:, 5] = t.track_id + ids
+        rows = rows[rng.random(len(rows)) < keep]
+        if len(rows):
+            out.append(rows)
+    return out
+
+
+def test_refiner_identical():
+    """Pure numpy on both sides: the same training tracks give the same
+    clusters and index, and every refined track is bit-identical."""
+    cfg_j, cfg_t = J_CFG.reduced().refine, T_CFG.reduced().refine
+    assert cfg_t.__dict__ == cfg_j.__dict__
+    rng = np.random.default_rng(21)
+    train = []
+    for cid in range(3):
+        train += _gt_tracks(jvs.make_clip("caldot1", "train", cid,
+                                          n_frames=64), rng)
+    ref = jref.TrackRefiner(cfg_j, train, frame_scale=1.0 / 128)
+    port = tref.TrackRefiner(cfg_t, train, frame_scale=1.0 / 128)
+    assert len(port.clusters) == len(ref.clusters) > 1
+    for a, b in zip(port.clusters, ref.clusters):
+        np.testing.assert_array_equal(a.center, b.center)
+        assert a.size == b.size
+    assert dict(port.index) == dict(ref.index)
+    test = _gt_tracks(jvs.make_clip("caldot1", "test", 0, n_frames=64),
+                      rng, keep=0.5)
+    changed = 0
+    for t in test + [t[:1] for t in test[:2]]:
+        mid = t[len(t) // 4:max(len(t) // 4 + 1, 3 * len(t) // 4)]
+        got, want = port.refine(mid), ref.refine(mid)
+        np.testing.assert_array_equal(got, want)
+        changed += len(got) != len(mid)
+    assert changed > 0
+    for n in (1, 7, 20):
+        np.testing.assert_array_equal(
+            tref.resample_track(test[0][:, 1:3], n),
+            jref.resample_track(test[0][:, 1:3], n))
+    paths = [tref.resample_track(t[:, 1:3], 20) for t in train]
+    assert tref.dbscan_tracks(paths, 0.2, 2) == \
+        jref.dbscan_tracks(paths, 0.2, 2)
+
+
+@pytest.mark.parametrize("profile", ["caldot1", "warsaw"])
+def test_metrics_identical(profile):
+    """Seeded noisy tracks with dropped rows and an identity switch:
+    MOTA (host Hungarian, and every frame in one ``assign`` batch on
+    CPU tensors), pattern counts and count accuracy equal the
+    reference's exactly."""
+    clip_j = jvs.make_clip(profile, "test", 1, n_frames=48)
+    clip_t = tvs.make_clip(profile, "test", 1, n_frames=48)
+    rng = np.random.default_rng(len(profile))
+    tracks = _gt_tracks(clip_j, rng, noise=0.01, keep=0.8, ids=100)
+    tracks[0] = tracks[0].copy()
+    tracks[0][len(tracks[0]) // 2:, 5] += 1000         # identity switch
+    tracks.append(np.array([[3, 0.5, 0.5, 0.1, 0.1, 7]], np.float32))
+    for frames in (None, range(0, 48, 3)):
+        got = tmet.mota(tracks, clip_t, frames)
+        assert got == jmet.mota(tracks, clip_j, frames)
+        got_b = tmet.mota(tracks, clip_t, frames, assign="batch",
+                          device="cpu")
+        assert got_b == jmet.mota(tracks, clip_j, frames, assign="batch")
+        assert -1.0 < got < 1.0
+    np.testing.assert_array_equal(
+        tmet.pattern_counts(tracks, clip_t.profile),
+        jmet.pattern_counts(tracks, clip_j.profile))
+    assert tmet.clip_count_accuracy(tracks, clip_t) == \
+        jmet.clip_count_accuracy(tracks, clip_j)
+    assert [tmet.classify_track(t, clip_t.profile) for t in tracks] == \
+        [jmet.classify_track(t, clip_j.profile) for t in tracks]
+    assert tmet.mota([], clip_t) == jmet.mota([], clip_j)
+    with pytest.raises(ValueError, match="assign"):
+        tmet.mota(tracks, clip_t, assign="gpu")

@@ -13,10 +13,15 @@ same tracks.
 Stage by stage, each port stage is fed the reference's output of the
 stage before; end to end, both run their streaming executors, with the
 host tracker and with TRACK on the device (``device_assign``,
-``device_tracker``).  Host numpy stages and the device tracker must be
+``device_tracker``), with the unfused proxy path (``fused_plan=False``),
+and the per-frame engine (``run_clip_frames``), each against the
+reference's same path at the same batch composition, with and without a
+track refiner built from the same training tracks in both packages.  Host numpy stages and the device tracker must be
 bit-identical; values computed from conv outputs (boxes, embeddings)
 agree to the stated tolerances.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -38,6 +43,8 @@ import repro_torch.core.executor as tex  # noqa: E402
 import repro_torch.core.pipeline as tpl  # noqa: E402
 import repro_torch.core.proxy as tproxy  # noqa: E402
 import repro_torch.core.tracker as ttrk  # noqa: E402
+from repro.core.refine import TrackRefiner as JRefiner  # noqa: E402
+from repro_torch.core.refine import TrackRefiner as TRefiner  # noqa: E402
 from repro_torch import params as bridge  # noqa: E402
 from repro_torch.configs.multiscope import MULTISCOPE_PIPELINE as T_CFG  # noqa: E402
 
@@ -274,6 +281,102 @@ def test_end_to_end_track_modes(slice_setup, mode, chunk):
         for x, y in zip(got.tracks, host.tracks):
             np.testing.assert_array_equal(x, y)
         assert got.dispatches["track"] > host.dispatches["track"]
+
+
+def _assert_runs_match(got, ref):
+    """Same decisions (frames, ids, counters), boxes to the conv
+    tolerance, track for track."""
+    for k in ("frames_processed", "detector_windows", "full_frames",
+              "skipped_frames"):
+        assert getattr(got, k) == getattr(ref, k), k
+    assert got.dispatches == ref.dispatches
+    assert len(got.tracks) == len(ref.tracks) > 0
+    for x, y in zip(got.tracks, ref.tracks):
+        assert x.shape == y.shape
+        np.testing.assert_array_equal(x[:, [0, 5]], y[:, [0, 5]])
+        np.testing.assert_allclose(x, y, rtol=BOX_RTOL, atol=BOX_ATOL)
+
+
+@pytest.fixture(scope="module")
+def refined_banks(slice_setup):
+    """Both banks with a refiner built from the same training tracks:
+    the reference's streaming run over two ``caldot1`` train clips."""
+    s = slice_setup
+    train = []
+    for cid in (0, 1):
+        clip = make_clip("caldot1", "train", cid, n_frames=24)
+        train += jpl.run_clip(s["jbank"], s["params"], clip).tracks
+    scale = 1.0 / s["params"].det_res[0]
+    jbank = dataclasses.replace(s["jbank"], refiner=JRefiner(
+        s["jbank"].cfg.refine, train, frame_scale=scale))
+    tbank = dataclasses.replace(s["tbank"], refiner=TRefiner(
+        s["tbank"].cfg.refine, train, frame_scale=scale))
+    assert len(tbank.refiner.clusters) == len(jbank.refiner.clusters) > 0
+    return jbank, tbank
+
+
+def _banks(s, refined_banks, refine):
+    if refine:
+        return refined_banks
+    return s["jbank"], s["tbank"]
+
+
+def _refine_params(p, refine):
+    return dataclasses.replace(p, refine=refine)
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("refine", [False, True])
+def test_end_to_end_frame_engine(slice_setup, refined_banks, refine):
+    """The per-frame engine against the reference's ``run_clip_frames``:
+    batch-1 proxy through ``proxy_score``, sub-frame windows through the
+    single-frame ``window_gather``, the host tracker frame by frame."""
+    s = slice_setup
+    jbank, tbank = _banks(s, refined_banks, refine)
+    jp = _refine_params(s["params"], refine)
+    ref = jpl.run_clip_frames(jbank, jp, s["clip"])
+    got = tpl.run_clip(tbank, _port_params(jp), s["clip"], engine="frame")
+    _assert_runs_match(got, ref)
+    assert ref.detector_windows > ref.full_frames     # windows ran
+    assert got.stage_seconds is None and got.dispatches is None
+    if refine:
+        plain = tpl.run_clip_frames(s["tbank"], _port_params(jp), s["clip"])
+        assert sum(map(len, got.tracks)) > sum(map(len, plain.tracks))
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("refine", [False, True])
+def test_end_to_end_unfused_plan(slice_setup, refined_banks, refine):
+    """``ExecutorOptions(fused_plan=False)`` against the reference's:
+    one ``proxy_score`` launch per chunk, host mapping and planning."""
+    s = slice_setup
+    jbank, tbank = _banks(s, refined_banks, refine)
+    jp = _refine_params(s["params"], refine)
+    ref = jex.ClipExecutor(jbank, jp, jex.ExecutorOptions(
+        fused_plan=False)).run(s["clip"])
+    got = tex.ClipExecutor(tbank, _port_params(jp), tex.ExecutorOptions(
+        fused_plan=False)).run(s["clip"])
+    _assert_runs_match(got, ref)
+    assert ref.detector_windows > ref.full_frames
+    # the unfused plans are the fused ones (no score near the threshold)
+    fused = tex.ClipExecutor(tbank, _port_params(jp)).run(s["clip"])
+    assert len(fused.tracks) == len(got.tracks)
+    for x, y in zip(fused.tracks, got.tracks):
+        np.testing.assert_array_equal(x, y)
+    if refine:
+        plain = tex.ClipExecutor(s["tbank"], _port_params(jp),
+                                 tex.ExecutorOptions(fused_plan=False)
+                                 ).run(s["clip"])
+        assert sum(map(len, got.tracks)) > sum(map(len, plain.tracks))
+
+
+def test_run_clip_rejects_unknown_engine(slice_setup):
+    s = slice_setup
+    with pytest.raises(ValueError) as exc:
+        tpl.run_clip(s["tbank"], _port_params(s["params"]), s["clip"],
+                     engine="bogus")
+    for name in ("'streaming'", "'chunked'", "'frame'"):
+        assert name in str(exc.value)
 
 
 def test_entry_points_default_to_the_card():
