@@ -24,8 +24,21 @@ unrefined ones), and the quality readout (MOTA with the host Hungarian
 and with every frame in one ``assign`` launch, count accuracy).  It
 checks that every kernel of each path was launched and that the output
 is right, and profiles four more runs for the device's busy share.
-Every phase runs uncaught: any failure exits non-zero before the result
-line.
+Then the LM serving path (``run_lm``): ``flash_attention`` and
+``decode_attention`` against their plain versions at the serving shapes
+(f32 within 1e-5, bf16 one bf16 ulp apart) and timed beside
+``scaled_dot_product_attention``, then ``ServeEngine.generate`` at full
+qwen2-0.5b width (24 layers, bf16 activations, weights from the seed) on
+4 prompts of 61, 200, 384 and 500 tokens with 32 new tokens each: twice
+(the same tokens, 24 ``flash_attention`` and 768 ``decode_attention``
+launches each), timed, and once profiled.  The serve checks then hold
+the logits, in bf16 and again with f32 activations, to a share of their
+RMS: both attention wrappers swapped for their plain versions, each
+prompt alone, the first and last decode step against a fresh prefill;
+and four planted faults (decode attending kv_len = pos, decode one
+position late, decode without rope, a prefill that is not causal) must
+each break the check it targets.  Every phase runs uncaught: any
+failure exits non-zero before the result line.
 
 The last three lines of standard output are the kernels' JSON record,
 the card's name and power limit as ``nvidia-smi`` reports them, and
@@ -44,11 +57,13 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 # the port (fails here, before any result, outside a checkout)
+from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.configs.multiscope import MULTISCOPE_PIPELINE  # noqa: E402
 from repro_torch.core import pipeline as pl  # noqa: E402
 from repro_torch.core.detector import Detector, next_bucket  # noqa: E402
@@ -75,6 +90,13 @@ from repro_torch.kernels.proxy_score import (  # noqa: E402
 from repro_torch.kernels.window_gather import (  # noqa: E402
     window_gather, window_gather_batch, window_gather_batch_ref,
     window_gather_ref)
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    decode_attention, decode_attention_ref)
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention, flash_attention_ref)
+from repro_torch.models import attention as lm_attention  # noqa: E402
+from repro_torch.models.model import Model, build_model  # noqa: E402
+from repro_torch.serve import ServeEngine  # noqa: E402
 
 DEVICE = "cuda"
 CFG = MULTISCOPE_PIPELINE       # full width
@@ -87,6 +109,18 @@ SIZES_CELLS = [(60, 34), (15, 9), (30, 17)]   # full frame + two windows
 PROXY_QUANTILE = 0.85
 DET_QUANTILE = 0.995
 CONV_ATOL = 1e-4                # card vs CPU conv nets (TF32 off)
+BF16_OPS_PER_S = 989e12         # H100 SXM bf16 tensor cores, dense
+LM_CFG = get_config("qwen2-0.5b")   # full width
+LM_PROMPT_LENS = (61, 200, 384, 500)
+LM_MAX_LEN = 1024
+LM_NEW_TOKENS = 32
+ATTN_F32_ATOL = 1e-5            # attention kernels vs plain versions, f32
+# logits of two runs that differ in rounding only (the attention kernels
+# against their plain versions, batch 1 against 4, a decode step against
+# a fresh prefill), max |d| held to this share of the logits' RMS, by
+# activation dtype; set between the rounding-only gaps and the planted
+# faults' gaps that the serve checks print (PERF.md)
+LM_LOGIT_TOL = {"bfloat16": 0.2, "float32": 1e-3}
 
 
 def log(*args) -> None:
@@ -150,9 +184,9 @@ def device_ms(fn, kernel_name: str, reps: int = 50):
     return device_ms_by_kernel(fn, (kernel_name,), reps)[kernel_name]
 
 
-def bound(n_bytes: float, n_ops: float):
+def bound(n_bytes: float, n_ops: float, ops_per_s: float = F32_OPS_PER_S):
     t_b = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_o = n_ops / F32_OPS_PER_S * 1e3
+    t_o = n_ops / ops_per_s * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
@@ -882,18 +916,9 @@ def check_result(res, n_frames):
             raise AssertionError("track frames not increasing in range")
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device available", file=sys.stderr)
-        return 2
-    smi = nvidia_smi()
-    nvcc = subprocess.run([_build.nvcc_path(), "--version"],
-                          capture_output=True, text=True, check=True,
-                          timeout=60).stdout.strip().splitlines()[-1]
-    log(f"card: {smi}; torch {torch.__version__}, CUDA "
-        f"{torch.version.cuda}, nvcc: {nvcc}")
-    build_kernels()
-
+def run_video() -> list:
+    """The video paths: every check and run above; -> their six kernels'
+    records."""
     bank = make_bank(DEVICE)
     clip = make_clip("caldot1", "test", SEED, n_frames=N_FRAMES)
     params, frames, feat, first_plan = set_up(bank, clip)
@@ -1151,6 +1176,591 @@ def main() -> int:
              library_ms=None, device_ms=a_main["device_ms"],
              shape=f"K=4 N={a_main['N']}"),
     ]
+    return kernels
+
+
+# ---------------------------------------------------------------------------
+# LM serving: flash_attention (prefill) and decode_attention (decode)
+# ---------------------------------------------------------------------------
+
+def bf16_steps(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    """Element by element, how many bf16 values apart two bf16 outputs
+    are (0: equal, 1: adjacent, one ulp apart): bit patterns mapped to a
+    monotonic integer key."""
+    def key(t):
+        bits = t.contiguous().view(torch.int16).int()
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+    return (key(got) - key(want)).abs()
+
+
+def kernel_agrees(got, want, label: str) -> float:
+    """The kernel against its plain version: f32 max |d| <=
+    ATTN_F32_ATOL; bf16 at most one bf16 ulp apart, except near zero,
+    where a bf16 ulp is finer than f32 rounding of O(1) sums and the f32
+    bound applies.  -> max |d|."""
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    bad = diff > ATTN_F32_ATOL
+    if got.dtype == torch.bfloat16:
+        bad &= bf16_steps(got, want) > 1
+    if bad.any():
+        at = tuple(int(i) for i in bad.nonzero()[0])
+        raise AssertionError(
+            f"{label}: kernel != plain version at {int(bad.sum())} "
+            f"elements, first {at}: {float(got[at])!r} against "
+            f"{float(want[at])!r} (max |d| {err!r})")
+    return err
+
+
+def attn_bound(n_bytes, n_ops, dtype):
+    """(bound ms, by) at the dtype's peak, and the f32 CUDA-core line."""
+    rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
+    b_ms, b_by = bound(n_bytes, n_ops, rate)
+    return b_ms, b_by, bound(n_bytes, n_ops, F32_OPS_PER_S)[0]
+
+
+def rand_attn(shapes, dtype, seed):
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+    return [torch.randn(s, generator=gen, device=DEVICE).to(dtype)
+            for s in shapes]
+
+
+def check_flash_attention():
+    """The prefill kernel against its plain version on the card: the
+    serving shape (B 4, S 512, Hq 14, Hkv 2, D 64, causal) in bf16 and
+    f32, the prefill's own S 500 (the ragged edge, masked in the kernel),
+    Sq 128 < Skv 512 causal, non-causal, kv_valid 500, and Sq 512 > Skv
+    256 causal, whose first 256 rows see no key (they must be 0).
+    Timed at S 512 (both dtypes) and S 500 (bf16, the main path's call).
+    -> {case: record}."""
+    c = LM_CFG
+    Hq, Hkv, D = c.n_heads, c.n_kv_heads, c.head_dim
+    cases = [("S512 causal", torch.bfloat16, 512, 512, True, 0),
+             ("S512 causal", torch.float32, 512, 512, True, 0),
+             ("S500 causal", torch.bfloat16, 500, 500, True, 0),
+             ("S500 causal", torch.float32, 500, 500, True, 0),
+             ("Sq128 Skv512 causal", torch.bfloat16, 128, 512, True, 0),
+             ("S512 non-causal", torch.float32, 512, 512, False, 0),
+             ("S512 kv_valid 500 non-causal", torch.bfloat16, 512, 512,
+              False, 500),
+             ("Sq512 Skv256 causal (no key for rows < 256)", torch.float32,
+              512, 256, True, 0)]
+    timed = {("S512 causal", torch.bfloat16), ("S512 causal", torch.float32),
+             ("S500 causal", torch.bfloat16)}
+    rows = {}
+    for i, (name, dt, Sq, Skv, causal, kv_valid) in enumerate(cases):
+        q, k, v = rand_attn([(4, Sq, Hq, D), (4, Skv, Hkv, D),
+                             (4, Skv, Hkv, D)], dt, SEED + i)
+
+        def kern():
+            return flash_attention(q, k, v, causal=causal, kv_valid=kv_valid)
+
+        def plain():
+            return flash_attention_ref(q, k, v, causal=causal,
+                                       kv_valid=kv_valid)
+        with torch.inference_mode():
+            got, want = kern(), plain()
+        torch.cuda.synchronize()
+        label = f"flash_attention {name} {dt}"
+        err = kernel_agrees(got, want, label)
+        if Sq > Skv and causal and got[:, :Sq - Skv].any():
+            raise AssertionError(f"{label}: a row with no visible key is "
+                                 "not 0")
+        row = dict(case=name, dtype=str(dt).split(".")[-1], B=4, Sq=Sq,
+                   Skv=Skv, causal=causal, kv_valid=kv_valid,
+                   max_abs_err=err)
+        if (name, dt) in timed:
+            n_valid = kv_valid or Skv
+            qpos = np.arange(Sq) + (Skv - Sq)
+            seen = np.clip(np.minimum(qpos + 1, n_valid) if causal
+                           else np.full(Sq, n_valid), 0, None)
+            n_ops = 4 * Hq * 4 * D * int(seen.sum())
+            n_bytes = (2 * q.numel() + k.numel() + v.numel()) \
+                * q.element_size()
+            b_ms, b_by, f32_ms = attn_bound(n_bytes, n_ops, dt)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    is_causal=causal, enable_gqa=True)
+            with torch.inference_mode():
+                row.update(ms=event_ms(kern, reps=20),
+                           device_ms=device_ms(kern,
+                                               "flash_attention_kernel",
+                                               reps=20),
+                           plain_ms=event_ms(plain, reps=5),
+                           library_ms=event_ms(sdpa, reps=20)
+                           if Sq == Skv and not kv_valid else None,
+                           bound_ms=b_ms, bound_by=b_by,
+                           bound_f32_core_ms=f32_ms, flops=n_ops,
+                           bytes=n_bytes)
+            log(f"{label}: max |d| {err!r}; kernel {row['ms']:.4f} ms/call "
+                f"(device, cold L2 {row['device_ms']}), plain "
+                f"{row['plain_ms']:.4f} ms, SDPA {row['library_ms']} ms, "
+                f"bound {b_ms:.5f} ms ({b_by}; {n_ops / 1e9:.3f} GFLOP, "
+                f"{n_bytes / 1e6:.2f} MB; f32 CUDA-core line "
+                f"{f32_ms:.5f} ms)")
+        else:
+            log(f"{label}: max |d| {err!r} (within tolerance)")
+        rows[(name, row["dtype"])] = row
+    return rows
+
+
+def check_decode_attention():
+    """The decode kernel against its plain version on the card at B 4,
+    S 1024, Hq 14, Hkv 2, D 64 with kv_len (1, 61, S/2, S), in bf16
+    and f32, timed.  -> {dtype: record}."""
+    c = LM_CFG
+    Hq, Hkv, D, S = c.n_heads, c.n_kv_heads, c.head_dim, LM_MAX_LEN
+    lens = torch.tensor([1, 61, S // 2, S], dtype=torch.int32,
+                        device=DEVICE)
+    rows = {}
+    for i, dt in enumerate((torch.bfloat16, torch.float32)):
+        q, k, v = rand_attn([(4, Hq, D), (4, S, Hkv, D), (4, S, Hkv, D)],
+                            dt, SEED + 20 + i)
+
+        def kern():
+            return decode_attention(q, k, v, lens)
+
+        def plain():
+            return decode_attention_ref(q, k, v, lens)
+        mask = (torch.arange(S, device=DEVICE)[None, :]
+                < lens[:, None])[:, None, None, :]
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=mask, enable_gqa=True)
+        with torch.inference_mode():
+            got, want = kern(), plain()
+        torch.cuda.synchronize()
+        label = f"decode_attention {dt}"
+        err = kernel_agrees(got, want, label)
+        keys = int(lens.sum())
+        n_bytes = (2 * q.numel() + 2 * keys * Hkv * D) * q.element_size() \
+            + lens.numel() * 4
+        n_ops = 4 * D * Hq * keys
+        b_ms, b_by, f32_ms = attn_bound(n_bytes, n_ops, dt)
+        with torch.inference_mode():
+            row = dict(dtype=str(dt).split(".")[-1], B=4, S=S,
+                       kv_len=lens.tolist(), max_abs_err=err,
+                       ms=event_ms(kern), device_ms=device_ms(
+                           kern, "decode_attention_kernel"),
+                       plain_ms=event_ms(plain, reps=20),
+                       library_ms=event_ms(sdpa), bound_ms=b_ms,
+                       bound_by=b_by, bound_f32_core_ms=f32_ms,
+                       flops=n_ops, bytes=n_bytes)
+        log(f"{label} B 4 S {S} kv_len {lens.tolist()}: max |d| {err!r}; "
+            f"kernel {row['ms']:.4f} ms/call (device, cold L2 "
+            f"{row['device_ms']}), plain {row['plain_ms']:.4f} ms, SDPA "
+            f"{row['library_ms']:.4f} ms, bound {b_ms:.6f} ms ({b_by}; "
+            f"{n_bytes / 1e6:.3f} MB)")
+        rows[row["dtype"]] = row
+    return rows
+
+
+def recording(store: dict, key: str):
+    """A wrapper for ``Model.forward`` / ``Model.decode_step`` that keeps
+    a copy of each call's logits under ``store[key]``."""
+    def wrap(fn):
+        def wrapper(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            store.setdefault(key, []).append(out[0].float().clone())
+            return out
+        return wrapper
+    return wrap
+
+
+def served(eng, prompts, n_new, plain: bool = False):
+    """One generate with the prefill and decode logits recorded; with
+    ``plain`` the two attention wrappers are swapped for their plain
+    versions for this run.  -> (tokens, {"prefill": [..], "decode":
+    [..]})."""
+    logs = {}
+    with contextlib.ExitStack() as hooks:
+        hooks.enter_context(wrapped(Model, "forward",
+                                    recording(logs, "prefill")))
+        hooks.enter_context(wrapped(Model, "decode_step",
+                                    recording(logs, "decode")))
+        if plain:
+            hooks.enter_context(wrapped(lm_attention, "flash_attention",
+                                        lambda fn: flash_attention_ref))
+            hooks.enter_context(wrapped(lm_attention, "decode_attention",
+                                        lambda fn: decode_attention_ref))
+        out = eng.generate(prompts, n_new)
+    torch.cuda.synchronize()
+    return out, logs
+
+
+def logit_gap(got, want) -> float:
+    """max |got - want| in units of the RMS of ``want`` (a row's logits
+    spread about that much; its max |logit|, the echo of the input token
+    under the tied random init, is an outlier several times larger)."""
+    want = want.float()
+    return float((got.float() - want).abs().max()
+                 / want.pow(2).mean().sqrt())
+
+
+def logits_close(got, want, label: str, tol: float) -> float:
+    """``logit_gap`` held to ``tol``.  -> the gap."""
+    gap = logit_gap(got, want)
+    if gap > tol:
+        raise AssertionError(f"{label}: logits differ by {gap!r} RMS > "
+                             f"{tol!r}")
+    return gap
+
+
+def tokens_agree(a, b, lens, logits, tol: float) -> int:
+    """Greedy tokens of two runs agree wherever the first run's top-2
+    margin exceeds twice the logit tolerance (``tol`` of that row's
+    RMS); after the first allowed disagreement in a row the contexts
+    differ, so that row stops.  ``logits[s]`` are the logits that chose
+    new token s.  -> tokens compared."""
+    compared = 0
+    for i, n in enumerate(lens):
+        for s in range(len(a[i]) - n):
+            lg = logits[s][i]
+            top2 = torch.topk(lg, 2).values
+            if a[i][n + s] != b[i][n + s]:
+                margin = tol * float(lg.float().pow(2).mean().sqrt())
+                if float(top2[0] - top2[1]) > 2 * margin:
+                    raise AssertionError(f"row {i} token {s}: kernel and "
+                                         "plain runs differ at a clear "
+                                         "margin")
+                break
+            compared += 1
+    return compared
+
+
+def prefill_logits(model, params, seqs):
+    """Logits at the last token of each of ``seqs`` from one fresh
+    forward over them, right-padded."""
+    width = max(map(len, seqs))
+    logits, _, _ = model.forward(
+        params, {"tokens": np.array([s + [0] * (width - len(s))
+                                     for s in seqs])},
+        logits_at=np.array([len(s) - 1 for s in seqs]))
+    return logits.float()
+
+
+def decode_gap(model, params, prompts, out, logs) -> float:
+    """The first and the last decode step's logits against a fresh
+    prefill over the same tokens: the larger ``logit_gap``."""
+    gaps = []
+    for s in (0, len(logs["decode"]) - 1):
+        seqs = [o[:len(p) + s + 1] for o, p in zip(out, prompts)]
+        gaps.append(logit_gap(logs["decode"][s],
+                              prefill_logits(model, params, seqs)))
+    return max(gaps)
+
+
+def _decode_kv_len_is_pos(fn):
+    def wrapper(q, k, v, kv_len, *args, **kwargs):
+        return fn(q, k, v, kv_len - 1, *args, **kwargs)
+    return wrapper
+
+
+def _decode_one_late(fn):
+    def wrapper(self, params, token, pos, cache):
+        return fn(self, params, token, pos + 1, cache)
+    return wrapper
+
+
+def _decode_without_rope(fn):
+    def wrapper(x, cos, sin):
+        # decode's tables are (B, 1, D/2), the prefill's (S, D/2)
+        return x if cos.ndim == 3 else fn(x, cos, sin)
+    return wrapper
+
+
+def _prefill_not_causal(fn):
+    def wrapper(q, k, v, causal=True, **kwargs):
+        return fn(q, k, v, causal=False, **kwargs)
+    return wrapper
+
+
+# Planted faults, each run through the serve checks, which must reject
+# it: (name, owner, attribute, wrap, the check that must see it, whether
+# the bf16 check is held to see it too: a dropped key of hundreds moves
+# the logits too little above bf16's end-to-end rounding, PERF.md).
+LM_FAULTS = (
+    ("decode attends kv_len = pos", lm_attention, "decode_attention",
+     _decode_kv_len_is_pos, "decode", False),
+    ("decode writes and reads one position late", Model, "decode_step",
+     _decode_one_late, "decode", True),
+    ("decode without rope", lm_attention, "apply_rope",
+     _decode_without_rope, "decode", True),
+    ("prefill not causal", lm_attention, "flash_attention",
+     _prefill_not_causal, "prefill", True),
+)
+
+
+def serve_checks(eng, prompts, tol: float) -> dict:
+    """The serving path held to itself at ``eng``'s dtype: the kernels
+    against their plain versions (prefill logits and greedy tokens),
+    each prompt alone against the batch (first-token logits), the first
+    and last decode step against a fresh prefill, each within ``tol``
+    RMS; then every planted fault (``LM_FAULTS``) through the check it
+    targets, which must read more than ``tol``.  -> readings."""
+    model, params = eng.model, eng.params
+    n_new = LM_NEW_TOKENS
+    lens = [len(p) for p in prompts]
+    dt = model.cfg.dtype
+    want = {"flash_attention": model.cfg.n_layers,
+            "decode_attention": model.cfg.n_layers * n_new}
+    flash_attention.launches = decode_attention.launches = 0
+    out_k, logs_k = served(eng, prompts, n_new)
+    launches = {"flash_attention": flash_attention.launches,
+                "decode_attention": decode_attention.launches}
+    if launches != want:
+        raise AssertionError(f"serve checks ({dt}): launches {launches}, "
+                             f"expected {want}")
+    out_p, logs_p = served(eng, prompts, n_new, plain=True)
+    r = dict(dtype=dt, tol=tol, out=out_k)
+    r["plain"] = logits_close(logs_k["prefill"][0], logs_p["prefill"][0],
+                              f"{dt} prefill, kernels against plain "
+                              "versions", tol)
+    r["tokens_compared"] = tokens_agree(
+        out_k, out_p, lens, logs_k["prefill"] + logs_k["decode"], tol)
+    r["tokens_equal_plain"] = out_k == out_p
+    r["min_top2_margin"] = min(
+        float(torch.topk(lg, 2, dim=-1).values.diff(dim=-1).abs().min())
+        for lg in logs_k["prefill"] + logs_k["decode"])
+    r["batch1"] = 0.0
+    for i, p in enumerate(prompts):
+        _, logs1 = served(eng, [p], 1)
+        r["batch1"] = max(r["batch1"], logits_close(
+            logs1["prefill"][0][0], logs_k["prefill"][0][i],
+            f"{dt} prompt {i} served alone against in the batch", tol))
+    r["decode_vs_prefill"] = decode_gap(model, params, prompts, out_k,
+                                        logs_k)
+    if r["decode_vs_prefill"] > tol:
+        raise AssertionError(f"{dt} decode step against a fresh prefill: "
+                             f"logits differ by {r['decode_vs_prefill']!r}"
+                             f" RMS > {tol!r}")
+    if not all(torch.isfinite(lg).all()
+               for lg in logs_k["prefill"] + logs_k["decode"]):
+        raise AssertionError(f"{dt}: non-finite logits")
+    log(f"serve checks ({dt}, tolerance {tol} of the logits' RMS "
+        f"{float(logs_k['prefill'][0].pow(2).mean().sqrt())!r}; max "
+        f"|logit| {float(logs_k['prefill'][0].abs().max())!r}): kernels "
+        f"against plain versions {r['plain']!r} RMS, "
+        f"{r['tokens_compared']} of {len(lens) * n_new} greedy tokens "
+        f"compared (all equal: {r['tokens_equal_plain']}; smallest top-2 "
+        f"margin {r['min_top2_margin']!r}); each prompt alone "
+        f"{r['batch1']!r} RMS; first and last decode step against a "
+        f"fresh prefill {r['decode_vs_prefill']!r} RMS")
+    r["faults"] = {}
+    for name, owner, attr, wrap, check, in_bf16 in LM_FAULTS:
+        with wrapped(owner, attr, wrap):
+            out_f, logs_f = served(eng, prompts, n_new)
+        gap = (decode_gap(model, params, prompts, out_f, logs_f)
+               if check == "decode" else
+               logit_gap(logs_f["prefill"][0], logs_k["prefill"][0]))
+        held = dt == "float32" or in_bf16
+        r["faults"][name] = gap
+        log(f"serve checks ({dt}), planted fault '{name}': {check} check "
+            f"reads {gap!r} RMS against tolerance {tol} ("
+            f"{'caught' if gap > tol else 'not caught'}; greedy tokens "
+            f"{'unchanged' if out_f == out_k else 'changed'})")
+        if held and not gap > tol:
+            raise AssertionError(f"{dt}: the {check} check misses the "
+                                 f"planted fault '{name}'")
+    return r
+
+
+def serve_busy(eng, prompts, activities=None) -> dict:
+    """One more generate under the profiler: the device's busy time
+    summed over every kernel and copy it ran, against the wall time (an
+    upper bound on the idle share: the profiler slows the host), and the
+    host's side: kernel launches a token step (prefill included, over
+    ``LM_NEW_TOKENS + 1`` steps) and the host ops that took the most
+    self time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    if activities is None:
+        activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        eng.generate(prompts, LM_NEW_TOKENS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    per_name = {}
+    launches = 0
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            per_name[ev.name] = per_name.get(ev.name, 0.0) \
+                + ev.time_range.elapsed_us()
+        elif ev.name in ("cudaLaunchKernel", "cuLaunchKernelEx",
+                         "cuLaunchKernel"):
+            launches += 1
+    busy = sum(per_name.values()) / 1e6
+    top = sorted(((us, k) for k, us in per_name.items()), reverse=True)
+    host = sorted(((ev.self_cpu_time_total, ev.key, ev.count)
+                   for ev in prof.key_averages()
+                   if ev.key.startswith("aten::")), reverse=True)
+    steps = LM_NEW_TOKENS + 1
+    log(f"device busy (profiled generate): {busy * 1e3:.1f} ms of "
+        f"{wall * 1e3:.1f} ms wall = {100 * busy / wall:.1f}% busy; top "
+        "device time: " + "; ".join(f"{k[:60]} {us / 1e3:.2f} ms"
+                                    for us, k in top[:6]))
+    log(f"host (same run): {launches} kernel launches = "
+        f"{launches / steps:.0f} a token step; top aten ops by self CPU "
+        "time: " + "; ".join(f"{k} {us / 1e3:.1f} ms over {n} calls"
+                             for us, k, n in host[:6]))
+    return dict(busy_s=busy, wall_s=wall, busy_share=busy / wall,
+                launches_per_step=launches / steps)
+
+
+def run_lm() -> list:
+    """The LM serving path at full qwen2-0.5b width: both kernels against
+    their plain versions, then ``ServeEngine.generate`` on 4 ragged
+    prompts; -> the two kernels' records."""
+    fa = check_flash_attention()
+    da = check_decode_attention()
+    cfg = LM_CFG
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init_params(seed=SEED, device=DEVICE)
+    torch.cuda.synchronize()
+    log(f"lm: {cfg.name} ({model.param_count()} parameters, f32 masters, "
+        f"{cfg.dtype} activations, {cfg.n_layers} layers) initialised on "
+        f"the card from seed {SEED} in {time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(SEED)
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+               for n in LM_PROMPT_LENS]
+    lens = [len(p) for p in prompts]
+    eng = ServeEngine(model, params, max_len=LM_MAX_LEN)
+    n_new = LM_NEW_TOKENS
+    want = {"flash_attention": cfg.n_layers,
+            "decode_attention": cfg.n_layers * n_new}
+
+    # cold and repeat, each with the launch counts set to 0 just before
+    runs = []
+    for label in ("cold", "repeat"):
+        flash_attention.launches = decode_attention.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng.generate(prompts, n_new)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"flash_attention": flash_attention.launches,
+                    "decode_attention": decode_attention.launches}
+        if launches != want:
+            raise AssertionError(f"serve ({label}): launches {launches}, "
+                                 f"expected {want}")
+        if [len(o) for o in out] != [n + n_new for n in lens] or any(
+                not 0 <= t < cfg.vocab_size for o in out for t in o):
+            raise AssertionError(f"serve ({label}): malformed output")
+        runs.append((out, launches))
+        log(f"serve ({label}): {len(prompts)} prompts of {lens} tokens, "
+            f"{n_new} new each, max_len {LM_MAX_LEN}: {wall:.3f} s wall; "
+            f"launches {launches}")
+    if runs[0] != runs[1]:
+        raise AssertionError("two generates of the same prompts differ")
+
+    # timed run: prefill (the one forward) against the decode steps
+    spent = {"prefill": 0.0}
+
+    def timed(fn):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                spent["prefill"] += time.perf_counter() - t
+        return wrapper
+    torch.cuda.reset_peak_memory_stats()
+    with wrapped(Model, "forward", timed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.generate(prompts, n_new)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    pre = spent["prefill"]
+    dec = wall - pre
+    perf = dict(prefill_s=pre, prefill_tok_s=sum(lens) / pre,
+                prefill_padded_tok_s=len(lens) * max(lens) / pre,
+                decode_ms_per_step=dec / n_new * 1e3,
+                decode_tok_s=len(lens) * n_new / dec, generate_s=wall,
+                peak_bytes=peak)
+    log(f"serve (timed): prefill {pre:.4f} s = {perf['prefill_tok_s']:.0f} "
+        f"prompt tokens/s ({perf['prefill_padded_tok_s']:.0f} padded); "
+        f"decode {n_new} steps in {dec:.4f} s = "
+        f"{perf['decode_ms_per_step']:.3f} ms/step = "
+        f"{perf['decode_tok_s']:.1f} tokens/s at batch {len(lens)}; "
+        f"max_memory_allocated {peak / 2**30:.3f} GiB")
+
+    # the kernels against their plain versions, batch 1, decode against
+    # prefill and the planted faults: in the config's bf16, then in f32,
+    # where rounding is far below what each fault moves
+    chk = serve_checks(eng, prompts, LM_LOGIT_TOL["bfloat16"])
+    if chk["out"] != runs[0][0]:
+        raise AssertionError("recorded generate differs from the first")
+    busy = serve_busy(eng, prompts)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model32 = build_model(cfg32)
+    eng32 = ServeEngine(model32, model32.init_params(seed=SEED,
+                                                     device=DEVICE),
+                        max_len=LM_MAX_LEN)
+    chk32 = serve_checks(eng32, prompts, LM_LOGIT_TOL["float32"])
+    del eng32
+    log("lm serving: " + json.dumps(dict(
+        perf, **busy, **{f"{c['dtype']}_{k}": c[k]
+                         for c in (chk, chk32)
+                         for k in ("plain", "batch1", "decode_vs_prefill",
+                                   "faults")})))
+
+    src = "src/repro_torch/csrc/"
+    f_main = fa[("S500 causal", "bfloat16")]
+    d_main = da["bfloat16"]
+    keys = ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_f32_core_ms", "max_abs_err")
+    return [
+        dict(name="flash_attention", route="cuda",
+             source=src + "flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention/kernel.py:98",
+             launches=runs[0][1]["flash_attention"],
+             max_abs_err=max(r["max_abs_err"] for r in fa.values()),
+             ms=f_main["ms"], plain_ms=f_main["plain_ms"],
+             bound_ms=f_main["bound_ms"], bound_by=f_main["bound_by"],
+             library_ms=f_main["library_ms"], device_ms=f_main["device_ms"],
+             bound_f32_core_ms=f_main["bound_f32_core_ms"],
+             shape="B 4, S 500, Hq 14, Hkv 2, D 64, causal, bf16",
+             s512={dt: {k: fa[("S512 causal", dt)][k] for k in keys}
+                   for dt in ("bfloat16", "float32")}),
+        dict(name="decode_attention", route="cuda",
+             source=src + "decode_attention.cu",
+             replaces="src/repro/kernels/decode_attention/kernel.py:76",
+             launches=runs[0][1]["decode_attention"],
+             max_abs_err=max(r["max_abs_err"] for r in da.values()),
+             ms=d_main["ms"], plain_ms=d_main["plain_ms"],
+             bound_ms=d_main["bound_ms"], bound_by=d_main["bound_by"],
+             library_ms=d_main["library_ms"], device_ms=d_main["device_ms"],
+             bound_f32_core_ms=d_main["bound_f32_core_ms"],
+             shape="B 4, S 1024, Hq 14, Hkv 2, D 64, kv_len "
+                   "(1, 61, 512, 1024), bf16",
+             float32={k: da["float32"][k] for k in keys}),
+    ]
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    smi = nvidia_smi()
+    nvcc = subprocess.run([_build.nvcc_path(), "--version"],
+                          capture_output=True, text=True, check=True,
+                          timeout=60).stdout.strip().splitlines()[-1]
+    log(f"card: {smi}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}, nvcc: {nvcc}")
+    build_kernels()
+    kernels = run_video() + run_lm()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

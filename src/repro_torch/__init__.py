@@ -2,9 +2,13 @@
 
 The port runs the pipeline's main path (one clip through
 ``core.executor.ClipExecutor``: decode -> proxy -> detect -> track) on an
-NVIDIA GPU, with TRACK on the host or on the device.  Its kernels,
-``kernels.proxy_plan``, ``kernels.window_gather``, ``kernels.assign`` and
-``kernels.track_step``, are hand-written CUDA; everything else is
+NVIDIA GPU, with TRACK on the host or on the device, the per-frame engine
+and the unfused proxy path, and the dense language models' serving path
+(``serve.ServeEngine`` over ``models``: ragged prefill, then decode).
+Its eight kernels, ``kernels.proxy_plan``, ``kernels.proxy_score``,
+``kernels.window_gather`` (two), ``kernels.assign``,
+``kernels.track_step``, ``kernels.flash_attention`` and
+``kernels.decode_attention``, are hand-written CUDA; everything else is
 ordinary PyTorch or host numpy.  It imports nothing of JAX and nothing
 of ``repro``; the tests hold it against ``repro`` on the CPU.
 

@@ -1,0 +1,193 @@
+// Decode attention: one new query token per batch row against its KV
+// cache.  q (B, Hq, D), k and v (B, S, Hkv, D), kv_len (B,) int32 valid
+// lengths; keys at or past kv_len[b] are masked.  The G = Hq / Hkv query
+// heads of a KV head are packed together (q head h reads KV head h / G).
+// f32 or bf16 in, online softmax in f32, out (B, Hq, D) in q's dtype; a
+// row with kv_len 0 gives 0.
+//
+// Replaces the JAX package's TPU kernel
+//   src/repro/kernels/decode_attention/kernel.py::decode_attention_pallas
+//   (body _dec_kernel).
+//
+// Bound on an H100: decode is memory-bound.  Each call must read the
+// valid prefix of K and V once (kv_len * Hkv * D * 2 elements a row:
+// 512 KB a row at kv_len 1024, bf16) and does 4 * D flops per (q head,
+// key), about one flop a byte, far below the card's ridge.  The design:
+// one block of 128 threads per (KV head, batch row) streams the prefix
+// in tiles of 64 keys through shared memory (f32, K rows padded by one
+// word so that the per-key dot products read without bank conflicts):
+// scores for the G x 64 (head, key) pairs, one warp per head for the
+// tile's max, exp and sum, then the G x D accumulator (a few entries a
+// thread, in registers) is rescaled and updated.  Tiles wholly past
+// kv_len are never loaded.  At B 4, Hkv 2 that is 8 blocks on 132 SMs:
+// splitting the keys over more blocks (with a second pass to merge
+// their partial softmaxes) is the later fix.
+//
+// Numerics: dot products are fmaf chains in d order and the softmax is
+// online by tiles of 64, where the plain version takes one softmax over
+// the whole row: outputs differ from it by f32 rounding, in bf16 by at
+// most one bf16 ulp.  expf is the correctly rounded one (no fast math).
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "attention.cuh"
+
+namespace {
+
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kBK = 64;    // keys per tile: two per lane in the softmax
+constexpr int kMaxG = 16;  // query heads per KV head
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads) decode_attention_kernel(
+    const T* __restrict__ q,             // (B, Hq, D)
+    const T* __restrict__ k,             // (B, S, Hkv, D)
+    const T* __restrict__ v,
+    const int32_t* __restrict__ kv_len,  // (B,)
+    T* __restrict__ o,                   // (B, Hq, D)
+    int S, int Hq, int Hkv, float scale) {
+  constexpr int V = attn::Ld<T>::N;
+  constexpr int kOut = (kMaxG * D + kThreads - 1) / kThreads;
+  __shared__ float qs[kMaxG][D];
+  __shared__ float Ks[kBK][D + 1];
+  __shared__ __align__(16) float Vs[kBK][D];
+  __shared__ float P[kMaxG][kBK];
+  __shared__ float m_row[kMaxG], l_row[kMaxG], a_row[kMaxG];
+  const int hk = blockIdx.x;
+  const int b = blockIdx.y;
+  const int G = Hq / Hkv;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int n = min(max(kv_len[b], 0), S);
+
+  const T* qp = q + ((size_t)b * Hq + (size_t)hk * G) * D;
+  for (int e = tid; e < G * D; e += kThreads)
+    qs[e / D][e % D] = attn::to_f32(qp[e]) * scale;
+  if (tid < G) {
+    m_row[tid] = attn::kNegInf;
+    l_row[tid] = 0.f;
+  }
+  float acc[kOut];
+#pragma unroll
+  for (int i = 0; i < kOut; ++i) acc[i] = 0.f;
+
+  for (int k0 = 0; k0 < n; k0 += kBK) {
+    const int nk = min(kBK, n - k0);
+    __syncthreads();  // q staged / the previous tile consumed
+    for (int c = tid; c < kBK * (D / V); c += kThreads) {
+      const int j = c / (D / V);
+      const int d = (c % (D / V)) * V;
+      float kt[V], vt[V];
+      if (j < nk) {
+        const size_t off = (((size_t)b * S + k0 + j) * Hkv + hk) * D + d;
+        attn::Ld<T>::load(k + off, kt);
+        attn::Ld<T>::load(v + off, vt);
+      } else {
+#pragma unroll
+        for (int i = 0; i < V; ++i) kt[i] = vt[i] = 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        Ks[j][d + i] = kt[i];
+        Vs[j][d + i] = vt[i];
+      }
+    }
+    __syncthreads();
+    for (int pr = tid; pr < G * kBK; pr += kThreads) {
+      const int g = pr / kBK, j = pr % kBK;
+      float dot = 0.f;
+#pragma unroll
+      for (int d = 0; d < D; ++d) dot = fmaf(qs[g][d], Ks[j][d], dot);
+      P[g][j] = dot;
+    }
+    __syncthreads();
+    for (int g = warp; g < G; g += kWarps) {
+      const bool ok0 = lane < nk, ok1 = lane + 32 < nk;
+      const float s0 = P[g][lane], s1 = P[g][lane + 32];
+      float mt = fmaxf(ok0 ? s0 : attn::kNegInf, ok1 ? s1 : attn::kNegInf);
+      for (int off = 16; off > 0; off >>= 1)
+        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
+      const float m_old = m_row[g];
+      const float m_new = fmaxf(m_old, mt);
+      const float p0 = ok0 ? expf(s0 - m_new) : 0.f;
+      const float p1 = ok1 ? expf(s1 - m_new) : 0.f;
+      P[g][lane] = p0;
+      P[g][lane + 32] = p1;
+      float ps = p0 + p1;
+      for (int off = 16; off > 0; off >>= 1)
+        ps += __shfl_xor_sync(0xffffffffu, ps, off);
+      __syncwarp();
+      if (lane == 0) {
+        const float alpha = expf(m_old - m_new);
+        a_row[g] = alpha;
+        l_row[g] = l_row[g] * alpha + ps;
+        m_row[g] = m_new;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < kOut; ++i) {
+      const int idx = tid + i * kThreads;
+      if (idx < G * D) {
+        const int g = idx / D, d = idx % D;
+        float a = acc[i] * a_row[g];
+        for (int j = 0; j < nk; ++j) a = fmaf(P[g][j], Vs[j][d], a);
+        acc[i] = a;
+      }
+    }
+  }
+  __syncthreads();  // l_row final (and initialised when n == 0)
+  T* op = o + ((size_t)b * Hq + (size_t)hk * G) * D;
+#pragma unroll
+  for (int i = 0; i < kOut; ++i) {
+    const int idx = tid + i * kThreads;
+    if (idx < G * D) {
+      const float l = l_row[idx / D];
+      op[idx] = attn::from_f32<T>(acc[i] / (l == 0.f ? 1.f : l));
+    }
+  }
+}
+
+template <typename T, int D>
+void launch(const void* q, const void* k, const void* v,
+            const int32_t* kv_len, void* o, int B, int S, int Hq, int Hkv,
+            float scale, cudaStream_t stream) {
+  const dim3 grid(Hkv, B);
+  decode_attention_kernel<T, D><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), kv_len, static_cast<T*>(o), S, Hq, Hkv,
+      scale);
+}
+
+template <typename T>
+int launch_d(const void* q, const void* k, const void* v,
+             const int32_t* kv_len, void* o, int B, int S, int Hq, int Hkv,
+             int D, float scale, cudaStream_t stream) {
+  // built for the head dim of the configs served on the card (64)
+  if (D != 64) return (int)cudaErrorInvalidValue;
+  launch<T, 64>(q, k, v, kv_len, o, B, S, Hq, Hkv, scale, stream);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int decode_attention_launch(const void* q, const void* k,
+                                       const void* v, const int32_t* kv_len,
+                                       void* o, int B, int S, int Hq,
+                                       int Hkv, int D, float sm_scale,
+                                       int bf16, void* stream) {
+  if (Hkv == 0 || Hq / Hkv > kMaxG || Hq % Hkv)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  return bf16 ? launch_d<__nv_bfloat16>(q, k, v, kv_len, o, B, S, Hq, Hkv, D,
+                                         sm_scale, s)
+              : launch_d<float>(q, k, v, kv_len, o, B, S, Hq, Hkv, D,
+                                sm_scale, s);
+}
+
+extern "C" const char* kernel_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}

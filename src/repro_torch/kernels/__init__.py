@@ -32,6 +32,17 @@ Kernels (sources in ``repro_torch/csrc/``, built by ``_build``):
   track_step    — one fused recurrent-tracker step for K streams: match
                   MLP, cost, JV and both GRU batches (replaces
                   ``kernels/track_step``'s ``track_step_pallas``).
+  flash_attention — causal or full GQA attention with an online softmax,
+                  f32 or bf16 in, one query row a thread (replaces
+                  ``kernels/flash_attention``'s ``flash_attention_pallas``;
+                  the LM prefill).
+  decode_attention — one query token per row against a KV cache masked
+                  by kv_len, a KV head's query heads packed together
+                  (replaces ``kernels/decode_attention``'s
+                  ``decode_attention_pallas``; every LM decode step).
+
+The two attention kernels share ``csrc/attention.cuh`` (f32 / bf16
+loads and rounding).
 
 assign and track_step give the host tracker's f32 bits: their math goes
 through ``csrc/fastmath.cuh`` and they are built with -fmad=false

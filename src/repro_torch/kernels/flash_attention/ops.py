@@ -1,0 +1,144 @@
+"""Flash attention: causal or full GQA attention with an online softmax.
+
+``flash_attention(q, k, v, causal=, sm_scale=, kv_valid=)`` takes q (B,
+Sq, Hq, D) and k, v (B, Skv, Hkv, D) in f32 or bf16 and returns (B, Sq,
+Hq, D) in q's dtype, with the softmax in f32 and ``sm_scale`` 1/sqrt(D)
+by default.  Queries sit at the end of the key axis when Sq < Skv;
+``kv_valid`` > 0 masks keys at or past it; a query that sees no key gives
+0.  The model's prefill (``models.attention``) calls it once a layer.
+
+On a CUDA tensor it launches ``csrc/flash_attention.cu``, which masks
+the ragged edge itself (no padded copy); on a CPU tensor it runs
+``flash_attention_ref``, the plain PyTorch version: the JAX package's
+memory-bounded ``_chunked_jnp`` (``kernels/flash_attention/ops.py``), a
+loop over key blocks of 128 with the same online softmax.  One
+difference from ``_chunked_jnp``, on purpose: a masked key contributes
+exactly 0 there too, so a query with no visible key gives 0, as the
+Pallas kernel's finalize (``l == 0 -> 0``) intends, where
+``_chunked_jnp`` (and the Pallas kernel on a tile it does not skip)
+averages V over the masked keys.  Rows that see a key are unaffected.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import check_launch, on_cuda, ptr, stream_of
+from repro_torch.kernels._build import library
+
+NEG_INF = float(np.finfo(np.float32).min)
+BLOCK = 128                      # the reference wrapper's block_q/block_k
+HEAD_DIMS = (64,)                # head dims the kernels are built for
+DTYPES = (torch.float32, torch.bfloat16)
+# flash_attention_launch(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, kv_valid,
+#                        causal, sm_scale, bf16, stream)
+LAUNCH_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 8
+                   + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True,
+                        sm_scale: Optional[float] = None,
+                        kv_valid: int = 0,
+                        block_k: int = BLOCK) -> torch.Tensor:
+    """Plain version: online softmax over key blocks of ``block_k``
+    (the last one ragged), f32 throughout, out in q's dtype."""
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(D)
+    n_valid = kv_valid if 0 < kv_valid < Skv else Skv
+    qf = (q.float() * sm_scale).reshape(B, Sq, Hkv, G, D)
+    qpos = torch.arange(Sq, device=q.device) + (Skv - Sq)
+    m = torch.full((B, Sq, Hkv, G, 1), NEG_INF, device=q.device)
+    l = torch.zeros((B, Sq, Hkv, G, 1), device=q.device)
+    acc = torch.zeros((B, Sq, Hkv, G, D), device=q.device)
+    # blocks past n_valid hold only masked keys: they change nothing
+    for k0 in range(0, n_valid, block_k):
+        kb = k[:, k0:k0 + block_k].float()
+        vb = v[:, k0:k0 + block_k].float()
+        kpos = torch.arange(k0, k0 + kb.shape[1], device=q.device)
+        vis = (kpos < n_valid)[None, :].expand(Sq, -1)
+        if causal:
+            vis = vis & (kpos[None, :] <= qpos[:, None])      # (Sq, bk)
+        vis = vis[None, :, None, None, :]
+        s = torch.einsum("bqhgd,bkhd->bqhgk", qf, kb)
+        s = torch.where(vis, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.where(vis, torch.exp(s - m_new), 0.0)
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bqhgk,bkhd->bqhgd", p, vb)
+        m = m_new
+    l = torch.where(l == 0.0, 1.0, l)
+    return (acc / l).reshape(B, Sq, Hq, D).to(q.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher():
+    lib = library("flash_attention")
+    fn = lib.flash_attention_launch
+    fn.argtypes = list(LAUNCH_ARGTYPES)
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def _check_operands(name, q, k, v):
+    """The CUDA kernels' contract: q, k, v contiguous, of one dtype (f32
+    or bf16), on q's device, 16-byte aligned, with a supported head
+    dim."""
+    for arg, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device or t.dtype != q.dtype \
+                or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} must be a contiguous, 16-byte "
+                             f"aligned {q.dtype} tensor on {q.device}, got "
+                             f"{t.dtype} on {t.device}")
+    if q.dtype not in DTYPES:
+        raise ValueError(f"{name}: dtype {q.dtype} not in {DTYPES}")
+    if q.shape[-1] not in HEAD_DIMS:
+        raise NotImplementedError(f"{name}: head dim {q.shape[-1]} has no "
+                                  f"kernel build (built for {HEAD_DIMS})")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, sm_scale: Optional[float] = None,
+                    kv_valid: int = 0) -> torch.Tensor:
+    """q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D) -> (B, Sq, Hq, D) in
+    q's dtype."""
+    B, Sq, Hq, D = q.shape
+    if k.ndim != 4 or k.shape != v.shape or k.shape[0] != B \
+            or k.shape[3] != D or Hq % k.shape[2]:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    Skv, Hkv = k.shape[1], k.shape[2]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(D)
+    # the reference pads both sequences to blocks of 128, which shifts the
+    # causal diagonal when Sq != Skv; it refuses that case, and so do we
+    ragged = Sq % min(BLOCK, max(Sq, 1)) or Skv % min(BLOCK, max(Skv, 1))
+    if causal and ragged and Sq != Skv:
+        raise NotImplementedError(
+            "causal attention with ragged Sq != Skv padding")
+    if not on_cuda(q):
+        return flash_attention_ref(q, k, v, causal, sm_scale, kv_valid)
+    _check_operands("flash_attention", q, k, v)
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    lib, fn = _launcher()
+    with torch.cuda.device(q.device):
+        err = fn(ptr(q), ptr(k), ptr(v), ptr(out), B, Sq, Skv, Hq, Hkv, D,
+                 int(kv_valid), int(bool(causal)), float(sm_scale),
+                 int(q.dtype == torch.bfloat16), stream_of(q))
+    check_launch(err, lib, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

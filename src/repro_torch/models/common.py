@@ -1,0 +1,62 @@
+"""Parameter specs and name-seeded init (the port's counterpart of the
+JAX package's ``models/common.py`` ``ParamBuilder`` / ``build``).
+
+A model declares its parameters as ``ParamSpec``s: a '/'-joined path as
+in the reference's parameter tree ("layers/attn/wq/w"), the shape with
+the leading ``(n_layers,)`` axis of stacked layer parameters, and the
+init.  ``init_tensor`` draws one parameter from a ``torch.Generator``
+seeded by ``name_seed(path, seed)`` (sha256 of "seed:path", as the
+reference's ``_name_seed``), so the init is order-independent and
+restart-stable, with the reference's scales: normal times
+1/sqrt(fan_in) (fan_in = shape[-2]), or an explicit scale (1.0 for the
+embedding), ones, zeros.  torch's generator is not JAX's: the same seed
+gives other numbers than the reference's ``init_params``, so the tests
+carry the reference's weights over with ``params.lm_from_params``.
+
+The reference's sharding hooks (``shard``, ``sharding_ctx``) are no-ops
+without a mesh and have no counterpart here.
+"""
+from __future__ import annotations
+
+import hashlib
+import math
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import torch
+
+
+@dataclass(frozen=True)
+class ParamSpec:
+    path: str
+    shape: Tuple[int, ...]
+    init: str = "normal"            # normal | zeros | ones
+    scale: Optional[float] = None   # normal only; default 1/sqrt(fan_in)
+
+    @property
+    def numel(self) -> int:
+        return math.prod(self.shape)
+
+
+def name_seed(name: str, base_seed: int) -> int:
+    h = hashlib.sha256(f"{base_seed}:{name}".encode()).digest()
+    return int.from_bytes(h[:8], "little") % (2**63 - 1)
+
+
+def init_tensor(spec: ParamSpec, seed: int, device: torch.device
+                ) -> torch.Tensor:
+    """One f32 parameter drawn as ``spec`` says, on ``device``."""
+    shape = spec.shape
+    if spec.init == "zeros":
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+    if spec.init == "ones":
+        return torch.ones(shape, dtype=torch.float32, device=device)
+    if spec.init != "normal":
+        raise ValueError(f"unknown init {spec.init!r}")
+    fan_in = shape[-2] if len(shape) >= 2 else max(shape[-1], 1)
+    s = spec.scale if spec.scale is not None else 1.0 / math.sqrt(fan_in)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(name_seed(spec.path, seed))
+    out = torch.randn(shape, generator=gen, dtype=torch.float32,
+                      device=device)
+    return out.mul_(s)

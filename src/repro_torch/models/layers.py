@@ -1,0 +1,135 @@
+"""Building blocks of the language models (the port's counterpart of the
+JAX package's ``models/layers.py``).
+
+Dtype rules, as the reference's: parameters are f32 master weights;
+compute follows the activations (bf16 at the configs' default), with
+each weight cast to the activation dtype at use; norms run in f32 and
+logits come out in f32.  ``Linear`` and ``SwiGLU`` keep each weight's
+copy in the activation dtype beside it, made once when the weight is
+written (``TransformerLM.load_``): the bits of a cast at every use.
+
+``Linear`` keeps the reference's weight layout, ``w`` of shape
+(d_in, d_out), so ``params.lm_from_params`` copies it as it is.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def empty_param(shape, device) -> nn.Parameter:
+    """An f32 parameter to be filled by an init or the bridge (serving
+    only: no gradient)."""
+    return nn.Parameter(torch.empty(tuple(shape), dtype=torch.float32,
+                                    device=device), requires_grad=False)
+
+
+class CastWeights(nn.Module):
+    """A module whose f32 weights are used in the activation dtype.
+    ``keep_cast(name, dtype)`` stores ``<name>`` cast to ``dtype`` as a
+    non-persistent buffer ``<name>_cast`` (so ``.to()`` moves it and
+    ``state_dict`` leaves it out); whoever writes the weight calls it
+    again.  Without a kept copy of that dtype a use casts."""
+
+    def keep_cast(self, name: str, dtype: torch.dtype) -> None:
+        if dtype != torch.float32:
+            self.register_buffer(f"{name}_cast",
+                                 getattr(self, name).detach().to(dtype),
+                                 persistent=False)
+
+    def weight(self, name: str, dtype: torch.dtype) -> torch.Tensor:
+        kept = self._buffers.get(f"{name}_cast")
+        if kept is not None and kept.dtype == dtype:
+            return kept
+        return getattr(self, name).to(dtype)
+
+
+class RMSNorm(nn.Module):
+    """``rmsnorm``: computed in f32, returned in the input's dtype."""
+
+    def __init__(self, dim: int, eps: float, device=None):
+        super().__init__()
+        self.eps = eps
+        self.scale = empty_param((dim,), device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        var = (xf * xf).mean(dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(var + self.eps)
+        return (y * self.scale).to(x.dtype)
+
+
+class Linear(CastWeights):
+    """``linear``: y = x @ w (+ b), weight (d_in, d_out), both cast to
+    x's dtype."""
+
+    def __init__(self, d_in: int, d_out: int, bias: bool, device=None):
+        super().__init__()
+        self.w = empty_param((d_in, d_out), device)
+        self.b = empty_param((d_out,), device) if bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = torch.matmul(x, self.weight("w", x.dtype))
+        if self.b is not None:
+            y = y + self.weight("b", x.dtype)
+        return y
+
+
+class Embedding(nn.Module):
+    """The token table (vocab, d); ``embed`` and the tied ``unembed``."""
+
+    def __init__(self, vocab: int, dim: int, device=None):
+        super().__init__()
+        self.table = empty_param((vocab, dim), device)
+
+    def embed(self, tokens: torch.Tensor, dtype: torch.dtype
+              ) -> torch.Tensor:
+        # gathering then casting gives the bits of the reference's
+        # cast-then-gather
+        return self.table[tokens].to(dtype)
+
+    def unembed(self, x: torch.Tensor) -> torch.Tensor:
+        """Logits in f32 (loss numerics)."""
+        return torch.matmul(x.float(), self.table.t())
+
+
+def rope_tables(positions: torch.Tensor, head_dim: int, theta: float
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions: (...,) int -> cos, sin of shape (..., head_dim // 2),
+    f32."""
+    half = head_dim // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=positions.device) / half)
+    ang = positions.float()[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+               ) -> torch.Tensor:
+    """x: (B, S, H, D); cos/sin: (B, S, D//2) or (S, D//2).  Half-split
+    rotation in x's dtype."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    if cos.ndim == 2:
+        cos, sin = cos[None], sin[None]
+    c = cos[..., None, :].to(x.dtype)       # (B, S, 1, D/2)
+    s = sin[..., None, :].to(x.dtype)
+    return torch.cat([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1)
+
+
+class SwiGLU(CastWeights):
+    """``mlp_swiglu``: (silu(x @ w_gate) * (x @ w_up)) @ w_down."""
+
+    def __init__(self, d_model: int, d_ff: int, device=None):
+        super().__init__()
+        self.w_gate = empty_param((d_model, d_ff), device)
+        self.w_up = empty_param((d_model, d_ff), device)
+        self.w_down = empty_param((d_ff, d_model), device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        g = torch.matmul(x, self.weight("w_gate", x.dtype))
+        u = torch.matmul(x, self.weight("w_up", x.dtype))
+        return torch.matmul(F.silu(g) * u, self.weight("w_down", x.dtype))

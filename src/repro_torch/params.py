@@ -13,6 +13,10 @@ the reference's shapes and scales, come from ``Detector(arch, seed=)``,
 ``ProxyModel(..., seed=)`` and ``tracker.init_tracker(cfg, seed=)``, so
 the port runs without JAX (as ``chip_smoke.py`` does).  The two inits do
 not give the same numbers.
+
+``lm_from_params`` does the same for the language model: it carries the
+reference's ``Model.init_params`` tree (layers stacked) over into the
+port's ``TransformerLM``, whose own init is ``Model.init_params(seed)``.
 """
 from __future__ import annotations
 
@@ -23,10 +27,12 @@ import torch
 from torch import nn
 
 from repro_torch import Device, resolve_device
+from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.multiscope import TrackerConfig
 from repro_torch.core.detector import DetectorNet, SameConv2d
 from repro_torch.core.proxy import ProxyEncoder
 from repro_torch.core.tracker import CropCNN
+from repro_torch.models.transformer import TransformerLM, param_specs
 
 
 def _f32(a) -> torch.Tensor:
@@ -84,3 +90,44 @@ def tracker_from_params(cfg: TrackerConfig, params: Mapping,
         out[scope] = {k: np.array(v, dtype=np.float32)
                       for k, v in params[scope].items()}
     return out
+
+
+def _leaf(tree: Mapping, path: str):
+    node = tree
+    for part in path.split("/"):
+        if not isinstance(node, Mapping) or part not in node:
+            raise ValueError(f"parameter tree has no {path!r}")
+        node = node[part]
+    return node
+
+
+def _leaf_paths(tree: Mapping, prefix: str = ""):
+    for key, val in tree.items():
+        path = f"{prefix}{key}"
+        if isinstance(val, Mapping):
+            yield from _leaf_paths(val, path + "/")
+        else:
+            yield path
+
+
+def lm_from_params(cfg: ModelConfig, tree: Mapping,
+                   device: Device = "cuda") -> TransformerLM:
+    """The reference's ``Model.init_params`` tree (any leaves
+    ``np.asarray`` accepts; layer parameters stacked on a leading
+    ``(n_layers,)`` axis) -> the port's ``TransformerLM`` on ``device``.
+    Every parameter's shape is checked against the port's specs, and a
+    leaf the specs do not know raises."""
+    dev = resolve_device(device)
+    specs = param_specs(cfg)
+    extra = sorted(set(_leaf_paths(tree)) - {s.path for s in specs})
+    if extra:
+        raise ValueError(f"parameters the {cfg.name} model does not have: "
+                         f"{extra}")
+    model = TransformerLM(cfg, dev)
+    for spec in specs:
+        value = _f32(_leaf(tree, spec.path))
+        if tuple(value.shape) != spec.shape:
+            raise ValueError(f"{spec.path}: shape {tuple(value.shape)}, "
+                             f"expected {spec.shape}")
+        model.load_(spec.path, value.to(dev))
+    return model.eval()

@@ -15,6 +15,11 @@ window_gather_batch and window_gather: pure copies, so exact.
 assign and track_step: the port's plain versions, the JAX package's
 Pallas kernels in interpret mode and its numpy oracles agree bit for bit
 (columns, and f32 outputs compared as bits).
+flash_attention and decode_attention: the port's plain versions against
+the JAX package's CPU paths (``_chunked_jnp``, the padding wrapper,
+``_jnp_fallback``), its Pallas kernels in interpret mode and its naive
+oracle, within the tolerances of tests/test_kernels.py (2e-5 in f32,
+2e-2 in bf16, absolute and relative).
 """
 import numpy as np
 import pytest
@@ -55,6 +60,20 @@ from repro_torch.kernels.proxy_score import (  # noqa: E402
     check_scores, proxy_score)
 from repro_torch.kernels.window_gather import (  # noqa: E402
     window_gather, window_gather_batch)
+from repro.kernels.flash_attention.kernel import (  # noqa: E402
+    flash_attention_pallas)
+from repro.kernels.flash_attention.ops import (  # noqa: E402
+    _chunked_jnp as jx_chunked, flash_attention as jx_flash)
+from repro.kernels.flash_attention.ref import (  # noqa: E402
+    flash_attention_ref as jx_flash_oracle)
+from repro.kernels.decode_attention.kernel import (  # noqa: E402
+    decode_attention_pallas)
+from repro.kernels.decode_attention.ops import (  # noqa: E402
+    _jnp_fallback as jx_decode_fallback)
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    decode_attention, decode_attention_ref)
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention, flash_attention_ref)
 
 # (B, hp, wp, C, hc, wc): the full-width main path (proxy 416x256 at
 # cell 32 -> 13x8 cells of 64 features, detector grid 60x34) and a
@@ -340,6 +359,10 @@ LAUNCHERS = [
      "LAUNCH_ARGTYPES"),
     ("track_step.cu", "track_step_launch",
      "repro_torch.kernels.track_step.ops", "LAUNCH_ARGTYPES"),
+    ("flash_attention.cu", "flash_attention_launch",
+     "repro_torch.kernels.flash_attention.ops", "LAUNCH_ARGTYPES"),
+    ("decode_attention.cu", "decode_attention_launch",
+     "repro_torch.kernels.decode_attention.ops", "LAUNCH_ARGTYPES"),
 ]
 
 
@@ -561,3 +584,166 @@ def test_track_step_slot_padding_invariance():
     big = _port_step(wide, thr, np_params)
     _assert_bits([b[:, :Q] for b in big], small)
     assert (small[0] >= 0).any()
+
+
+# ---------------------------------------------------------------------------
+# flash_attention and decode_attention
+# ---------------------------------------------------------------------------
+
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def _attn_close(got, want, dtype):
+    got = got.float().numpy() if isinstance(got, torch.Tensor) \
+        else np.asarray(jnp.asarray(got, jnp.float32))
+    want = np.asarray(jnp.asarray(want, jnp.float32))
+    np.testing.assert_allclose(got, want, atol=ATTN_TOL[dtype],
+                               rtol=ATTN_TOL[dtype])
+
+
+def _qkv(seed, q_shape, kv_shape, dtype):
+    """The same seeded inputs for both packages, rounded to ``dtype``."""
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal(s).astype(np.float32)
+            for s in (q_shape, kv_shape, kv_shape)]
+    jx = [jnp.asarray(a).astype(dtype) for a in arrs]
+    pt = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrs]
+    return jx, pt
+
+
+FLASH_CASES = [                  # B, Sq, Skv, Hq, Hkv, D, causal
+    (2, 128, 128, 4, 4, 32, True),      # group 1
+    (1, 64, 256, 4, 2, 32, True),       # Sq < Skv: queries at the end
+    (2, 128, 128, 14, 2, 16, False),    # group 7, non-causal
+    (1, 128, 128, 14, 2, 64, True),     # group 7 at qwen2's head dim
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,D,causal", FLASH_CASES)
+def test_flash_attention_matches_jax(dtype, B, Sq, Skv, Hq, Hkv, D, causal):
+    (jq, jk, jv), (q, k, v) = _qkv(10, (B, Sq, Hq, D), (B, Skv, Hkv, D),
+                                   dtype)
+    got = flash_attention(q, k, v, causal=causal)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    _attn_close(got, jx_chunked(jq, jk, jv, causal=causal,
+                                sm_scale=1.0 / D ** 0.5, block_k=64), dtype)
+    _attn_close(got, flash_attention_pallas(jq, jk, jv, causal=causal,
+                                            block_q=64, block_k=64,
+                                            interpret=True), dtype)
+    _attn_close(got, jx_flash_oracle(jq, jk, jv, causal=causal), dtype)
+
+
+@pytest.mark.parametrize("Sq,Skv,causal", [(100, 100, True),
+                                           (100, 75, False)])
+def test_flash_attention_ragged_edge_matches_padding_wrapper(Sq, Skv,
+                                                             causal):
+    """Lengths that are no block multiple: the reference's wrapper pads
+    to 128 and masks with kv_valid; the port masks the edge itself."""
+    (jq, jk, jv), (q, k, v) = _qkv(11, (2, Sq, 4, 32), (2, Skv, 2, 32),
+                                   "float32")
+    got = flash_attention(q, k, v, causal=causal)
+    _attn_close(got, jx_flash(jq, jk, jv, causal=causal), "float32")
+    _attn_close(got, jx_flash_oracle(jq, jk, jv, causal=causal), "float32")
+
+
+def test_flash_attention_kv_valid_matches_pallas():
+    (jq, jk, jv), (q, k, v) = _qkv(12, (1, 64, 4, 32), (1, 64, 2, 32),
+                                   "float32")
+    got = flash_attention(q, k, v, causal=False, kv_valid=40)
+    _attn_close(got, flash_attention_pallas(jq, jk, jv, causal=False,
+                                            block_q=64, block_k=32,
+                                            interpret=True, kv_valid=40),
+                "float32")
+    _attn_close(got, jx_chunked(jq, jk, jv, causal=False, sm_scale=32 ** -.5,
+                                block_k=32, kv_valid=40), "float32")
+
+
+def test_flash_attention_row_with_no_visible_key_is_zero():
+    """Causal with Sq > Skv: the first Sq - Skv queries see no key.  The
+    port gives 0 there, as the Pallas kernel does on a tile it skips
+    (its finalize maps l == 0 to 0); the reference's ``_chunked_jnp``
+    averages V over the masked keys instead.  Every other row agrees
+    with all three."""
+    (jq, jk, jv), (q, k, v) = _qkv(13, (1, 128, 4, 32), (1, 64, 2, 32),
+                                   "float32")
+    got = flash_attention(q, k, v, causal=True)
+    assert not got[:, :64].any()
+    _attn_close(got, flash_attention_pallas(jq, jk, jv, causal=True,
+                                            block_q=64, block_k=64,
+                                            interpret=True), "float32")
+    chunked = jx_chunked(jq, jk, jv, causal=True, sm_scale=32 ** -.5,
+                         block_k=64)
+    _attn_close(got[:, 64:], chunked[:, 64:], "float32")
+    mean_v = np.asarray(jv, np.float32).mean(axis=1)          # (1, 2, 32)
+    np.testing.assert_allclose(np.asarray(chunked)[0, 0, ::2], mean_v[0],
+                               atol=1e-5)
+
+
+def test_flash_attention_refuses_causal_ragged_unequal_lengths():
+    """As the reference's wrapper: causal with Sq != Skv where either is
+    no multiple of its block (128, or the length itself below it)."""
+    q = torch.zeros((1, 200, 2, 16))
+    k = torch.zeros((1, 300, 2, 16))
+    with pytest.raises(NotImplementedError):
+        flash_attention(q, k, k, causal=True)
+    with pytest.raises(NotImplementedError):
+        jx_flash(jnp.zeros((1, 200, 2, 16)), jnp.zeros((1, 300, 2, 16)),
+                 jnp.zeros((1, 300, 2, 16)), causal=True)
+    assert flash_attention(q, k, k, causal=False).shape == q.shape
+    short = torch.zeros((1, 100, 2, 16))       # one block of 100
+    assert flash_attention(short, k[:, :120], k[:, :120]).shape == \
+        short.shape
+
+
+DECODE_CASES = [                 # B, S, Hq, Hkv, D, block_k (Pallas)
+    (3, 128, 4, 4, 32, 64),      # group 1
+    (2, 256, 4, 2, 64, 128),     # group 2
+    (4, 96, 14, 2, 16, 32),      # group 7
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,bk", DECODE_CASES)
+def test_decode_attention_matches_jax(dtype, B, S, Hq, Hkv, D, bk):
+    """kv_len takes 1 and S (and seeded lengths between)."""
+    (jq, jk, jv), (q, k, v) = _qkv(14, (B, Hq, D), (B, S, Hkv, D), dtype)
+    lens = np.random.default_rng(15).integers(1, S + 1, B).astype(np.int32)
+    lens[:2] = (1, S)
+    got = decode_attention(q, k, v, torch.from_numpy(lens))
+    assert got.dtype == q.dtype and got.shape == q.shape
+    jl = jnp.asarray(lens)
+    _attn_close(got, jx_decode_fallback(jq, jk, jv, jl,
+                                        sm_scale=1.0 / D ** 0.5), dtype)
+    _attn_close(got, decode_attention_pallas(jq, jk, jv, jl, block_k=bk,
+                                             interpret=True), dtype)
+
+
+def test_decode_attention_empty_row_is_zero_as_pallas():
+    """kv_len 0: the Pallas kernel skips every block and writes 0, and so
+    does the port (``_jnp_fallback`` would average V over the cache)."""
+    (jq, jk, jv), (q, k, v) = _qkv(16, (2, 4, 16), (2, 64, 2, 16),
+                                   "float32")
+    lens = np.array([0, 17], np.int32)
+    got = decode_attention(q, k, v, torch.from_numpy(lens))
+    assert not got[0].any()
+    _attn_close(got, decode_attention_pallas(jq, jk, jv, jnp.asarray(lens),
+                                             block_k=32, interpret=True),
+                "float32")
+
+
+def test_attention_wrappers_run_plain_versions_on_cpu_tensors():
+    before = (flash_attention.launches, decode_attention.launches)
+    q, k = torch.ones((1, 8, 2, 16)), torch.ones((1, 8, 1, 16))
+    assert torch.equal(flash_attention(q, k, k),
+                       flash_attention_ref(q, k, k))
+    lens = torch.tensor([5], dtype=torch.int32)
+    assert torch.equal(decode_attention(q[:, 0], k, k, lens),
+                       decode_attention_ref(q[:, 0], k, k, lens))
+    assert (flash_attention.launches, decode_attention.launches) == before
+    meta = torch.empty((1, 8, 2, 16), device="meta")
+    with pytest.raises(ValueError):
+        flash_attention(meta, meta[:, :, :1], meta[:, :, :1])
+    with pytest.raises(ValueError):
+        decode_attention(meta[:, 0], meta[:, :, :1], meta[:, :, :1],
+                         torch.empty((1,), device="meta"))
