@@ -37,8 +37,21 @@ RMS: both attention wrappers swapped for their plain versions, each
 prompt alone, the first and last decode step against a fresh prefill;
 and four planted faults (decode attending kv_len = pos, decode one
 position late, decode without rope, a prefill that is not causal) must
-each break the check it targets.  Every phase runs uncaught: any
-failure exits non-zero before the result line.
+each break the check it targets.  Then Mamba2 serving (``run_ssm``):
+``ssd_scan`` against its plain version (f32 within 1e-4 of max |plain|,
+bf16 within 2 bf16 ulps of the f32 plain result) at the prefill's call
+(B 4, S 500 padded to 512, H 32, P 64, N 128), B 1 at S 61 and 512 and
+Q 100, timed, and its refusals; then ``ServeEngine.generate`` at
+full mamba2-370m width (48 layers, bf16 activations, weights from the
+seed) on the same 4 prompts: twice (the same tokens, 48 ``ssd_scan``
+launches each, all in the prefill), timed, profiled, and the same
+serve checks in bf16 and f32 (the scan swapped for its plain version;
+only the longest row alone and against a fresh prefill, since shorter
+rows absorb the right padding into their state by the reference's
+design), with three planted faults (decode without the state's decay,
+decode with a zeroed conv tail, a prefill scan that drops the state
+between chunks).  Every phase runs uncaught: any failure exits non-zero
+before the result line.
 
 The last three lines of standard output are the kernels' JSON record,
 the card's name and power limit as ``nvidia-smi`` reports them, and
@@ -54,6 +67,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -76,7 +90,7 @@ from repro_torch.core.tracker import (RecurrentTracker,  # noqa: E402
                                       _host_params, init_tracker)
 from repro_torch.core.windows import plan_chunk, plan_from_mapped  # noqa: E402
 from repro_torch.data.video_synth import make_clip  # noqa: E402
-from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import _build, bf16_steps  # noqa: E402
 from repro_torch.kernels.assign import (assign_batch,  # noqa: E402
                                         assign_batch_ref)
 from repro_torch.kernels.track_step import (  # noqa: E402
@@ -94,7 +108,10 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention, decode_attention_ref)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_ref)
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan import check as ssd_check  # noqa: E402
 from repro_torch.models import attention as lm_attention  # noqa: E402
+from repro_torch.models import ssm as lm_ssm  # noqa: E402
 from repro_torch.models.model import Model, build_model  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
 
@@ -121,6 +138,11 @@ ATTN_F32_ATOL = 1e-5            # attention kernels vs plain versions, f32
 # activation dtype; set between the rounding-only gaps and the planted
 # faults' gaps that the serve checks print (PERF.md)
 LM_LOGIT_TOL = {"bfloat16": 0.2, "float32": 1e-3}
+SSM_CFG = get_config("mamba2-370m")  # full width
+# the Mamba2 cell's serve checks, by the same rule: its 48 layers carry
+# bf16 rounding further (rounding-only gaps up to 0.23 of the RMS, the
+# smallest planted fault 0.79, PERF.md)
+SSM_LOGIT_TOL = {"bfloat16": 0.4, "float32": 1e-3}
 
 
 def log(*args) -> None:
@@ -1183,16 +1205,6 @@ def run_video() -> list:
 # LM serving: flash_attention (prefill) and decode_attention (decode)
 # ---------------------------------------------------------------------------
 
-def bf16_steps(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
-    """Element by element, how many bf16 values apart two bf16 outputs
-    are (0: equal, 1: adjacent, one ulp apart): bit patterns mapped to a
-    monotonic integer key."""
-    def key(t):
-        bits = t.contiguous().view(torch.int16).int()
-        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
-    return (key(got) - key(want)).abs()
-
-
 def kernel_agrees(got, want, label: str) -> float:
     """The kernel against its plain version: f32 max |d| <=
     ATTN_F32_ATOL; bf16 at most one bf16 ulp apart, except near zero,
@@ -1213,7 +1225,8 @@ def kernel_agrees(got, want, label: str) -> float:
 
 
 def attn_bound(n_bytes, n_ops, dtype):
-    """(bound ms, by) at the dtype's peak, and the f32 CUDA-core line."""
+    """(bound ms, by) at the dtype's peak, and the f32 CUDA-core line
+    (the attention kernels and ssd_scan compute in f32 on CUDA cores)."""
     rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
     b_ms, b_by = bound(n_bytes, n_ops, rate)
     return b_ms, b_by, bound(n_bytes, n_ops, F32_OPS_PER_S)[0]
@@ -1372,22 +1385,44 @@ def recording(store: dict, key: str):
     return wrap
 
 
-def served(eng, prompts, n_new, plain: bool = False):
-    """One generate with the prefill and decode logits recorded; with
-    ``plain`` the two attention wrappers are swapped for their plain
-    versions for this run.  -> (tokens, {"prefill": [..], "decode":
-    [..]})."""
+@dataclasses.dataclass(frozen=True)
+class ServeCell:
+    """One LM serving cell: its config; the kernels a generate launches,
+    by name, with their wrappers and launches a generate; the swap of
+    each for its plain version; the rows held alone against the batch
+    and against a fresh prefill (``None``: every row); the planted
+    faults; the logit tolerance by activation dtype."""
+    cfg: Any
+    kernels: Dict[str, Tuple[Callable, int]]
+    plain: Tuple[Tuple[Any, str, Callable], ...]
+    rows: Optional[Tuple[int, ...]]
+    faults: Tuple[Tuple[str, Any, str, Callable, str, bool], ...]
+    tol: Dict[str, float]
+
+    def counts(self) -> Dict[str, int]:
+        return {n: fn.launches for n, (fn, _) in self.kernels.items()}
+
+    def reset(self) -> None:
+        for fn, _ in self.kernels.values():
+            fn.launches = 0
+
+    def want(self) -> Dict[str, int]:
+        return {n: w for n, (_, w) in self.kernels.items()}
+
+
+def served(eng, prompts, n_new, plain=()):
+    """One generate with the prefill and decode logits recorded; each
+    ``(owner, attr, plain_fn)`` of ``plain`` swaps a kernel's wrapper for
+    its plain version for this run.  -> (tokens, {"prefill": [..],
+    "decode": [..]})."""
     logs = {}
     with contextlib.ExitStack() as hooks:
         hooks.enter_context(wrapped(Model, "forward",
                                     recording(logs, "prefill")))
         hooks.enter_context(wrapped(Model, "decode_step",
                                     recording(logs, "decode")))
-        if plain:
-            hooks.enter_context(wrapped(lm_attention, "flash_attention",
-                                        lambda fn: flash_attention_ref))
-            hooks.enter_context(wrapped(lm_attention, "decode_attention",
-                                        lambda fn: decode_attention_ref))
+        for owner, attr, fn in plain:
+            hooks.enter_context(wrapped(owner, attr, lambda _, f=fn: f))
         out = eng.generate(prompts, n_new)
     torch.cuda.synchronize()
     return out, logs
@@ -1444,13 +1479,13 @@ def prefill_logits(model, params, seqs):
     return logits.float()
 
 
-def decode_gap(model, params, prompts, out, logs) -> float:
-    """The first and the last decode step's logits against a fresh
-    prefill over the same tokens: the larger ``logit_gap``."""
+def decode_gap(model, params, prompts, out, logs, rows) -> float:
+    """The first and the last decode step's logits of ``rows`` against a
+    fresh prefill over the same tokens: the larger ``logit_gap``."""
     gaps = []
     for s in (0, len(logs["decode"]) - 1):
-        seqs = [o[:len(p) + s + 1] for o, p in zip(out, prompts)]
-        gaps.append(logit_gap(logs["decode"][s],
+        seqs = [out[i][:len(prompts[i]) + s + 1] for i in rows]
+        gaps.append(logit_gap(logs["decode"][s][list(rows)],
                               prefill_logits(model, params, seqs)))
     return max(gaps)
 
@@ -1480,6 +1515,29 @@ def _prefill_not_causal(fn):
     return wrapper
 
 
+def _decode_without_decay(fn):
+    def wrapper(state, x_t, dt_t, A, B_t, C_t, D):
+        return fn(state, x_t, dt_t, torch.zeros_like(A), B_t, C_t, D)
+    return wrapper
+
+
+def _decode_zero_conv_tail(fn):
+    def wrapper(self, x, state):
+        state["conv"].zero_()
+        return fn(self, x, state)
+    return wrapper
+
+
+def _prefill_drops_chunk_state(fn):
+    def wrapper(x, dt, A, B, C, D, chunk=128):
+        # each chunk scanned from a zero state
+        parts = [fn(x[:, c:c + chunk], dt[:, c:c + chunk], A,
+                    B[:, c:c + chunk], C[:, c:c + chunk], D, chunk=chunk)
+                 for c in range(0, x.shape[1], chunk)]
+        return torch.cat([y for y, _ in parts], dim=1), parts[-1][1]
+    return wrapper
+
+
 # Planted faults, each run through the serve checks, which must reject
 # it: (name, owner, attribute, wrap, the check that must see it, whether
 # the bf16 check is held to see it too: a dropped key of hundreds moves
@@ -1494,29 +1552,56 @@ LM_FAULTS = (
     ("prefill not causal", lm_attention, "flash_attention",
      _prefill_not_causal, "prefill", True),
 )
+SSM_FAULTS = (
+    ("decode without the state's decay (a = 1)", lm_ssm, "ssd_step",
+     _decode_without_decay, "decode", True),
+    ("decode with a zeroed conv tail", lm_ssm.SSMBlock, "decode",
+     _decode_zero_conv_tail, "decode", True),
+    ("prefill drops the state carried between chunks", lm_ssm, "ssd_scan",
+     _prefill_drops_chunk_state, "prefill", True),
+)
 
 
-def serve_checks(eng, prompts, tol: float) -> dict:
+def dense_cell(cfg) -> ServeCell:
+    return ServeCell(
+        cfg, {"flash_attention": (flash_attention, cfg.n_layers),
+              "decode_attention": (decode_attention,
+                                   cfg.n_layers * LM_NEW_TOKENS)},
+        ((lm_attention, "flash_attention", flash_attention_ref),
+         (lm_attention, "decode_attention", decode_attention_ref)),
+        None, LM_FAULTS, LM_LOGIT_TOL)
+
+
+def ssm_cell(cfg, prompts) -> ServeCell:
+    """Rows shorter than the longest absorb the right padding into their
+    state (the reference's design): only the longest row is held alone
+    and against a fresh prefill."""
+    longest = max(range(len(prompts)), key=lambda i: len(prompts[i]))
+    return ServeCell(cfg, {"ssd_scan": (ssd_scan, cfg.n_layers)},
+                     ((lm_ssm, "ssd_scan", ssd_scan_ref),), (longest,),
+                     SSM_FAULTS, SSM_LOGIT_TOL)
+
+
+def serve_checks(eng, prompts, cell: ServeCell) -> dict:
     """The serving path held to itself at ``eng``'s dtype: the kernels
     against their plain versions (prefill logits and greedy tokens),
-    each prompt alone against the batch (first-token logits), the first
-    and last decode step against a fresh prefill, each within ``tol``
-    RMS; then every planted fault (``LM_FAULTS``) through the check it
-    targets, which must read more than ``tol``.  -> readings."""
+    each of ``cell.rows`` alone against the batch (first-token logits),
+    their first and last decode step against a fresh prefill, each
+    within the cell's tolerance of the logits' RMS; then every planted
+    fault through the check it targets, which must read more than the
+    tolerance.  -> readings."""
     model, params = eng.model, eng.params
     n_new = LM_NEW_TOKENS
     lens = [len(p) for p in prompts]
+    rows = cell.rows or tuple(range(len(prompts)))
     dt = model.cfg.dtype
-    want = {"flash_attention": model.cfg.n_layers,
-            "decode_attention": model.cfg.n_layers * n_new}
-    flash_attention.launches = decode_attention.launches = 0
+    tol = cell.tol[dt]
+    cell.reset()
     out_k, logs_k = served(eng, prompts, n_new)
-    launches = {"flash_attention": flash_attention.launches,
-                "decode_attention": decode_attention.launches}
-    if launches != want:
-        raise AssertionError(f"serve checks ({dt}): launches {launches}, "
-                             f"expected {want}")
-    out_p, logs_p = served(eng, prompts, n_new, plain=True)
+    if cell.counts() != cell.want():
+        raise AssertionError(f"serve checks ({dt}): launches "
+                             f"{cell.counts()}, expected {cell.want()}")
+    out_p, logs_p = served(eng, prompts, n_new, cell.plain)
     r = dict(dtype=dt, tol=tol, out=out_k)
     r["plain"] = logits_close(logs_k["prefill"][0], logs_p["prefill"][0],
                               f"{dt} prefill, kernels against plain "
@@ -1528,13 +1613,13 @@ def serve_checks(eng, prompts, tol: float) -> dict:
         float(torch.topk(lg, 2, dim=-1).values.diff(dim=-1).abs().min())
         for lg in logs_k["prefill"] + logs_k["decode"])
     r["batch1"] = 0.0
-    for i, p in enumerate(prompts):
-        _, logs1 = served(eng, [p], 1)
+    for i in rows:
+        _, logs1 = served(eng, [prompts[i]], 1)
         r["batch1"] = max(r["batch1"], logits_close(
             logs1["prefill"][0][0], logs_k["prefill"][0][i],
             f"{dt} prompt {i} served alone against in the batch", tol))
     r["decode_vs_prefill"] = decode_gap(model, params, prompts, out_k,
-                                        logs_k)
+                                        logs_k, rows)
     if r["decode_vs_prefill"] > tol:
         raise AssertionError(f"{dt} decode step against a fresh prefill: "
                              f"logits differ by {r['decode_vs_prefill']!r}"
@@ -1542,31 +1627,32 @@ def serve_checks(eng, prompts, tol: float) -> dict:
     if not all(torch.isfinite(lg).all()
                for lg in logs_k["prefill"] + logs_k["decode"]):
         raise AssertionError(f"{dt}: non-finite logits")
-    log(f"serve checks ({dt}, tolerance {tol} of the logits' RMS "
+    name = model.cfg.name
+    log(f"serve checks ({name}, {dt}, tolerance {tol} of the logits' RMS "
         f"{float(logs_k['prefill'][0].pow(2).mean().sqrt())!r}; max "
         f"|logit| {float(logs_k['prefill'][0].abs().max())!r}): kernels "
         f"against plain versions {r['plain']!r} RMS, "
         f"{r['tokens_compared']} of {len(lens) * n_new} greedy tokens "
         f"compared (all equal: {r['tokens_equal_plain']}; smallest top-2 "
-        f"margin {r['min_top2_margin']!r}); each prompt alone "
-        f"{r['batch1']!r} RMS; first and last decode step against a "
-        f"fresh prefill {r['decode_vs_prefill']!r} RMS")
+        f"margin {r['min_top2_margin']!r}); rows {list(rows)} alone "
+        f"{r['batch1']!r} RMS; their first and last decode step against "
+        f"a fresh prefill {r['decode_vs_prefill']!r} RMS")
     r["faults"] = {}
-    for name, owner, attr, wrap, check, in_bf16 in LM_FAULTS:
+    for fname, owner, attr, wrap, check, in_bf16 in cell.faults:
         with wrapped(owner, attr, wrap):
             out_f, logs_f = served(eng, prompts, n_new)
-        gap = (decode_gap(model, params, prompts, out_f, logs_f)
+        gap = (decode_gap(model, params, prompts, out_f, logs_f, rows)
                if check == "decode" else
                logit_gap(logs_f["prefill"][0], logs_k["prefill"][0]))
         held = dt == "float32" or in_bf16
-        r["faults"][name] = gap
-        log(f"serve checks ({dt}), planted fault '{name}': {check} check "
-            f"reads {gap!r} RMS against tolerance {tol} ("
+        r["faults"][fname] = gap
+        log(f"serve checks ({name}, {dt}), planted fault '{fname}': "
+            f"{check} check reads {gap!r} RMS against tolerance {tol} ("
             f"{'caught' if gap > tol else 'not caught'}; greedy tokens "
             f"{'unchanged' if out_f == out_k else 'changed'})")
         if held and not gap > tol:
             raise AssertionError(f"{dt}: the {check} check misses the "
-                                 f"planted fault '{name}'")
+                                 f"planted fault '{fname}'")
     return r
 
 
@@ -1602,10 +1688,10 @@ def serve_busy(eng, prompts, activities=None) -> dict:
                    for ev in prof.key_averages()
                    if ev.key.startswith("aten::")), reverse=True)
     steps = LM_NEW_TOKENS + 1
-    log(f"device busy (profiled generate): {busy * 1e3:.1f} ms of "
-        f"{wall * 1e3:.1f} ms wall = {100 * busy / wall:.1f}% busy; top "
-        "device time: " + "; ".join(f"{k[:60]} {us / 1e3:.2f} ms"
-                                    for us, k in top[:6]))
+    log(f"device busy (profiled generate, {eng.model.cfg.name}): "
+        f"{busy * 1e3:.1f} ms of {wall * 1e3:.1f} ms wall = "
+        f"{100 * busy / wall:.1f}% busy; top device time: "
+        + "; ".join(f"{k[:60]} {us / 1e3:.2f} ms" for us, k in top[:6]))
     log(f"host (same run): {launches} kernel launches = "
         f"{launches / steps:.0f} a token step; top aten ops by self CPU "
         "time: " + "; ".join(f"{k} {us / 1e3:.1f} ms over {n} calls"
@@ -1614,13 +1700,23 @@ def serve_busy(eng, prompts, activities=None) -> dict:
                 launches_per_step=launches / steps)
 
 
-def run_lm() -> list:
-    """The LM serving path at full qwen2-0.5b width: both kernels against
-    their plain versions, then ``ServeEngine.generate`` on 4 ragged
-    prompts; -> the two kernels' records."""
-    fa = check_flash_attention()
-    da = check_decode_attention()
-    cfg = LM_CFG
+def lm_prompts(cfg):
+    """The serving cells' 4 prompts (``LM_PROMPT_LENS`` tokens), seeded."""
+    rng = np.random.default_rng(SEED)
+    return [[int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+            for n in LM_PROMPT_LENS]
+
+
+def run_serving(cfg, cell_of) -> dict:
+    """``ServeEngine.generate`` of one cell at full width (bf16
+    activations over f32 masters from ``SEED``) on ``lm_prompts``: cold
+    and repeat (the same tokens, each kernel launched as the cell says,
+    the counts set to 0 just before each), a timed run (prefill against
+    decode), ``serve_checks``, a profiled run, then ``serve_checks``
+    again on an f32-activation copy.  ``cell_of(cfg, prompts)`` gives
+    the cell for a config.  -> {"launches": the cold run's counts}."""
+    prompts = lm_prompts(cfg)
+    cell = cell_of(cfg, prompts)
     model = build_model(cfg)
     t0 = time.perf_counter()
     params = model.init_params(seed=SEED, device=DEVICE)
@@ -1628,38 +1724,33 @@ def run_lm() -> list:
     log(f"lm: {cfg.name} ({model.param_count()} parameters, f32 masters, "
         f"{cfg.dtype} activations, {cfg.n_layers} layers) initialised on "
         f"the card from seed {SEED} in {time.perf_counter() - t0:.2f} s")
-    rng = np.random.default_rng(SEED)
-    prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, n)]
-               for n in LM_PROMPT_LENS]
     lens = [len(p) for p in prompts]
     eng = ServeEngine(model, params, max_len=LM_MAX_LEN)
     n_new = LM_NEW_TOKENS
-    want = {"flash_attention": cfg.n_layers,
-            "decode_attention": cfg.n_layers * n_new}
 
-    # cold and repeat, each with the launch counts set to 0 just before
     runs = []
     for label in ("cold", "repeat"):
-        flash_attention.launches = decode_attention.launches = 0
+        cell.reset()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = eng.generate(prompts, n_new)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {"flash_attention": flash_attention.launches,
-                    "decode_attention": decode_attention.launches}
-        if launches != want:
-            raise AssertionError(f"serve ({label}): launches {launches}, "
-                                 f"expected {want}")
+        launches = cell.counts()
+        if launches != cell.want():
+            raise AssertionError(f"serve {cfg.name} ({label}): launches "
+                                 f"{launches}, expected {cell.want()}")
         if [len(o) for o in out] != [n + n_new for n in lens] or any(
                 not 0 <= t < cfg.vocab_size for o in out for t in o):
-            raise AssertionError(f"serve ({label}): malformed output")
+            raise AssertionError(f"serve {cfg.name} ({label}): malformed "
+                                 "output")
         runs.append((out, launches))
-        log(f"serve ({label}): {len(prompts)} prompts of {lens} tokens, "
-            f"{n_new} new each, max_len {LM_MAX_LEN}: {wall:.3f} s wall; "
-            f"launches {launches}")
+        log(f"serve {cfg.name} ({label}): {len(prompts)} prompts of {lens}"
+            f" tokens, {n_new} new each, max_len {LM_MAX_LEN}: {wall:.3f} "
+            f"s wall; launches {launches}")
     if runs[0] != runs[1]:
-        raise AssertionError("two generates of the same prompts differ")
+        raise AssertionError(f"{cfg.name}: two generates of the same "
+                             "prompts differ")
 
     # timed run: prefill (the one forward) against the decode steps
     spent = {"prefill": 0.0}
@@ -1689,32 +1780,43 @@ def run_lm() -> list:
                 decode_ms_per_step=dec / n_new * 1e3,
                 decode_tok_s=len(lens) * n_new / dec, generate_s=wall,
                 peak_bytes=peak)
-    log(f"serve (timed): prefill {pre:.4f} s = {perf['prefill_tok_s']:.0f} "
-        f"prompt tokens/s ({perf['prefill_padded_tok_s']:.0f} padded); "
-        f"decode {n_new} steps in {dec:.4f} s = "
-        f"{perf['decode_ms_per_step']:.3f} ms/step = "
-        f"{perf['decode_tok_s']:.1f} tokens/s at batch {len(lens)}; "
+    log(f"serve {cfg.name} (timed): prefill {pre:.4f} s = "
+        f"{perf['prefill_tok_s']:.0f} prompt tokens/s "
+        f"({perf['prefill_padded_tok_s']:.0f} padded); decode {n_new} "
+        f"steps in {dec:.4f} s = {perf['decode_ms_per_step']:.3f} ms/step "
+        f"= {perf['decode_tok_s']:.1f} tokens/s at batch {len(lens)}; "
         f"max_memory_allocated {peak / 2**30:.3f} GiB")
 
     # the kernels against their plain versions, batch 1, decode against
     # prefill and the planted faults: in the config's bf16, then in f32,
     # where rounding is far below what each fault moves
-    chk = serve_checks(eng, prompts, LM_LOGIT_TOL["bfloat16"])
+    chk = serve_checks(eng, prompts, cell)
     if chk["out"] != runs[0][0]:
         raise AssertionError("recorded generate differs from the first")
     busy = serve_busy(eng, prompts)
+    del eng, params
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     model32 = build_model(cfg32)
     eng32 = ServeEngine(model32, model32.init_params(seed=SEED,
                                                      device=DEVICE),
                         max_len=LM_MAX_LEN)
-    chk32 = serve_checks(eng32, prompts, LM_LOGIT_TOL["float32"])
+    chk32 = serve_checks(eng32, prompts, cell_of(cfg32, prompts))
     del eng32
-    log("lm serving: " + json.dumps(dict(
+    log(f"lm serving {cfg.name}: " + json.dumps(dict(
         perf, **busy, **{f"{c['dtype']}_{k}": c[k]
                          for c in (chk, chk32)
                          for k in ("plain", "batch1", "decode_vs_prefill",
                                    "faults")})))
+    return dict(launches=runs[0][1])
+
+
+def run_lm() -> list:
+    """The LM serving path at full qwen2-0.5b width: both kernels against
+    their plain versions, then the dense serving cell; -> the two
+    kernels' records."""
+    fa = check_flash_attention()
+    da = check_decode_attention()
+    served_run = run_serving(LM_CFG, lambda cfg, _: dense_cell(cfg))
 
     src = "src/repro_torch/csrc/"
     f_main = fa[("S500 causal", "bfloat16")]
@@ -1725,7 +1827,7 @@ def run_lm() -> list:
         dict(name="flash_attention", route="cuda",
              source=src + "flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:98",
-             launches=runs[0][1]["flash_attention"],
+             launches=served_run["launches"]["flash_attention"],
              max_abs_err=max(r["max_abs_err"] for r in fa.values()),
              ms=f_main["ms"], plain_ms=f_main["plain_ms"],
              bound_ms=f_main["bound_ms"], bound_by=f_main["bound_by"],
@@ -1737,7 +1839,7 @@ def run_lm() -> list:
         dict(name="decode_attention", route="cuda",
              source=src + "decode_attention.cu",
              replaces="src/repro/kernels/decode_attention/kernel.py:76",
-             launches=runs[0][1]["decode_attention"],
+             launches=served_run["launches"]["decode_attention"],
              max_abs_err=max(r["max_abs_err"] for r in da.values()),
              ms=d_main["ms"], plain_ms=d_main["plain_ms"],
              bound_ms=d_main["bound_ms"], bound_by=d_main["bound_by"],
@@ -1747,6 +1849,87 @@ def run_lm() -> list:
                    "(1, 61, 512, 1024), bf16",
              float32={k: da["float32"][k] for k in keys}),
     ]
+
+
+def check_ssd_scan():
+    """The scan kernel against its plain version on the card
+    (``kernels.ssd_scan.check``): the prefill's call (B 4, S 500 through
+    the padding wrapper to 512, H 32, P 64, N 128, Q 128), B 1 at S 61
+    (Q 61) and at S 512, and Q 100 over a padded S 250, each in bf16 and
+    f32; then the wrapper's refusals.  Timed at the prefill's call, both
+    dtypes.  -> {(case, dtype): record}."""
+    rows = {}
+    for i, (name, b, S, h, p, n, chunk) in enumerate(ssd_check.CASES):
+        for dt in (torch.bfloat16, torch.float32):
+            args = ssd_check.operands(b, S, h, p, n, dt, DEVICE,
+                                      SEED + 40 + i)
+            label = f"ssd_scan {name} {dt}"
+            err = ssd_check.check_scan(args, chunk, label)
+            row = dict(case=name, dtype=str(dt).split(".")[-1], B=b, S=S,
+                       H=h, P=p, N=n, chunk=chunk, max_abs_err=err)
+            if i == 0:
+                Q = min(chunk, S)
+                n_chunks = -(-S // Q)
+                # only j <= t of a chunk: C B^T (head-independent with one
+                # group, once a (row, chunk)) and the intra product M x;
+                # C state^T and the state update are 2 Q P N each
+                tri = Q * (Q + 1)
+                n_ops = b * n_chunks * (tri * n + h * (tri * p
+                                                       + 4 * Q * p * n))
+                n_bytes = (2 * args[0].numel() + args[3].numel()
+                           + args[4].numel()) * args[0].element_size() \
+                    + (args[1].numel() + 2 * h + b * h * p * n) * 4
+
+                def kern():
+                    return ssd_scan(*args, chunk=chunk)
+
+                def plain():
+                    return ssd_scan_ref(*(a.float() for a in args),
+                                        chunk=chunk)
+                b_ms, b_by, f32_ms = attn_bound(n_bytes, n_ops, dt)
+                with torch.inference_mode():
+                    row.update(ms=event_ms(kern, reps=20),
+                               device_ms=device_ms(kern, "ssd_scan_kernel",
+                                                   reps=20),
+                               plain_ms=event_ms(plain, reps=5),
+                               library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                               bound_f32_core_ms=f32_ms, flops=n_ops,
+                               bytes=n_bytes)
+                log(f"{label}: max |d| {err!r}; kernel {row['ms']:.4f} "
+                    f"ms/call (device, cold L2 {row['device_ms']}), plain "
+                    f"{row['plain_ms']:.4f} ms, no one PyTorch call, bound "
+                    f"{b_ms:.5f} ms ({b_by}; {n_ops / 1e9:.4f} GFLOP, "
+                    f"{n_bytes / 1e6:.2f} MB; f32 CUDA-core line "
+                    f"{f32_ms:.5f} ms)")
+            else:
+                log(f"{label}: max |d| {err!r} (within tolerance)")
+            rows[(name, row["dtype"])] = row
+    ssd_check.check_refusals(DEVICE)
+    log("ssd_scan: refuses an unbuilt (P, N) and a chunk over 128")
+    return rows
+
+
+def run_ssm() -> list:
+    """Mamba2 serving at full mamba2-370m width: the scan kernel against
+    its plain version, then the ssm serving cell; -> its record."""
+    sc = check_ssd_scan()
+    served_run = run_serving(SSM_CFG, ssm_cell)
+    main = sc[("prefill B4 S500", "bfloat16")]
+    keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_f32_core_ms",
+            "max_abs_err")
+    return [dict(
+        name="ssd_scan", route="cuda",
+        source="src/repro_torch/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan/kernel.py:85",
+        launches=served_run["launches"]["ssd_scan"],
+        max_abs_err=max(r["max_abs_err"] for r in sc.values()),
+        ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+        bound_by=main["bound_by"], library_ms=None,
+        device_ms=main["device_ms"],
+        bound_f32_core_ms=main["bound_f32_core_ms"],
+        shape=f"B {main['B']}, S {main['S']}, H {main['H']}, P "
+              f"{main['P']}, N {main['N']}, chunk {main['chunk']}, bf16",
+        float32={k: sc[("prefill B4 S500", "float32")][k] for k in keys})]
 
 
 def main() -> int:
@@ -1760,7 +1943,7 @@ def main() -> int:
     log(f"card: {smi}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, nvcc: {nvcc}")
     build_kernels()
-    kernels = run_video() + run_lm()
+    kernels = run_video() + run_lm() + run_ssm()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,13 +3,13 @@
 The port runs the pipeline's main path (one clip through
 ``core.executor.ClipExecutor``: decode -> proxy -> detect -> track) on an
 NVIDIA GPU, with TRACK on the host or on the device, the per-frame engine
-and the unfused proxy path, and the dense language models' serving path
-(``serve.ServeEngine`` over ``models``: ragged prefill, then decode).
-Its eight kernels, ``kernels.proxy_plan``, ``kernels.proxy_score``,
-``kernels.window_gather`` (two), ``kernels.assign``,
-``kernels.track_step``, ``kernels.flash_attention`` and
-``kernels.decode_attention``, are hand-written CUDA; everything else is
-ordinary PyTorch or host numpy.  It imports nothing of JAX and nothing
+and the unfused proxy path, and the serving path of the dense and Mamba2
+language models (``serve.ServeEngine`` over ``models``: ragged prefill,
+then decode).  Its nine kernels, ``kernels.proxy_plan``,
+``kernels.proxy_score``, ``kernels.window_gather`` (two),
+``kernels.assign``, ``kernels.track_step``, ``kernels.flash_attention``,
+``kernels.decode_attention`` and ``kernels.ssd_scan``, are hand-written
+CUDA; everything else is ordinary PyTorch or host numpy.  It imports nothing of JAX and nothing
 of ``repro``; the tests hold it against ``repro`` on the CPU.
 
 Entry points run on the card unless the caller asks for the CPU

@@ -1,7 +1,8 @@
 // Loads and stores shared by the attention kernels (flash_attention.cu,
-// decode_attention.cu): inputs are f32 or bf16, converted to f32 on load
-// 16 bytes at a time; outputs are rounded to nearest-even when bf16, as
-// torch's .to(torch.bfloat16) rounds in the plain versions.
+// decode_attention.cu) and ssd_scan.cu: inputs are f32 or bf16,
+// converted to f32 on load (16 bytes at a time through Ld); outputs are
+// rounded to nearest-even when bf16, as torch's .to(torch.bfloat16)
+// rounds in the plain versions.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -40,9 +40,15 @@ Kernels (sources in ``repro_torch/csrc/``, built by ``_build``):
                   by kv_len, a KV head's query heads packed together
                   (replaces ``kernels/decode_attention``'s
                   ``decode_attention_pallas``; every LM decode step).
+  ssd_scan      — Mamba2's SSD chunked scan, one block per (head, row)
+                  walking the chunks with the f32 state in shared memory
+                  (replaces ``kernels/ssd_scan``'s ``ssd_scan_pallas``;
+                  the Mamba2 prefill).
 
-The two attention kernels share ``csrc/attention.cuh`` (f32 / bf16
-loads and rounding).
+The attention kernels and ssd_scan share ``csrc/attention.cuh`` (f32 /
+bf16 loads and rounding).  ``ssd_scan.check`` holds that kernel against
+its plain version on the card (``chip_smoke.py`` and
+``tests/test_torch_cuda.py`` share it).
 
 assign and track_step give the host tracker's f32 bits: their math goes
 through ``csrc/fastmath.cuh`` and they are built with -fmad=false
@@ -72,6 +78,16 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
 def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
     """PyTorch's current stream on the tensor's device."""
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def bf16_steps(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    """Element by element, how many bf16 values apart two bf16 tensors
+    are (0: equal, 1: adjacent, one ulp apart): bit patterns mapped to a
+    monotonic integer key."""
+    def key(t):
+        bits = t.contiguous().view(torch.int16).int()
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+    return (key(got) - key(want)).abs()
 
 
 def check_launch(err: int, lib: ctypes.CDLL, name: str) -> None:

@@ -1,0 +1,93 @@
+"""The ``ssd_scan`` kernel against its plain version on the card: the
+operands, the shapes and the tolerance, one copy for ``chip_smoke.py``
+and ``tests/test_torch_cuda.py``.
+
+Tolerance: the f32 final state within ``F32_RTOL`` of max |plain|; y in
+f32 within the same; y in bf16 at most ``BF16_ULPS`` bf16 values from
+the plain version's f32 result on the same (bf16-valued) inputs, or
+within the f32 bound near zero (where a bf16 ulp is finer than f32
+rounding of O(1) sums).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import bf16_steps
+from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_ref
+
+F32_RTOL = 1e-4
+BF16_ULPS = 2
+# (name, b, S, H, P, N, chunk) at mamba2-370m's H, P, N: the prefill's
+# call (S 500 padded to 512), Q = S = 61, whole chunks, and Q 100 (row
+# blocks of 32 cut in the middle) with a padded tail
+CASES = (("prefill B4 S500", 4, 500, 32, 64, 128, 128),
+         ("B1 S61 (Q 61)", 1, 61, 32, 64, 128, 128),
+         ("B1 S512", 1, 512, 32, 64, 128, 128),
+         ("B1 S250 Q100", 1, 250, 32, 64, 128, 100))
+
+
+def operands(b: int, S: int, H: int, P: int, N: int, dtype: torch.dtype,
+             device, seed: int) -> tuple:
+    """One layer's scan operands, drawn as the model draws them: x, B, C
+    ~ N(0, 1) in ``dtype``, dt = softplus(N(0, 1) + dt_bias) with the
+    init's dt_bias (the inverse softplus of U[1e-3, 1e-1]), A = -U[1,
+    16], D = 1."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+    u = torch.rand(H, generator=gen, device=device) * (0.1 - 1e-3) + 1e-3
+    dt = F.softplus(randn(b, S, H) + u + torch.log(-torch.expm1(-u)))
+    A = -(torch.rand(H, generator=gen, device=device) * 15 + 1)
+    return (randn(b, S, H, P).to(dtype), dt, A, randn(b, S, N).to(dtype),
+            randn(b, S, N).to(dtype), torch.ones(H, device=device))
+
+
+def check_scan(args: tuple, chunk: int, label: str) -> float:
+    """One launch of the kernel on ``args`` (CUDA tensors) against the
+    plain version run in f32 on the same inputs; raises AssertionError
+    outside the tolerance.  -> max |d| of y."""
+    x = args[0]
+    before = ssd_scan.launches
+    with torch.inference_mode():
+        y, fin = ssd_scan(*args, chunk=chunk)
+        yr, sr = ssd_scan_ref(*(a.float() for a in args), chunk=chunk)
+    torch.cuda.synchronize()
+    if ssd_scan.launches != before + 1 or y.dtype != x.dtype \
+            or fin.dtype != torch.float32 or y.shape != x.shape:
+        raise AssertionError(
+            f"{label}: {ssd_scan.launches - before} launches, y "
+            f"{tuple(y.shape)} {y.dtype}, state {fin.dtype}")
+    diff = (y.float() - yr).abs()
+    bad = diff > F32_RTOL * float(yr.abs().max())
+    if y.dtype == torch.bfloat16:
+        bad &= bf16_steps(y, yr.to(y.dtype)) > BF16_ULPS
+    d_state = float((fin - sr).abs().max())
+    if bad.any() or d_state > F32_RTOL * float(sr.abs().max()):
+        at = tuple(int(i) for i in bad.nonzero()[0]) if bad.any() else ()
+        raise AssertionError(
+            f"{label}: kernel != plain version at {int(bad.sum())} "
+            f"elements of y, first {at} (max |d| {float(diff.max())!r}); "
+            f"state max |d| {d_state!r}")
+    return float(diff.max())
+
+
+def check_refusals(device) -> None:
+    """The wrapper refuses, before any launch, a (P, N) the kernel was
+    not built for and a chunk over its shared-memory limit."""
+    for (b, S, H, P, N), chunk, what in (((1, 32, 2, 32, 16), 128,
+                                          "no kernel build"),
+                                         ((1, 256, 2, 64, 128), 256,
+                                          "chunk")):
+        args = operands(b, S, H, P, N, torch.float32, device, 0)
+        before = ssd_scan.launches
+        try:
+            ssd_scan(*args, chunk=chunk)
+        except NotImplementedError as e:
+            if what not in str(e) or ssd_scan.launches != before:
+                raise AssertionError(f"ssd_scan refusal: {e}") from e
+        else:
+            raise AssertionError(f"ssd_scan took (P, N) {(P, N)}, chunk "
+                                 f"{chunk}")

@@ -9,7 +9,9 @@ seeded by ``name_seed(path, seed)`` (sha256 of "seed:path", as the
 reference's ``_name_seed``), so the init is order-independent and
 restart-stable, with the reference's scales: normal times
 1/sqrt(fan_in) (fan_in = shape[-2]), or an explicit scale (1.0 for the
-embedding), ones, zeros.  torch's generator is not JAX's: the same seed
+embedding), ones, zeros, and the two inits of the SSM block: ``ssm_a``
+(``A_log`` = log U[1, 16]) and ``ssm_dt`` (``dt_bias``, the inverse
+softplus of U[1e-3, 1e-1]).  torch's generator is not JAX's: the same seed
 gives other numbers than the reference's ``init_params``, so the tests
 carry the reference's weights over with ``params.lm_from_params``.
 
@@ -30,7 +32,7 @@ import torch
 class ParamSpec:
     path: str
     shape: Tuple[int, ...]
-    init: str = "normal"            # normal | zeros | ones
+    init: str = "normal"            # normal | zeros | ones | ssm_a | ssm_dt
     scale: Optional[float] = None   # normal only; default 1/sqrt(fan_in)
 
     @property
@@ -51,12 +53,19 @@ def init_tensor(spec: ParamSpec, seed: int, device: torch.device
         return torch.zeros(shape, dtype=torch.float32, device=device)
     if spec.init == "ones":
         return torch.ones(shape, dtype=torch.float32, device=device)
-    if spec.init != "normal":
+    if spec.init not in ("normal", "ssm_a", "ssm_dt"):
         raise ValueError(f"unknown init {spec.init!r}")
-    fan_in = shape[-2] if len(shape) >= 2 else max(shape[-1], 1)
-    s = spec.scale if spec.scale is not None else 1.0 / math.sqrt(fan_in)
     gen = torch.Generator(device=device)
     gen.manual_seed(name_seed(spec.path, seed))
+    if spec.init != "normal":
+        u = torch.rand(shape, generator=gen, dtype=torch.float32,
+                       device=device)
+        if spec.init == "ssm_a":             # log(U[1, 16])
+            return torch.log(u.mul_(15.0).add_(1.0))
+        u = u.mul_(1e-1 - 1e-3).add_(1e-3)  # U[1e-3, 1e-1]
+        return u + torch.log(-torch.expm1(-u))
+    fan_in = shape[-2] if len(shape) >= 2 else max(shape[-1], 1)
+    s = spec.scale if spec.scale is not None else 1.0 / math.sqrt(fan_in)
     out = torch.randn(shape, generator=gen, dtype=torch.float32,
                       device=device)
     return out.mul_(s)

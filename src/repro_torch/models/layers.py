@@ -47,8 +47,17 @@ class CastWeights(nn.Module):
         return getattr(self, name).to(dtype)
 
 
-class RMSNorm(nn.Module):
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float
+            ) -> torch.Tensor:
     """``rmsnorm``: computed in f32, returned in the input's dtype."""
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * scale).to(x.dtype)
+
+
+class RMSNorm(nn.Module):
+    """``rmsnorm`` with its scale as a parameter."""
 
     def __init__(self, dim: int, eps: float, device=None):
         super().__init__()
@@ -56,10 +65,7 @@ class RMSNorm(nn.Module):
         self.scale = empty_param((dim,), device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
-        var = (xf * xf).mean(dim=-1, keepdim=True)
-        y = xf * torch.rsqrt(var + self.eps)
-        return (y * self.scale).to(x.dtype)
+        return rmsnorm(x, self.scale, self.eps)
 
 
 class Linear(CastWeights):

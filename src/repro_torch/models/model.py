@@ -1,5 +1,5 @@
 """The Model API (the port's counterpart of the JAX package's
-``models/model.py``), dense family.
+``models/model.py``), dense and ssm families.
 
 ``build_model(cfg)`` returns a ``Model`` exposing:
 
@@ -46,6 +46,12 @@ class Model:
     def param_count(self) -> int:
         return sum(s.numel for s in self.param_specs())
 
+    @property
+    def cache_has_length(self) -> bool:
+        """True for a KV cache of ``max_len`` positions; False for a
+        state with no length, which decodes past ``max_len``."""
+        return tf_mod.cache_has_length(self.cfg)
+
     def init_params(self, seed: int = 0, device: Device = "cuda"
                     ) -> TransformerLM:
         """Weights drawn by name from ``seed`` (``models.common``), on
@@ -74,7 +80,7 @@ class Model:
     def prefill(self, params: TransformerLM, batch: Dict[str, Any],
                 max_len: Optional[int] = None):
         """Logits at the last (padded) position and the cache, grown to
-        ``max_len`` when given."""
+        ``max_len`` when given (a KV cache; SSM states have no length)."""
         S = _tokens(batch, params.device).shape[1]
         last = torch.full((len(batch["tokens"]),), S - 1)
         logits, _, cache = self.forward(
@@ -83,8 +89,9 @@ class Model:
         return logits, cache
 
     def decode_step(self, params: TransformerLM, token, pos, cache):
-        """token: (B, 1); pos: (B,) int32 on the params' device.  The
-        cache is updated in place and returned."""
+        """token: (B, 1); pos: (B,) int32 on the params' device (not
+        read by the ssm family).  The cache is updated in place and
+        returned."""
         with torch.inference_mode():
             logits, cache = tf_mod.lm_decode(params, token, pos, cache)
         return logits[:, 0], cache

@@ -1,21 +1,23 @@
-"""Decoder-only LM assembly, dense family (the port's counterpart of the
-JAX package's ``models/transformer.py``): parameter specs, the
-full-sequence forward with cache capture (prefill), caches, and the
-single-token decode.
+"""Decoder-only LM assembly, dense and ssm families (the port's
+counterpart of the JAX package's ``models/transformer.py``): parameter
+specs, the full-sequence forward with cache capture (prefill), caches,
+and the single-token decode.
 
 The reference stacks each layer's parameters on a leading ``(n_layers,)``
 axis and runs ``lax.scan`` over them; the port keeps one module per
 layer in an ``nn.ModuleList`` and loops.  The specs keep the stacked
 paths and shapes, so a stacked tensor (the reference's, or the port's
-own init) is split over the layers when it is loaded.  The KV cache is
-one (L, B, S, Hkv, D) tensor pair, as the reference's.
+own init) is split over the layers when it is loaded.  The caches are
+the reference's trees: for the dense family one (L, B, S, Hkv, D) K/V
+tensor pair; for the ssm family (Mamba2) ``{"ssm": (L, B, H, P, N) f32,
+"conv": (L, B, d_conv - 1, conv_dim)}``, which has no sequence axis.
 
-Only the dense family is ported; the others raise NotImplementedError
-naming the ``ROADMAP.md`` item that ports them.
+The other families raise NotImplementedError naming the ``ROADMAP.md``
+item that ports them.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional
 
 import torch
 from torch import nn
@@ -25,13 +27,16 @@ from repro_torch.models.attention import Attention, Rope, kv_cache_shape
 from repro_torch.models.common import ParamSpec
 from repro_torch.models.layers import (CastWeights, Embedding, Linear,
                                       RMSNorm, SwiGLU)
+from repro_torch.models.ssm import (SSMBlock, dims as ssm_dims,
+                                   init_ssm_state, proj_dim)
 
-Cache = Dict[str, Tuple[torch.Tensor, torch.Tensor]]
+Cache = Dict[str, Any]
+PORTED = ("dense", "ssm")
 
 # families still to port, and the ROADMAP.md queue 1 item that will
 NOT_PORTED = {
-    "ssm": "queue 1 item 12b (Mamba2 serving: models/ssm.py, ssd_scan)",
-    "hybrid": "queue 1 item 12c (Zamba2 hybrid)",
+    "hybrid": "queue 1 item 12c (Zamba2 hybrid: head-dim-112 attention "
+              "instances, the shared block)",
     "moe": "queue 1 item 12d (mixture of experts)",
     "vlm": "queue 1 item 12e (vision frontend)",
     "encdec": "queue 1 item 12f (encoder-decoder, cross-attention)",
@@ -39,7 +44,7 @@ NOT_PORTED = {
 
 
 def check_family(cfg: ModelConfig) -> None:
-    if cfg.family == "dense":
+    if cfg.family in PORTED:
         return
     if cfg.family in NOT_PORTED:
         raise NotImplementedError(
@@ -52,25 +57,43 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
+def _ssm_layer_specs(cfg: ModelConfig) -> List[ParamSpec]:
+    """``def_rmsnorm("ln")`` + ``def_ssm_block("ssm")``, stacked."""
+    L, d = cfg.n_layers, cfg.d_model
+    s, d_inner, H, conv_dim = ssm_dims(cfg)
+    return [ParamSpec("layers/ln/scale", (L, d), "ones"),
+            ParamSpec("layers/ssm/in_proj/w", (L, d, proj_dim(cfg))),
+            ParamSpec("layers/ssm/conv_w", (L, s.d_conv, conv_dim)),
+            ParamSpec("layers/ssm/conv_b", (L, conv_dim), "zeros"),
+            ParamSpec("layers/ssm/A_log", (L, H), "ssm_a"),
+            ParamSpec("layers/ssm/dt_bias", (L, H), "ssm_dt"),
+            ParamSpec("layers/ssm/D", (L, H), "ones"),
+            ParamSpec("layers/ssm/norm_scale", (L, d_inner), "ones"),
+            ParamSpec("layers/ssm/out_proj/w", (L, d_inner, d))]
+
+
 def param_specs(cfg: ModelConfig) -> List[ParamSpec]:
-    """``def_lm_params`` for the dense family: paths and shapes of the
-    reference's parameter tree, layers stacked."""
+    """``def_lm_params`` for the dense and ssm families: paths and shapes
+    of the reference's parameter tree, layers stacked."""
     check_family(cfg)
     L, d, q, kv, ff = (cfg.n_layers, cfg.d_model, cfg.q_dim, cfg.kv_dim,
                        cfg.d_ff)
-    specs = [ParamSpec("embed/table", (cfg.vocab_size, d), scale=1.0),
-             ParamSpec("layers/ln_attn/scale", (L, d), "ones")]
-    for name, d_out in (("wq", q), ("wk", kv), ("wv", kv)):
-        specs.append(ParamSpec(f"layers/attn/{name}/w", (L, d, d_out)))
-        if cfg.qkv_bias:
-            specs.append(ParamSpec(f"layers/attn/{name}/b", (L, d_out),
-                                   "zeros"))
-    specs += [ParamSpec("layers/attn/wo/w", (L, q, d)),
-              ParamSpec("layers/ln_mlp/scale", (L, d), "ones"),
-              ParamSpec("layers/mlp/w_gate", (L, d, ff)),
-              ParamSpec("layers/mlp/w_up", (L, d, ff)),
-              ParamSpec("layers/mlp/w_down", (L, ff, d)),
-              ParamSpec("ln_final/scale", (d,), "ones")]
+    specs = [ParamSpec("embed/table", (cfg.vocab_size, d), scale=1.0)]
+    if cfg.family == "ssm":
+        specs += _ssm_layer_specs(cfg)
+    else:
+        specs.append(ParamSpec("layers/ln_attn/scale", (L, d), "ones"))
+        for name, d_out in (("wq", q), ("wk", kv), ("wv", kv)):
+            specs.append(ParamSpec(f"layers/attn/{name}/w", (L, d, d_out)))
+            if cfg.qkv_bias:
+                specs.append(ParamSpec(f"layers/attn/{name}/b", (L, d_out),
+                                       "zeros"))
+        specs += [ParamSpec("layers/attn/wo/w", (L, q, d)),
+                  ParamSpec("layers/ln_mlp/scale", (L, d), "ones"),
+                  ParamSpec("layers/mlp/w_gate", (L, d, ff)),
+                  ParamSpec("layers/mlp/w_up", (L, d, ff)),
+                  ParamSpec("layers/mlp/w_down", (L, ff, d))]
+    specs.append(ParamSpec("ln_final/scale", (d,), "ones"))
     if not cfg.tie_embeddings:
         specs.append(ParamSpec("lm_head/w", (d, cfg.vocab_size)))
     return specs
@@ -97,17 +120,37 @@ class Block(nn.Module):
         return h + self.mlp(self.ln_mlp(h))
 
 
+class SSMLayer(nn.Module):
+    """One Mamba2 layer: ``_ssm_layer_fwd``, h + ssm(rmsnorm(h))."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.ln = RMSNorm(cfg.d_model, cfg.norm_eps, device)
+        self.ssm = SSMBlock(cfg, device)
+
+    def forward(self, h: torch.Tensor, return_state: bool = False):
+        if return_state:
+            out, state = self.ssm(self.ln(h), return_state=True)
+            return h + out, state
+        return h + self.ssm(self.ln(h)), None
+
+    def decode(self, h: torch.Tensor, state) -> torch.Tensor:
+        return h + self.ssm.decode(self.ln(h), state)
+
+
 class TransformerLM(nn.Module):
-    """The dense LM's weights (f32 masters), one module per layer.  Built
-    empty; ``Model.init_params`` or ``params.lm_from_params`` fill it
-    through ``load_``."""
+    """The LM's weights (f32 masters), one module per layer (``Block``s
+    for the dense family, ``SSMLayer``s for ssm).  Built empty;
+    ``Model.init_params`` or ``params.lm_from_params`` fill it through
+    ``load_``."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         check_family(cfg)
         self.cfg = cfg
         self.embed = Embedding(cfg.vocab_size, cfg.d_model, device)
-        self.layers = nn.ModuleList(Block(cfg, device)
+        layer = SSMLayer if cfg.family == "ssm" else Block
+        self.layers = nn.ModuleList(layer(cfg, device)
                                     for _ in range(cfg.n_layers))
         self.ln_final = RMSNorm(cfg.d_model, cfg.norm_eps, device)
         self.lm_head = None if cfg.tie_embeddings else Linear(
@@ -144,6 +187,15 @@ class TransformerLM(nn.Module):
         return torch.matmul(h.float(), self.lm_head.w)
 
 
+def _ssm_cache(cfg: ModelConfig, batch: int, device) -> Cache:
+    """The ssm family's zero cache: every layer's ``init_ssm_state``
+    stacked, as the reference's ``make_cache``."""
+    st = init_ssm_state(cfg, batch, dtype_of(cfg), device)
+    return {"layers": {k: torch.zeros((cfg.n_layers,) + tuple(v.shape),
+                                      dtype=v.dtype, device=device)
+                       for k, v in st.items()}}
+
+
 def lm_forward(model: TransformerLM, tokens: torch.Tensor, *,
                return_cache: bool = False, cache_len: Optional[int] = None,
                logits_at: Optional[torch.Tensor] = None):
@@ -154,38 +206,58 @@ def lm_forward(model: TransformerLM, tokens: torch.Tensor, *,
     matmul's summation order, for S times less work).  With
     ``return_cache`` the cache holds every layer's K/V of the S
     positions; ``cache_len`` (>= S) allocates it that long at once,
-    zeros past S, which is ``pad_cache`` without the copy."""
+    zeros past S, which is ``pad_cache`` without the copy.  For the ssm
+    family the cache is every layer's decode state after the S tokens
+    (it has no length: ``cache_len`` is not read)."""
     cfg = model.cfg
     dtype = dtype_of(cfg)
     B, S = tokens.shape
     h = model.embed.embed(tokens, dtype)
     cache: Optional[Cache] = None
-    if return_cache:
-        n = S if cache_len is None else cache_len
-        if n < S:
-            raise ValueError(f"cache_len {n} < sequence length {S}")
-        shape = kv_cache_shape(cfg, cfg.n_layers, B, n)
-        ck = torch.zeros(shape, dtype=dtype, device=h.device)
-        cv = torch.zeros(shape, dtype=dtype, device=h.device)
-        cache = {"layers": (ck, cv)}
-    # the rope tables are the same for every layer: computed once
-    rope = model.layers[0].attn.rope(torch.arange(S, device=h.device))
-    for i, layer in enumerate(model.layers):
-        h, (k, v) = layer(h, rope)
-        if cache is not None:
-            ck[i, :, :S] = k
-            cv[i, :, :S] = v
+    if cfg.family == "ssm":
+        if return_cache:
+            cache = _ssm_cache(cfg, B, h.device)
+        for i, layer in enumerate(model.layers):
+            h, st = layer(h, return_state=return_cache)
+            if cache is not None:
+                for k, v in st.items():
+                    cache["layers"][k][i] = v
+    else:
+        if return_cache:
+            n = S if cache_len is None else cache_len
+            if n < S:
+                raise ValueError(f"cache_len {n} < sequence length {S}")
+            shape = kv_cache_shape(cfg, cfg.n_layers, B, n)
+            ck = torch.zeros(shape, dtype=dtype, device=h.device)
+            cv = torch.zeros(shape, dtype=dtype, device=h.device)
+            cache = {"layers": (ck, cv)}
+        # the rope tables are the same for every layer: computed once
+        rope = model.layers[0].attn.rope(torch.arange(S, device=h.device))
+        for i, layer in enumerate(model.layers):
+            h, (k, v) = layer(h, rope)
+            if cache is not None:
+                ck[i, :, :S] = k
+                cv[i, :, :S] = v
     if logits_at is not None:
         h = h[torch.arange(B, device=h.device), logits_at]
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return model.logits(h), aux, cache
 
 
+def cache_has_length(cfg: ModelConfig) -> bool:
+    """Whether the decode cache holds ``max_len`` positions (a KV cache,
+    which a generate past ``max_len`` overflows) rather than a state
+    with no length (ssm)."""
+    check_family(cfg)
+    return cfg.family != "ssm"
+
+
 def make_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: torch.device) -> Cache:
     """Zero caches of ``max_len`` positions (the reference's mode
-    'init')."""
-    check_family(cfg)
+    'init'); the ssm family's states have no length."""
+    if not cache_has_length(cfg):
+        return _ssm_cache(cfg, batch, device)
     shape = kv_cache_shape(cfg, cfg.n_layers, batch, max_len)
     dtype = dtype_of(cfg)
     return {"layers": (torch.zeros(shape, dtype=dtype, device=device),
@@ -194,8 +266,10 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 def pad_cache(cfg: ModelConfig, cache: Cache, max_len: int) -> Cache:
     """Grow the seq axis of the KV cache (captured at prefill length) to
-    ``max_len`` with zeros, so decode can append."""
-    check_family(cfg)
+    ``max_len`` with zeros, so decode can append.  SSM states are
+    length-free: left alone."""
+    if not cache_has_length(cfg):
+        return dict(cache)
     k, v = cache["layers"]
     extra = max_len - k.shape[2]
     if extra <= 0:
@@ -208,9 +282,14 @@ def pad_cache(cfg: ModelConfig, cache: Cache, max_len: int) -> Cache:
 def lm_decode(model: TransformerLM, token: torch.Tensor, pos: torch.Tensor,
               cache: Cache):
     """token: (B, 1); pos: (B,) int32, the valid cache length per row
-    (the new token goes at index pos).  -> (logits (B, 1, V) f32, cache),
-    the cache updated in place."""
+    (the new token goes at index pos; the ssm family does not read it).
+    -> (logits (B, 1, V) f32, cache), the cache updated in place."""
     h = model.embed.embed(token, dtype_of(model.cfg))
+    if model.cfg.family == "ssm":
+        states = cache["layers"]
+        for i, layer in enumerate(model.layers):
+            h = layer.decode(h, {k: v[i] for k, v in states.items()})
+        return model.logits(h), cache
     ck, cv = cache["layers"]
     rope = model.layers[0].attn.rope(pos[:, None])
     for i, layer in enumerate(model.layers):

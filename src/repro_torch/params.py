@@ -15,8 +15,9 @@ the port runs without JAX (as ``chip_smoke.py`` does).  The two inits do
 not give the same numbers.
 
 ``lm_from_params`` does the same for the language model: it carries the
-reference's ``Model.init_params`` tree (layers stacked) over into the
-port's ``TransformerLM``, whose own init is ``Model.init_params(seed)``.
+reference's ``Model.init_params`` tree (layers stacked; the dense or the
+ssm family, through the family's ``param_specs``) over into the port's
+``TransformerLM``, whose own init is ``Model.init_params(seed)``.
 """
 from __future__ import annotations
 

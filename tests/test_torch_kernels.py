@@ -363,6 +363,8 @@ LAUNCHERS = [
      "repro_torch.kernels.flash_attention.ops", "LAUNCH_ARGTYPES"),
     ("decode_attention.cu", "decode_attention_launch",
      "repro_torch.kernels.decode_attention.ops", "LAUNCH_ARGTYPES"),
+    ("ssd_scan.cu", "ssd_scan_launch", "repro_torch.kernels.ssd_scan.ops",
+     "LAUNCH_ARGTYPES"),
 ]
 
 

@@ -130,9 +130,9 @@ def test_registry_holds_qwen2_as_the_reference_does():
     cfg = pt_base.get_config("qwen2-0.5b")
     assert dataclasses.asdict(cfg) == \
         dataclasses.asdict(jx_get("qwen2-0.5b"))
-    assert pt_base.list_archs() == ["qwen2-0.5b"]
+    assert pt_base.list_archs() == ["mamba2-370m", "qwen2-0.5b"]
     with pytest.raises(KeyError):
-        pt_base.get_config("mamba2-370m")
+        pt_base.get_config("zamba2-7b")
     with pytest.raises(ValueError):
         dataclasses.replace(cfg, n_kv_heads=3)
 
@@ -154,7 +154,7 @@ def test_param_specs_are_the_reference_tree(reduced):
 
 
 @pytest.mark.parametrize("arch,family", [
-    ("mamba2-370m", "ssm"), ("zamba2-7b", "hybrid"),
+    ("zamba2-7b", "hybrid"),
     ("deepseek-moe-16b", "moe"), ("pixtral-12b", "vlm"),
     ("whisper-small", "encdec")])
 def test_other_families_raise_naming_the_roadmap(arch, family):
