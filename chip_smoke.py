@@ -24,9 +24,11 @@ unrefined ones), and the quality readout (MOTA with the host Hungarian
 and with every frame in one ``assign`` launch, count accuracy).  It
 checks that every kernel of each path was launched and that the output
 is right, and profiles four more runs for the device's busy share.
-Then the LM serving path (``run_lm``): ``flash_attention`` and
-``decode_attention`` against their plain versions at the serving shapes
-(f32 within 1e-5, bf16 one bf16 ulp apart) and timed beside
+Then the LM serving path (``run_lm``): ``flash_attention`` (bf16 on
+tensor cores, f32 on CUDA cores) and ``decode_attention`` (the keys
+split over a cluster of 16 blocks) against their plain versions on
+their ``check`` modules' cases (f32 within 1e-5, bf16 one bf16 ulp
+apart), their refusals, and timed at the serving shapes beside
 ``scaled_dot_product_attention``, then ``ServeEngine.generate`` at full
 qwen2-0.5b width (24 layers, bf16 activations, weights from the seed) on
 4 prompts of 61, 200, 384 and 500 tokens with 32 new tokens each: twice
@@ -63,6 +65,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -90,7 +93,7 @@ from repro_torch.core.tracker import (RecurrentTracker,  # noqa: E402
                                       _host_params, init_tracker)
 from repro_torch.core.windows import plan_chunk, plan_from_mapped  # noqa: E402
 from repro_torch.data.video_synth import make_clip  # noqa: E402
-from repro_torch.kernels import _build, bf16_steps  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.assign import (assign_batch,  # noqa: E402
                                         assign_batch_ref)
 from repro_torch.kernels.track_step import (  # noqa: E402
@@ -106,8 +109,12 @@ from repro_torch.kernels.window_gather import (  # noqa: E402
     window_gather_ref)
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention, decode_attention_ref)
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    check as decode_check)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_ref)
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    check as flash_check)
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import check as ssd_check  # noqa: E402
 from repro_torch.models import attention as lm_attention  # noqa: E402
@@ -131,13 +138,18 @@ LM_CFG = get_config("qwen2-0.5b")   # full width
 LM_PROMPT_LENS = (61, 200, 384, 500)
 LM_MAX_LEN = 1024
 LM_NEW_TOKENS = 32
-ATTN_F32_ATOL = 1e-5            # attention kernels vs plain versions, f32
 # logits of two runs that differ in rounding only (the attention kernels
 # against their plain versions, batch 1 against 4, a decode step against
 # a fresh prefill), max |d| held to this share of the logits' RMS, by
 # activation dtype; set between the rounding-only gaps and the planted
 # faults' gaps that the serve checks print (PERF.md)
 LM_LOGIT_TOL = {"bfloat16": 0.2, "float32": 1e-3}
+# the device kernels each attention wrapper may launch, by name: bf16
+# flash attention runs on tensor cores, f32 on CUDA cores
+FLASH_KERNEL_NAMES = ("flash_attention_kernel", "flash_attention_wgmma_kernel")
+DECODE_KERNEL_NAMES = ("decode_attention_kernel",)
+# SDPA's attention kernels (cuDNN's, PyTorch's flash and efficient ones)
+SDPA_KERNEL_NAMES = ("sdpa", "flash_fwd", "fmha")
 SSM_CFG = get_config("mamba2-370m")  # full width
 # the Mamba2 cell's serve checks, by the same rule: its 48 layers carry
 # bf16 rounding further (rounding-only gaps up to 0.23 of the RMS, the
@@ -176,7 +188,10 @@ def device_ms_by_kernel(fn, kernel_names, reps: int = 50):
     """Device time per call of ``fn`` of each CUDA kernel whose name
     contains one of ``kernel_names``, from the profiler's trace, with the
     L2 cache overwritten before each call so that the inputs come from
-    device memory, as the bound assumes.  {name: ms, or None if the
+    device memory, as the bound assumes: the mean time of the launches
+    the trace recorded, times the launches one call makes (the recorded
+    launches over ``reps``, rounded).  The trace may drop launches, so
+    its total over ``reps`` would read short.  {name: ms, or None if the
     profiler recorded no device time for it}."""
     from torch.profiler import ProfilerActivity, profile
     flush = torch.empty(L2_FLUSH_BYTES // 4, device=DEVICE)
@@ -196,14 +211,54 @@ def device_ms_by_kernel(fn, kernel_names, reps: int = 50):
                 if total is None:
                     total = getattr(ev, "cuda_time_total", 0.0)
                 if total:
-                    out[name] = total / reps / 1e3       # us -> ms
+                    calls = max(1, round(ev.count / reps))
+                    out[name] = total / ev.count * calls / 1e3  # us -> ms
     return out
 
 
-def device_ms(fn, kernel_name: str, reps: int = 50):
-    """Mean device time of the CUDA kernel whose name contains
-    ``kernel_name`` (``device_ms_by_kernel``), per call of ``fn``."""
-    return device_ms_by_kernel(fn, (kernel_name,), reps)[kernel_name]
+def device_ms(fn, kernel_names, reps: int = 50):
+    """Device time per call of ``fn`` of the CUDA kernels whose names
+    contain ``kernel_names`` (a name or a tuple of names, every kernel the
+    wrapper may launch), summed over those the trace holds
+    (``device_ms_by_kernel``); None if it holds none."""
+    if isinstance(kernel_names, str):
+        kernel_names = (kernel_names,)
+    found = [t for t in device_ms_by_kernel(fn, kernel_names, reps).values()
+             if t is not None]
+    return sum(found) if found else None
+
+
+def grid_blocks(trace: dict, kernel_names) -> list:
+    """Thread blocks (grid x * y * z) of each launch, in a profiler's
+    Chrome trace, of a kernel whose name contains one of
+    ``kernel_names``."""
+    return [math.prod(ev["args"]["grid"])
+            for ev in trace.get("traceEvents", [])
+            if ev.get("cat") == "kernel" and "grid" in ev.get("args", {})
+            and any(n in ev.get("name", "") for n in kernel_names)]
+
+
+def launch_blocks(fn, kernel_names, seconds: float = 0.05) -> list:
+    """The distinct ``grid_blocks`` of those kernels' launches over
+    ``seconds`` of profiled calls of ``fn``, as the card recorded them.
+    The trace can miss the launches of its first milliseconds (a
+    one-call trace late in a long process held none), so it holds many
+    calls.  [] if it holds none."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            fn()
+        torch.cuda.synchronize()
+    path = _build.BUILD_DIR / "launch_trace.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    trace = json.loads(path.read_text())
+    path.unlink()
+    return sorted(set(grid_blocks(trace, kernel_names)))
 
 
 def bound(n_bytes: float, n_ops: float, ops_per_s: float = F32_OPS_PER_S):
@@ -1140,6 +1195,8 @@ def run_video() -> list:
     kernels = [
         dict(name="proxy_plan", route="cuda", source=src + "proxy_plan.cu",
              replaces="src/repro/kernels/proxy_plan/kernel.py:67",
+             design="one block per frame, head + threshold + grid map + "
+                    "plan stats fused, f32 cuda-core",
              launches=launches["proxy_plan"], max_abs_err=pp["max_abs_err"],
              ms=pp["ms"], plain_ms=pp["plain_ms"], bound_ms=pp["bound_ms"],
              bound_by=pp["bound_by"], library_ms=None,
@@ -1147,6 +1204,7 @@ def run_video() -> list:
         dict(name="window_gather_batch", route="cuda",
              source=src + "window_gather.cu",
              replaces="src/repro/kernels/window_gather/kernel.py:76",
+             design="one block per (window, window row), 16-byte copies",
              launches=launches["window_gather_batch"],
              max_abs_err=wg["max_abs_err"], ms=wg["ms"],
              plain_ms=wg["plain_ms"], bound_ms=wg["bound_ms"],
@@ -1155,6 +1213,8 @@ def run_video() -> list:
              shape=f"{wg['n']} windows of {wg['size']} cells"),
         dict(name="track_step", route="cuda", source=src + "track_step.cu",
              replaces="src/repro/kernels/track_step/kernel.py:160",
+             design="cost, JV (one warp per stream) and GRU kernels, f32 "
+                    "cuda-core, bit-matched (-fmad=false)",
              launches=dev_launches["track_step"],
              launches_device_assign=runs["device_assign"][1]["track_step"],
              max_abs_err=t_main["max_abs_err"], ms=t_main["ms"],
@@ -1165,6 +1225,7 @@ def run_video() -> list:
              shape=f"K=1 Q={t_main['Q']}, {t_main['live_pairs']} live pairs"),
         dict(name="proxy_score", route="cuda", source=src + "proxy_score.cu",
              replaces="src/repro/kernels/proxy_score/kernel.py:40",
+             design="one warp per cell row, f32 cuda-core",
              launches=flaunch["proxy_score"],
              launches_unfused=ulaunch["proxy_score"],
              max_abs_err=ps[1]["max_abs_err"], ms=ps[1]["ms"],
@@ -1178,6 +1239,7 @@ def run_video() -> list:
         dict(name="window_gather", route="cuda",
              source=src + "window_gather.cu",
              replaces="src/repro/kernels/window_gather/kernel.py:40",
+             design="one block per (window, window row), 16-byte copies",
              launches=flaunch["window_gather"],
              max_abs_err=wg1[0]["max_abs_err"], ms=wg1[0]["ms"],
              plain_ms=wg1[0]["plain_ms"], bound_ms=wg1[0]["bound_ms"],
@@ -1188,6 +1250,7 @@ def run_video() -> list:
                                            "plain_ms", "bound_ms")}),
         dict(name="assign_batch", route="cuda", source=src + "assign.cu",
              replaces="src/repro/kernels/assign/kernel.py:118",
+             design="JV, one warp per matrix, bit-matched (-fmad=false)",
              launches=quality["streaming"]["assign_launches"],
              launches_device_tracker=dev_launches["assign_batch"],
              launches_from="metrics.mota(assign='batch')",
@@ -1205,93 +1268,52 @@ def run_video() -> list:
 # LM serving: flash_attention (prefill) and decode_attention (decode)
 # ---------------------------------------------------------------------------
 
-def kernel_agrees(got, want, label: str) -> float:
-    """The kernel against its plain version: f32 max |d| <=
-    ATTN_F32_ATOL; bf16 at most one bf16 ulp apart, except near zero,
-    where a bf16 ulp is finer than f32 rounding of O(1) sums and the f32
-    bound applies.  -> max |d|."""
-    diff = (got.float() - want.float()).abs()
-    err = float(diff.max())
-    bad = diff > ATTN_F32_ATOL
-    if got.dtype == torch.bfloat16:
-        bad &= bf16_steps(got, want) > 1
-    if bad.any():
-        at = tuple(int(i) for i in bad.nonzero()[0])
-        raise AssertionError(
-            f"{label}: kernel != plain version at {int(bad.sum())} "
-            f"elements, first {at}: {float(got[at])!r} against "
-            f"{float(want[at])!r} (max |d| {err!r})")
-    return err
-
-
 def attn_bound(n_bytes, n_ops, dtype):
     """(bound ms, by) at the dtype's peak, and the f32 CUDA-core line
-    (the attention kernels and ssd_scan compute in f32 on CUDA cores)."""
+    (the f32 attention kernels and ssd_scan compute on CUDA cores)."""
     rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
     b_ms, b_by = bound(n_bytes, n_ops, rate)
     return b_ms, b_by, bound(n_bytes, n_ops, F32_OPS_PER_S)[0]
 
 
-def rand_attn(shapes, dtype, seed):
-    gen = torch.Generator(device=DEVICE)
-    gen.manual_seed(seed)
-    return [torch.randn(s, generator=gen, device=DEVICE).to(dtype)
-            for s in shapes]
-
-
 def check_flash_attention():
-    """The prefill kernel against its plain version on the card: the
-    serving shape (B 4, S 512, Hq 14, Hkv 2, D 64, causal) in bf16 and
-    f32, the prefill's own S 500 (the ragged edge, masked in the kernel),
-    Sq 128 < Skv 512 causal, non-causal, kv_valid 500, and Sq 512 > Skv
-    256 causal, whose first 256 rows see no key (they must be 0).
+    """The prefill kernel against its plain version on the card
+    (``kernels.flash_attention.check``): the serving shape (B 4, S 512,
+    Hq 14, Hkv 2, D 64, causal) in bf16 and f32, the prefill's own S 500
+    (the ragged edge, masked in the kernel), Sq 128 < Skv 512 causal,
+    non-causal, kv_valid 500, and Sq 512 > Skv 256 causal, whose first
+    256 rows see no key (they must be 0); then the wrapper's refusals.
     Timed at S 512 (both dtypes) and S 500 (bf16, the main path's call).
     -> {case: record}."""
-    c = LM_CFG
-    Hq, Hkv, D = c.n_heads, c.n_kv_heads, c.head_dim
-    cases = [("S512 causal", torch.bfloat16, 512, 512, True, 0),
-             ("S512 causal", torch.float32, 512, 512, True, 0),
-             ("S500 causal", torch.bfloat16, 500, 500, True, 0),
-             ("S500 causal", torch.float32, 500, 500, True, 0),
-             ("Sq128 Skv512 causal", torch.bfloat16, 128, 512, True, 0),
-             ("S512 non-causal", torch.float32, 512, 512, False, 0),
-             ("S512 kv_valid 500 non-causal", torch.bfloat16, 512, 512,
-              False, 500),
-             ("Sq512 Skv256 causal (no key for rows < 256)", torch.float32,
-              512, 256, True, 0)]
     timed = {("S512 causal", torch.bfloat16), ("S512 causal", torch.float32),
              ("S500 causal", torch.bfloat16)}
+    Hq = flash_check.HQ
     rows = {}
-    for i, (name, dt, Sq, Skv, causal, kv_valid) in enumerate(cases):
-        q, k, v = rand_attn([(4, Sq, Hq, D), (4, Skv, Hkv, D),
-                             (4, Skv, Hkv, D)], dt, SEED + i)
-
-        def kern():
-            return flash_attention(q, k, v, causal=causal, kv_valid=kv_valid)
-
-        def plain():
-            return flash_attention_ref(q, k, v, causal=causal,
-                                       kv_valid=kv_valid)
-        with torch.inference_mode():
-            got, want = kern(), plain()
-        torch.cuda.synchronize()
+    for i, case in enumerate(flash_check.CASES):
+        name, dt, Sq, Skv, causal, kv_valid = case
+        q, k, v = flash_check.case_operands(case, DEVICE, SEED + i)
         label = f"flash_attention {name} {dt}"
-        err = kernel_agrees(got, want, label)
-        if Sq > Skv and causal and got[:, :Sq - Skv].any():
-            raise AssertionError(f"{label}: a row with no visible key is "
-                                 "not 0")
-        row = dict(case=name, dtype=str(dt).split(".")[-1], B=4, Sq=Sq,
-                   Skv=Skv, causal=causal, kv_valid=kv_valid,
-                   max_abs_err=err)
+        err = flash_check.check_flash(q, k, v, causal, kv_valid, label)
+        row = dict(case=name, dtype=str(dt).split(".")[-1],
+                   B=flash_check.B, Sq=Sq, Skv=Skv, causal=causal,
+                   kv_valid=kv_valid, max_abs_err=err)
         if (name, dt) in timed:
             n_valid = kv_valid or Skv
             qpos = np.arange(Sq) + (Skv - Sq)
             seen = np.clip(np.minimum(qpos + 1, n_valid) if causal
                            else np.full(Sq, n_valid), 0, None)
-            n_ops = 4 * Hq * 4 * D * int(seen.sum())
+            n_ops = q.shape[0] * Hq * 4 * flash_check.D * int(seen.sum())
             n_bytes = (2 * q.numel() + k.numel() + v.numel()) \
                 * q.element_size()
             b_ms, b_by, f32_ms = attn_bound(n_bytes, n_ops, dt)
+
+            def kern():
+                return flash_attention(q, k, v, causal=causal,
+                                       kv_valid=kv_valid)
+
+            def plain():
+                return flash_attention_ref(q, k, v, causal=causal,
+                                           kv_valid=kv_valid)
 
             def sdpa():
                 return F.scaled_dot_product_attention(
@@ -1299,77 +1321,89 @@ def check_flash_attention():
                     is_causal=causal, enable_gqa=True)
             with torch.inference_mode():
                 row.update(ms=event_ms(kern, reps=20),
-                           device_ms=device_ms(kern,
-                                               "flash_attention_kernel",
+                           device_ms=device_ms(kern, FLASH_KERNEL_NAMES,
                                                reps=20),
                            plain_ms=event_ms(plain, reps=5),
                            library_ms=event_ms(sdpa, reps=20)
                            if Sq == Skv and not kv_valid else None,
+                           library_device_ms=device_ms(
+                               sdpa, SDPA_KERNEL_NAMES, reps=20),
                            bound_ms=b_ms, bound_by=b_by,
                            bound_f32_core_ms=f32_ms, flops=n_ops,
                            bytes=n_bytes)
             log(f"{label}: max |d| {err!r}; kernel {row['ms']:.4f} ms/call "
                 f"(device, cold L2 {row['device_ms']}), plain "
-                f"{row['plain_ms']:.4f} ms, SDPA {row['library_ms']} ms, "
+                f"{row['plain_ms']:.4f} ms, SDPA {row['library_ms']} ms "
+                f"(device {row['library_device_ms']}), "
                 f"bound {b_ms:.5f} ms ({b_by}; {n_ops / 1e9:.3f} GFLOP, "
                 f"{n_bytes / 1e6:.2f} MB; f32 CUDA-core line "
                 f"{f32_ms:.5f} ms)")
         else:
             log(f"{label}: max |d| {err!r} (within tolerance)")
         rows[(name, row["dtype"])] = row
+    flash_check.check_refusals(DEVICE)
+    log("flash_attention: refuses head dim 32 in f32 and bf16")
     return rows
 
 
 def check_decode_attention():
-    """The decode kernel against its plain version on the card at B 4,
-    S 1024, Hq 14, Hkv 2, D 64 with kv_len (1, 61, S/2, S), in bf16
-    and f32, timed.  -> {dtype: record}."""
-    c = LM_CFG
-    Hq, Hkv, D, S = c.n_heads, c.n_kv_heads, c.head_dim, LM_MAX_LEN
-    lens = torch.tensor([1, 61, S // 2, S], dtype=torch.int32,
-                        device=DEVICE)
+    """The decode kernel against its plain version on the card
+    (``kernels.decode_attention.check``): B 4, S 1024, Hq 14, Hkv 2, D 64
+    with kv_len (1, 61, S/2, S) (the serving call, timed) and (0, 64, 65,
+    S - 1), and a 16-head group, in bf16 and f32; then the wrapper's
+    refusals.  The timed case also records the thread blocks of its
+    launch as the profiler's trace holds them (``launch_blocks``).
+    -> {dtype: record of the timed case}."""
     rows = {}
-    for i, dt in enumerate((torch.bfloat16, torch.float32)):
-        q, k, v = rand_attn([(4, Hq, D), (4, S, Hkv, D), (4, S, Hkv, D)],
-                            dt, SEED + 20 + i)
+    for ci, case in enumerate(decode_check.CASES):
+        name, b, S, Hq, Hkv, D, _ = case
+        for i, dt in enumerate(decode_check.DTYPES):
+            q, k, v, lens = decode_check.case_operands(
+                case, dt, DEVICE, SEED + 20 + 2 * ci + i)
+            label = f"decode_attention {name} {dt}"
+            err = decode_check.check_decode(q, k, v, lens, label)
+            if ci:
+                log(f"{label}: max |d| {err!r} (within tolerance)")
+                continue
 
-        def kern():
-            return decode_attention(q, k, v, lens)
+            def kern():
+                return decode_attention(q, k, v, lens)
 
-        def plain():
-            return decode_attention_ref(q, k, v, lens)
-        mask = (torch.arange(S, device=DEVICE)[None, :]
-                < lens[:, None])[:, None, None, :]
+            def plain():
+                return decode_attention_ref(q, k, v, lens)
+            mask = (torch.arange(S, device=DEVICE)[None, :]
+                    < lens[:, None])[:, None, None, :]
 
-        def sdpa():
-            return F.scaled_dot_product_attention(
-                q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
-                attn_mask=mask, enable_gqa=True)
-        with torch.inference_mode():
-            got, want = kern(), plain()
-        torch.cuda.synchronize()
-        label = f"decode_attention {dt}"
-        err = kernel_agrees(got, want, label)
-        keys = int(lens.sum())
-        n_bytes = (2 * q.numel() + 2 * keys * Hkv * D) * q.element_size() \
-            + lens.numel() * 4
-        n_ops = 4 * D * Hq * keys
-        b_ms, b_by, f32_ms = attn_bound(n_bytes, n_ops, dt)
-        with torch.inference_mode():
-            row = dict(dtype=str(dt).split(".")[-1], B=4, S=S,
-                       kv_len=lens.tolist(), max_abs_err=err,
-                       ms=event_ms(kern), device_ms=device_ms(
-                           kern, "decode_attention_kernel"),
-                       plain_ms=event_ms(plain, reps=20),
-                       library_ms=event_ms(sdpa), bound_ms=b_ms,
-                       bound_by=b_by, bound_f32_core_ms=f32_ms,
-                       flops=n_ops, bytes=n_bytes)
-        log(f"{label} B 4 S {S} kv_len {lens.tolist()}: max |d| {err!r}; "
-            f"kernel {row['ms']:.4f} ms/call (device, cold L2 "
-            f"{row['device_ms']}), plain {row['plain_ms']:.4f} ms, SDPA "
-            f"{row['library_ms']:.4f} ms, bound {b_ms:.6f} ms ({b_by}; "
-            f"{n_bytes / 1e6:.3f} MB)")
-        rows[row["dtype"]] = row
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+                    attn_mask=mask, enable_gqa=True)
+            keys = int(lens.sum())
+            n_bytes = (2 * q.numel() + 2 * keys * Hkv * D) \
+                * q.element_size() + lens.numel() * 4
+            n_ops = 4 * D * Hq * keys
+            b_ms, b_by, f32_ms = attn_bound(n_bytes, n_ops, dt)
+            with torch.inference_mode():
+                row = dict(dtype=str(dt).split(".")[-1], B=b, S=S,
+                           kv_len=lens.tolist(), max_abs_err=err,
+                           ms=event_ms(kern), device_ms=device_ms(
+                               kern, DECODE_KERNEL_NAMES),
+                           plain_ms=event_ms(plain, reps=20),
+                           library_ms=event_ms(sdpa), bound_ms=b_ms,
+                           bound_by=b_by, bound_f32_core_ms=f32_ms,
+                           flops=n_ops, bytes=n_bytes,
+                           blocks=launch_blocks(kern, DECODE_KERNEL_NAMES))
+            log(f"{label}: max |d| {err!r}; kernel {row['ms']:.4f} ms/call "
+                f"(device, cold L2 {row['device_ms']}; thread blocks a "
+                f"launch, from the trace: {row['blocks']}), plain "
+                f"{row['plain_ms']:.4f} ms, SDPA {row['library_ms']:.4f} "
+                f"ms, bound {b_ms:.6f} ms ({b_by}; {n_bytes / 1e6:.3f} MB)")
+            rows[row["dtype"]] = row
+    decode_check.check_refusals(DEVICE)
+    log("decode_attention: refuses a 17-head group and head dim 32")
+    err = decode_check.check_graph_replay(DEVICE, SEED + 30)
+    log(f"decode_attention: captured in a CUDA graph and replayed after "
+        f"kv_len changed in place, max |d| {err!r} (within tolerance)")
     return rows
 
 
@@ -1679,8 +1713,9 @@ def serve_busy(eng, prompts, activities=None) -> dict:
         if ev.device_type == DeviceType.CUDA:
             per_name[ev.name] = per_name.get(ev.name, 0.0) \
                 + ev.time_range.elapsed_us()
-        elif ev.name in ("cudaLaunchKernel", "cuLaunchKernelEx",
-                         "cuLaunchKernel"):
+        elif ev.name.startswith(("cudaLaunchKernel", "cuLaunchKernel")):
+            # cudaLaunchKernel, cudaLaunchKernelExC (a cluster launch),
+            # cuLaunchKernel, cuLaunchKernelEx
             launches += 1
     busy = sum(per_name.values()) / 1e6
     top = sorted(((us, k) for k, us in per_name.items()), reverse=True)
@@ -1823,23 +1858,32 @@ def run_lm() -> list:
     d_main = da["bfloat16"]
     keys = ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
             "bound_f32_core_ms", "max_abs_err")
+    f_keys = keys + ("library_device_ms",)
     return [
         dict(name="flash_attention", route="cuda",
              source=src + "flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:98",
+             design="bf16: wgmma m64n64k16 fed by TMA (producer warp, "
+                    "2-stage mbarrier ring, 128B swizzle), P split into "
+                    "bf16 hi + lo; f32: cuda-core, one query row a thread",
              launches=served_run["launches"]["flash_attention"],
              max_abs_err=max(r["max_abs_err"] for r in fa.values()),
              ms=f_main["ms"], plain_ms=f_main["plain_ms"],
              bound_ms=f_main["bound_ms"], bound_by=f_main["bound_by"],
              library_ms=f_main["library_ms"], device_ms=f_main["device_ms"],
+             library_device_ms=f_main["library_device_ms"],
              bound_f32_core_ms=f_main["bound_f32_core_ms"],
              shape="B 4, S 500, Hq 14, Hkv 2, D 64, causal, bf16",
-             s512={dt: {k: fa[("S512 causal", dt)][k] for k in keys}
+             s512={dt: {k: fa[("S512 causal", dt)][k] for k in f_keys}
                    for dt in ("bfloat16", "float32")}),
         dict(name="decode_attention", route="cuda",
              source=src + "decode_attention.cu",
              replaces="src/repro/kernels/decode_attention/kernel.py:76",
+             design="keys split over a 16-block cluster per (KV head, "
+                    "row), partial softmaxes merged through distributed "
+                    "shared memory, one launch, f32 cuda-core",
              launches=served_run["launches"]["decode_attention"],
+             blocks=d_main["blocks"],
              max_abs_err=max(r["max_abs_err"] for r in da.values()),
              ms=d_main["ms"], plain_ms=d_main["plain_ms"],
              bound_ms=d_main["bound_ms"], bound_by=d_main["bound_by"],
@@ -1921,6 +1965,8 @@ def run_ssm() -> list:
         name="ssd_scan", route="cuda",
         source="src/repro_torch/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_scan/kernel.py:85",
+        design="one block per (head, row) walking the chunks, f32 state "
+               "in shared memory, f32 cuda-core",
         launches=served_run["launches"]["ssd_scan"],
         max_abs_err=max(r["max_abs_err"] for r in sc.values()),
         ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],

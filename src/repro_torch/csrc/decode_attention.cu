@@ -12,21 +12,36 @@
 // Bound on an H100: decode is memory-bound.  Each call must read the
 // valid prefix of K and V once (kv_len * Hkv * D * 2 elements a row:
 // 512 KB a row at kv_len 1024, bf16) and does 4 * D flops per (q head,
-// key), about one flop a byte, far below the card's ridge.  The design:
-// one block of 128 threads per (KV head, batch row) streams the prefix
-// in tiles of 64 keys through shared memory (f32, K rows padded by one
-// word so that the per-key dot products read without bank conflicts):
-// scores for the G x 64 (head, key) pairs, one warp per head for the
-// tile's max, exp and sum, then the G x D accumulator (a few entries a
-// thread, in registers) is rescaled and updated.  Tiles wholly past
-// kv_len are never loaded.  At B 4, Hkv 2 that is 8 blocks on 132 SMs:
-// splitting the keys over more blocks (with a second pass to merge
-// their partial softmaxes) is the later fix.
+// key), about one flop a byte, far below the card's ridge.  At the
+// serving shape (B 4, Hkv 2) one block per (KV head, batch row) would
+// leave 124 of 132 SMs idle and walk up to 16 key tiles in series, so the
+// keys are split over a thread block cluster of kSplit = 16 blocks per
+// (KV head, batch row): 128 blocks, one launch, no scratch in device
+// memory, no atomics.  Every block reads kv_len[b] on the device and
+// takes the 64-key tiles rank, rank + kSplit, ... of the valid prefix
+// (at kv_len 1024 one tile each); the grid depends on B and Hkv only, so
+// a captured CUDA graph replays for any lengths.  A block streams its
+// tiles through shared memory (f32, K rows padded by one word so that
+// the per-key dot products read without bank conflicts): scores for the
+// G x 64 (head, key) pairs, one warp per head for the tile's max, exp
+// and sum, then the G x D accumulator (a few entries a thread, in
+// registers) is rescaled and updated.  Its partial softmax (m, l, and
+// the unnormalised accumulator) then stays in its own shared memory;
+// after a cluster barrier every block merges a 1/kSplit slice of the
+// G x D outputs from all kSplit partials through distributed shared
+// memory (f32, rescaled by exp(m_r - max_r m_r)) and writes it, and a
+// second cluster barrier keeps each block's shared memory alive until
+// the others have read it.  A block with no tile (kv_len 1 or 61 leaves
+// most of the cluster idle) still passes both barriers, with m = -FLT_MAX,
+// l = 0 and a zero accumulator, which weigh exactly 0 in the merge; a row
+// with kv_len 0 merges to l = 0 and writes 0.
 //
 // Numerics: dot products are fmaf chains in d order and the softmax is
-// online by tiles of 64, where the plain version takes one softmax over
-// the whole row: outputs differ from it by f32 rounding, in bf16 by at
-// most one bf16 ulp.  expf is the correctly rounded one (no fast math).
+// online by tiles of 64 and merged across blocks, where the plain version
+// takes one softmax over the whole row: outputs differ from it by f32
+// rounding, in bf16 by at most one bf16 ulp.  expf is the correctly
+// rounded one (no fast math).
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -39,6 +54,9 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kBK = 64;    // keys per tile: two per lane in the softmax
 constexpr int kMaxG = 16;  // query heads per KV head
+constexpr int kSplit = 16;  // blocks of a cluster, each a share of the keys
+
+namespace cg = cooperative_groups;
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
@@ -55,8 +73,11 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
   __shared__ __align__(16) float Vs[kBK][D];
   __shared__ float P[kMaxG][kBK];
   __shared__ float m_row[kMaxG], l_row[kMaxG], a_row[kMaxG];
-  const int hk = blockIdx.x;
-  const int b = blockIdx.y;
+  __shared__ float part[kMaxG * D];  // this block's unnormalised acc
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int hk = blockIdx.y;
+  const int b = blockIdx.z;
   const int G = Hq / Hkv;
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -73,7 +94,7 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
 #pragma unroll
   for (int i = 0; i < kOut; ++i) acc[i] = 0.f;
 
-  for (int k0 = 0; k0 < n; k0 += kBK) {
+  for (int k0 = rank * kBK; k0 < n; k0 += kSplit * kBK) {
     const int nk = min(kBK, n - k0);
     __syncthreads();  // q staged / the previous tile consumed
     for (int c = tid; c < kBK * (D / V); c += kThreads) {
@@ -138,27 +159,65 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
       }
     }
   }
-  __syncthreads();  // l_row final (and initialised when n == 0)
-  T* op = o + ((size_t)b * Hq + (size_t)hk * G) * D;
+  __syncthreads();  // l_row final (and initialised without a tile)
 #pragma unroll
   for (int i = 0; i < kOut; ++i) {
     const int idx = tid + i * kThreads;
-    if (idx < G * D) {
-      const float l = l_row[idx / D];
-      op[idx] = attn::from_f32<T>(acc[i] / (l == 0.f ? 1.f : l));
-    }
+    if (idx < G * D) part[idx] = acc[i];
   }
+  cluster.sync();  // every block's partial is in its shared memory
+
+  // this block's slice of the G x D outputs, merged over the cluster
+  const int per = (G * D + kSplit - 1) / kSplit;
+  const int idx = rank * per + tid;
+  if (tid < per && idx < G * D) {
+    const int g = idx / D;
+    float mr[kSplit];
+    float mx = attn::kNegInf;
+#pragma unroll
+    for (int r = 0; r < kSplit; ++r) {
+      mr[r] = *cluster.map_shared_rank(&m_row[g], r);
+      mx = fmaxf(mx, mr[r]);
+    }
+    float l = 0.f, a = 0.f;
+#pragma unroll
+    for (int r = 0; r < kSplit; ++r) {
+      const float w = expf(mr[r] - mx);  // 0 for a block without a tile
+      l = fmaf(*cluster.map_shared_rank(&l_row[g], r), w, l);
+      a = fmaf(*cluster.map_shared_rank(&part[idx], r), w, a);
+    }
+    T* op = o + ((size_t)b * Hq + (size_t)hk * G) * D;
+    op[idx] = attn::from_f32<T>(a / (l == 0.f ? 1.f : l));
+  }
+  cluster.sync();  // the others' shared memory is read
 }
 
 template <typename T, int D>
-void launch(const void* q, const void* k, const void* v,
-            const int32_t* kv_len, void* o, int B, int S, int Hq, int Hkv,
-            float scale, cudaStream_t stream) {
-  const dim3 grid(Hkv, B);
-  decode_attention_kernel<T, D><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
+int launch(const void* q, const void* k, const void* v, const int32_t* kv_len,
+           void* o, int B, int S, int Hq, int Hkv, float scale,
+           cudaStream_t stream) {
+  const auto kernel = decode_attention_kernel<T, D>;
+  // 16 blocks a cluster is over the portable 8
+  static const cudaError_t set = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (set != cudaSuccess) return (int)set;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kSplit, Hkv, B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kSplit;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), kv_len, static_cast<T*>(o), S, Hq, Hkv,
       scale);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -167,8 +226,7 @@ int launch_d(const void* q, const void* k, const void* v,
              int D, float scale, cudaStream_t stream) {
   // built for the head dim of the configs served on the card (64)
   if (D != 64) return (int)cudaErrorInvalidValue;
-  launch<T, 64>(q, k, v, kv_len, o, B, S, Hq, Hkv, scale, stream);
-  return (int)cudaGetLastError();
+  return launch<T, 64>(q, k, v, kv_len, o, B, S, Hq, Hkv, scale, stream);
 }
 
 }  // namespace

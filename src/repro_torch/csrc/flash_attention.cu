@@ -15,33 +15,82 @@
 // Hkv 2, D 64, causal, bf16) reads 4.6 MB and writes 3.6 MB (2.4 us at
 // 3.35 TB/s) and needs 4 * D flops for each of the 4 * 14 * 125,250
 // visible (query, key) pairs, 1.8 GFLOP: 1.8 us at the 989 TFLOP/s bf16
-// tensor-core peak, 27 us at the 67 TFLOP/s f32 CUDA-core peak.  So it
-// is bound by bytes on paper and by operations on the cores it uses:
-// this first kernel does not use tensor cores, it runs on the CUDA
-// cores in f32.  The design: the Pallas kernel's sequential KV grid
-// axis becomes a loop inside the block; one block of
-// 64 threads per (64-row query tile, q head, batch row), each thread
-// holding one query row (pre-scaled), its running max m, denominator l
-// and D-wide accumulator in registers; K/V tiles of 64 keys are staged
-// through shared memory as f32 (every thread reads the same key: a
-// broadcast); the softmax is rescaled once per 16 keys; tiles wholly
-// above the causal diagonal or past n_valid are never loaded.  Masked
-// keys contribute exactly 0 (the reference's exp(NEG_INF - m) with a
-// real m), so a row with no visible key keeps l = 0 and writes 0.
-// Tensor cores (wgmma), TMA and a warp-specialised pipeline are later
-// work.
+// tensor-core peak, 27 us at the 67 TFLOP/s f32 CUDA-core peak.  So bf16
+// is bound by bytes on paper, and only tensor cores come near that line.
 //
-// Numerics: the dot products are fmaf chains in d order, and the
-// softmax is rescaled every 16 keys where the plain version rescales
-// every 128: outputs differ from it by f32 rounding (about 1e-7 at the
-// serving shape), and in bf16 by at most one bf16 ulp.  expf is the
-// correctly rounded one (no fast math).
+// Two kernels, one per dtype; flash_attention_launch dispatches on bf16
+// and a bf16 call never runs the f32 kernel.
+//
+// bf16: flash_attention_wgmma_kernel, on tensor cores.  One block per
+// (64-row query tile, q head, batch row): one consumer warpgroup owns the
+// tile (64 is wgmma's M) and one producer warp feeds it.  The producer
+// loads the Q tile once and K/V tiles of 64 keys into a ring of kStages
+// stages in dynamic shared memory with TMA (4-D tensor maps over
+// (d, head, position, batch), built by the launcher and kept for the
+// next call on the same addresses, passed as __grid_constant__
+// parameters; 128-byte swizzle, the layout wgmma's
+// descriptors read), signalling "full" mbarriers; the consumers release
+// each stage through an "empty" mbarrier.  At the prefill's shape 396 of
+// the 448 blocks are resident at once (116 registers and 42 KB a block:
+// 3 an SM), so the time is mostly the longest blocks' chains of tiles:
+// blocks are numbered so that the last query tiles, which see the most
+// keys, start first.  Along a chain the softmax's scalar work, not the
+// tensor cores, sets the pace: hence ex2.approx and no mask inside the
+// diagonal.  Two consumer warpgroups splitting a tile's keys, 3 or 4
+// stages, no producer warp, and 96 registers (4 blocks an SM, with
+// spills) were tried: slower or no faster (PERF.md).  Per tile the
+// consumers run
+// S = Q K^T as 4 wgmma m64n64k16 (bf16 in, f32 accumulators, both from
+// shared memory), scale S by sm_scale * log2(e) in f32 after the product,
+// mask, take the online softmax in registers (ex2.approx, each row's max
+// and sum over the 4 lanes that hold it), rescale O, then O += P V with P
+// from registers (the accumulator's layout is the A operand's) and V
+// from shared memory (MN-major).  Tiles wholly above the causal diagonal
+// or past n_valid are never loaded, tiles wholly below it and inside
+// n_valid skip the mask; TMA fills rows past Sq or Skv (the
+// ragged edge, S 500 = 7 x 64 + 52) with zeros, and the stores are masked
+// by row.  A masked key's p is set to exactly 0 (never exp(NEG_INF - m)
+// with a real m), so a row with no visible key keeps l = 0 and writes 0.
+//
+// Numerics (bf16): Q K^T products of bf16 are exact in f32, only the
+// order of the sums differs from the plain version.  P is not rounded to
+// bf16 once, as FlashAttention-2 does (an error of about 2^-9 / sqrt(n)
+// per output over n diffuse keys, more than one bf16 ulp of an output
+// near 1e-5): it is split into P_hi = bf16(P) and P_lo = bf16(P - P_hi),
+// and both products go into the same f32 accumulator, so P carries about
+// 16 bits (half again the tensor work, negligible at 1.8 GFLOP).
+// ex2.approx adds a relative error of about 2^-22 to each p, and the
+// output is acc times 1 / l.  The outputs then differ from the plain
+// version by f32 rounding, rounded to bf16: at most one bf16 ulp.
+//
+// f32: flash_attention_kernel, the first port's kernel, unchanged: f32
+// FMAs on the CUDA cores (TF32 tensor cores keep 10 mantissa bits and
+// cannot meet the 1e-5 check).  One block of 64 threads per (64-row query
+// tile, q head, batch row), each thread holding one query row
+// (pre-scaled), its running max m, denominator l and D-wide accumulator
+// in registers; K/V tiles of 64 keys are staged through shared memory as
+// f32 (every thread reads the same key: a broadcast); the softmax is
+// rescaled once per 16 keys.  The dot products are fmaf chains in d
+// order, and the softmax is rescaled every 16 keys where the plain
+// version rescales every 128: outputs differ from it by f32 rounding
+// (about 1e-7 at the serving shape).  expf is the correctly rounded one
+// (no fast math).
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <mutex>
 
 #include "attention.cuh"
+#include "hopper.cuh"
 
 namespace {
+
+// ---------------------------------------------------------------------------
+// f32: CUDA cores
+// ---------------------------------------------------------------------------
+
 
 constexpr int kBQ = 64;   // query rows per block, one per thread
 constexpr int kBK = 64;   // keys per shared-memory tile
@@ -160,26 +209,343 @@ __global__ void __launch_bounds__(kBQ) flash_attention_kernel(
   for (int d = 0; d < D; ++d) op[d] = attn::from_f32<T>(acc[d] / den);
 }
 
-template <typename T, int D>
-void launch(const void* q, const void* k, const void* v, void* o, int B,
-            int Sq, int Skv, int Hq, int Hkv, int n_valid, int causal,
-            float scale, cudaStream_t stream) {
-  const dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B);
-  flash_attention_kernel<T, D><<<grid, kBQ, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Sq, Skv, Hq, Hkv,
-      n_valid, causal, scale);
+
+// ---------------------------------------------------------------------------
+// bf16: tensor cores (wgmma), TMA, a producer warp
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+constexpr int kBM = 64;                       // query rows a block
+constexpr int kBN = 64;                       // keys a tile
+constexpr int kStages = 2;                    // K/V ring depth
+constexpr int kConsumers = 128;               // one warpgroup
+constexpr int kThreads = kConsumers + 32;     // and one producer warp
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x on the special-function unit (relative error about 2^-22, far
+// below a bf16 ulp; results under 2^-126 flush to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-template <typename T>
-int launch_d(const void* q, const void* k, const void* v, void* o, int B,
-             int Sq, int Skv, int Hq, int Hkv, int D, int n_valid,
-             int causal, float scale, cudaStream_t stream) {
+template <int D>
+struct Smem {
+  static constexpr int kTile = kBN * D * 2;   // bytes of a 64-row bf16 tile
+  static constexpr int kBytes = 1024          // alignment slack
+                                + (1 + 2 * kStages) * kTile
+                                + (1 + 2 * kStages) * 8;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads) flash_attention_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tm_q,  // (B, Sq, Hq, D) bf16
+    const __grid_constant__ CUtensorMap tm_k,  // (B, Skv, Hkv, D)
+    const __grid_constant__ CUtensorMap tm_v,
+    __nv_bfloat16* __restrict__ o,             // (B, Sq, Hq, D)
+    int Sq, int Skv, int Hq, int Hkv, int n_valid, int causal,
+    float scale_log2) {
+  static_assert(D % 16 == 0 && D <= 128, "wgmma takes K in steps of 16");
+  static_assert(D == 64, "one 128-byte swizzle row holds 64 bf16: other "
+                "head dims need more panels");
+  constexpr int kTile = Smem<D>::kTile;
+  extern __shared__ unsigned char smem_raw[];
+  // the 128-byte swizzle repeats every 1024 bytes: tiles start on one
+  const uint32_t pad = (1024u - (hopper::smem_u32(smem_raw) & 1023u)) & 1023u;
+  unsigned char* base = smem_raw + pad;
+  unsigned char* sQ = base;
+  unsigned char* sK = base + kTile;                  // kStages tiles
+  unsigned char* sV = base + (1 + kStages) * kTile;  // kStages tiles
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + (1 + 2 * kStages)
+                                               * kTile);
+  uint64_t* q_full = bars;
+  uint64_t* full = bars + 1;                         // kStages
+  uint64_t* empty = bars + 1 + kStages;              // kStages
+
+  // blocks start in the order of their linear index: the heavy causal
+  // tiles (the last rows, which see the most keys) of every head first
+  const int qt = gridDim.z - 1 - blockIdx.z;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int hk = h / (Hq / Hkv);
+  const int q0 = qt * kBM;
+  const int shift = Skv - Sq;
+  // keys any row of this tile can see
+  int kend = n_valid;
+  if (causal) kend = min(kend, min(q0 + kBM, Sq) + shift);
+  const int n_tiles = kend > 0 ? (kend + kBN - 1) / kBN : 0;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 4);  // a lane of each consuming warp
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // producer: one lane issues every copy
+    if (threadIdx.x == kConsumers) {
+      hopper::mbar_expect_tx(q_full, kTile);
+      hopper::tma_load_4d(sQ, &tm_q, q_full, 0, h, q0, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kStages;
+        if (t >= kStages)  // the consumers are done with its last use
+          hopper::mbar_wait(&empty[s], ((t / kStages) - 1) & 1);
+        hopper::mbar_expect_tx(&full[s], 2 * kTile);
+        hopper::tma_load_4d(sK + s * kTile, &tm_k, &full[s], 0, hk,
+                            t * kBN, b);
+        hopper::tma_load_4d(sV + s * kTile, &tm_v, &full[s], 0, hk,
+                            t * kBN, b);
+      }
+    }
+    return;
+  }
+
+  // consumers: thread (warp w, lane l) holds rows r0 and r0 + 8 of the
+  // tile, columns 8 j + 2 (l % 4) + {0, 1} (hopper.cuh)
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = warp * 16 + (lane >> 2);
+  const int c0 = 2 * (lane & 3);
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  float m[2] = {attn::kNegInf, attn::kNegInf};
+  float l[2] = {0.f, 0.f};   // this lane's share of each row's sum
+
+  // K-major descriptors (Q, K): rows of 128 bytes, 8-row atoms 1024
+  // apart; a 16-wide K step is 32 bytes (+2).  V is MN-major: a 16-key
+  // step is 16 rows of 128 bytes (+128); its leading offset (between
+  // 64-column atoms) is unused at N = D = 64.
+  const uint64_t dq = hopper::desc_sw128(sQ, 16, 1024);
+  hopper::mbar_wait(q_full, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % kStages;
+    hopper::mbar_wait(&full[s], (t / kStages) & 1);
+    const uint64_t dk = hopper::desc_sw128(sK + s * kTile, 16, 1024);
+    const uint64_t dv = hopper::desc_sw128(sV + s * kTile, 1024, 1024);
+
+    float sc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+    hopper::fence_regs(sc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      hopper::wgmma_m64n64k16_ss(sc, dq + 2 * kk, dk + 2 * kk, kk);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait_all();
+    hopper::fence_regs(sc);
+
+    // mask (bit i of vis: sc[i] is visible; every key of a tile below
+    // the diagonal and inside n_valid is) and scale; each row's max
+    const int k0 = t * kBN;
+    uint32_t vis = 0xffffffffu;
+    if (k0 + kBN > n_valid || (causal && k0 + kBN - 1 > q0 + shift)) {
+      vis = 0;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int key = k0 + (i >> 2) * 8 + c0 + (i & 1);
+        const int qpos = q0 + r0 + 8 * ((i >> 1) & 1) + shift;
+        if (key < n_valid && (!causal || key <= qpos)) vis |= 1u << i;
+      }
+    }
+    float mx[2] = {attn::kNegInf, attn::kNegInf};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1;
+      sc[i] *= scale_log2;
+      if ((vis >> i) & 1u) mx[r] = fmaxf(mx[r], sc[i]);
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      // no visible key yet: m = m_new = kNegInf, alpha = 1 (acc, l are 0)
+      alpha[r] = ex2(m[r] - m_new);
+      m[r] = m_new;
+    }
+    float ps[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1;
+      const float p = (vis >> i) & 1u ? ex2(sc[i] - m[r]) : 0.f;
+      sc[i] = p;
+      ps[r] += p;
+      acc[i] *= alpha[r];
+    }
+    l[0] = l[0] * alpha[0] + ps[0];
+    l[1] = l[1] * alpha[1] + ps[1];
+
+    // P = P_hi + P_lo, both bf16, packed in pairs as the A operand
+    uint32_t ph[16], pl[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(sc[2 * i],
+                                                      sc[2 * i + 1]);
+      const float2 hf = __bfloat1622float2(hi);
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(sc[2 * i] - hf.x,
+                                                      sc[2 * i + 1] - hf.y);
+      ph[i] = *reinterpret_cast<const uint32_t*>(&hi);
+      pl[i] = *reinterpret_cast<const uint32_t*>(&lo);
+    }
+    hopper::fence_regs(acc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk)
+      hopper::wgmma_m64n64k16_rs_tb(acc, ph[4 * kk], ph[4 * kk + 1],
+                                    ph[4 * kk + 2], ph[4 * kk + 3],
+                                    dv + 128 * kk);
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk)
+      hopper::wgmma_m64n64k16_rs_tb(acc, pl[4 * kk], pl[4 * kk + 1],
+                                    pl[4 * kk + 2], pl[4 * kk + 3],
+                                    dv + 128 * kk);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait_all();
+    hopper::fence_regs(acc);
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[s]);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float lt = l[r] + __shfl_xor_sync(0xffffffffu, l[r], 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    const float inv = lt == 0.f ? 0.f : 1.f / lt;  // no visible key: 0
+    const int row = q0 + r0 + 8 * r;
+    if (row < Sq) {
+      __nv_bfloat16* op = o + (((size_t)b * Sq + row) * Hq + h) * D;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(op + 8 * j + c0) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * r] * inv,
+                                  acc[4 * j + 2 * r + 1] * inv);
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime (no
+// link against libcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a contiguous (B, S, H, D) bf16 tensor as a 4-D map (d, head, position,
+// batch), boxes of 64 positions of one head
+bool tensor_map(CUtensorMap* map, const void* ptr, int B, int S, int H,
+                int D) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
+                                 (cuuint64_t)S * H * D * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)D, 1, (cuuint32_t)kBN, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The last kMaps tensor maps, keyed by everything they encode: a map
+// depends only on the address and the shape, so a call on the same
+// tensors (or on new ones the caching allocator put at the same
+// addresses) skips the driver's encode, microseconds of the host time a
+// call costs.  Calls may come from several threads (ctypes drops the
+// GIL): a mutex guards the entries.
+bool cached_tensor_map(CUtensorMap* map, const void* ptr, int B, int S,
+                       int H, int D) {
+  constexpr int kMaps = 16;
+  struct Entry {
+    const void* ptr;
+    int B, S, H, D;
+    CUtensorMap map;
+  };
+  static Entry cache[kMaps] = {};
+  static int next = 0;
+  static std::mutex mu;
+  std::lock_guard<std::mutex> lock(mu);
+  for (const Entry& e : cache)
+    if (e.ptr == ptr && e.B == B && e.S == S && e.H == H && e.D == D) {
+      *map = e.map;
+      return true;
+    }
+  if (!tensor_map(map, ptr, B, S, H, D)) return false;
+  cache[next] = Entry{ptr, B, S, H, D, *map};
+  next = (next + 1) % kMaps;
+  return true;
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, int B,
+           int Sq, int Skv, int Hq, int Hkv, int n_valid, int causal,
+           float scale, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  if (!cached_tensor_map(&tq, q, B, Sq, Hq, D)
+      || !cached_tensor_map(&tk, k, B, Skv, Hkv, D)
+      || !cached_tensor_map(&tv, v, B, Skv, Hkv, D))
+    return (int)cudaErrorInvalidValue;
+  constexpr int smem = Smem<D>::kBytes;
+  static_assert(smem <= 48 * 1024, "more dynamic shared memory needs "
+                "cudaFuncAttributeMaxDynamicSharedMemorySize");
+  const dim3 grid(Hq, B, (Sq + kBM - 1) / kBM);
+  flash_attention_wgmma_kernel<D><<<grid, kThreads, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), Sq, Skv, Hq, Hkv, n_valid,
+      causal, scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
+int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
+               int Sq, int Skv, int Hq, int Hkv, int D, int n_valid,
+               int causal, float scale, cudaStream_t stream) {
   // built for the head dim of the configs served on the card (64)
   if (D != 64) return (int)cudaErrorInvalidValue;
-  launch<T, 64>(q, k, v, o, B, Sq, Skv, Hq, Hkv, n_valid, causal, scale,
-                stream);
+  const dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B);
+  flash_attention_kernel<float, 64><<<grid, kBQ, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), Sq, Skv, Hq, Hkv,
+      n_valid, causal, scale);
   return (int)cudaGetLastError();
+}
+
+int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
+                int Sq, int Skv, int Hq, int Hkv, int D, int n_valid,
+                int causal, float scale, cudaStream_t stream) {
+  if (D != 64) return (int)cudaErrorInvalidValue;
+  return tc::launch<64>(q, k, v, o, B, Sq, Skv, Hq, Hkv, n_valid, causal,
+                        scale, stream);
 }
 
 }  // namespace
@@ -194,10 +560,10 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   const int n_valid = kv_valid > 0 && kv_valid < Skv ? kv_valid : Skv;
   cudaStream_t s = (cudaStream_t)stream;
   if (B == 0 || Sq == 0 || Hq == 0) return 0;
-  return bf16 ? launch_d<__nv_bfloat16>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D,
-                                         n_valid, causal, sm_scale, s)
-              : launch_d<float>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, n_valid,
-                                causal, sm_scale, s);
+  return bf16 ? launch_bf16(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, n_valid,
+                            causal, sm_scale, s)
+              : launch_f32(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, n_valid,
+                           causal, sm_scale, s);
 }
 
 extern "C" const char* kernel_error_string(int err) {

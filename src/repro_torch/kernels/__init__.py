@@ -32,13 +32,15 @@ Kernels (sources in ``repro_torch/csrc/``, built by ``_build``):
   track_step    — one fused recurrent-tracker step for K streams: match
                   MLP, cost, JV and both GRU batches (replaces
                   ``kernels/track_step``'s ``track_step_pallas``).
-  flash_attention — causal or full GQA attention with an online softmax,
-                  f32 or bf16 in, one query row a thread (replaces
+  flash_attention — causal or full GQA attention with an online softmax:
+                  bf16 on tensor cores (wgmma fed by TMA), f32 one query
+                  row a thread on the CUDA cores (replaces
                   ``kernels/flash_attention``'s ``flash_attention_pallas``;
                   the LM prefill).
   decode_attention — one query token per row against a KV cache masked
-                  by kv_len, a KV head's query heads packed together
-                  (replaces ``kernels/decode_attention``'s
+                  by kv_len, a KV head's query heads packed together,
+                  the keys split over a cluster of 16 blocks (replaces
+                  ``kernels/decode_attention``'s
                   ``decode_attention_pallas``; every LM decode step).
   ssd_scan      — Mamba2's SSD chunked scan, one block per (head, row)
                   walking the chunks with the f32 state in shared memory
@@ -46,9 +48,11 @@ Kernels (sources in ``repro_torch/csrc/``, built by ``_build``):
                   the Mamba2 prefill).
 
 The attention kernels and ssd_scan share ``csrc/attention.cuh`` (f32 /
-bf16 loads and rounding).  ``ssd_scan.check`` holds that kernel against
-its plain version on the card (``chip_smoke.py`` and
-``tests/test_torch_cuda.py`` share it).
+bf16 loads and rounding); ``csrc/hopper.cuh`` holds the PTX of TMA,
+mbarriers and wgmma.  ``ssd_scan.check``, ``flash_attention.check`` and
+``decode_attention.check`` hold those kernels against their plain
+versions on the card (``chip_smoke.py`` and ``tests/test_torch_cuda.py``
+share them).
 
 assign and track_step give the host tracker's f32 bits: their math goes
 through ``csrc/fastmath.cuh`` and they are built with -fmad=false
@@ -56,6 +60,7 @@ through ``csrc/fastmath.cuh`` and they are built with -fmad=false
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -64,20 +69,37 @@ import torch
 def on_cuda(t: torch.Tensor) -> bool:
     """The dispatch rule: True for a CUDA tensor (launch the kernel),
     False for a CPU tensor (plain version).  Any other device raises."""
-    if t.device.type == "cuda":
+    if t.is_cuda:
         return True
     if t.device.type == "cpu":
         return False
     raise ValueError(f"no kernel or plain version for device {t.device}")
 
 
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+# The helpers below run on every launch (24 a decode step), whose host
+# time can exceed the kernel's: they read device indices and pass
+# pointers and the stream as plain ints (ctypes converts them through
+# each launcher's c_void_p argtypes), building no torch.device or ctypes
+# object.
+
+def ptr(t: torch.Tensor) -> int:
+    return t.data_ptr()
 
 
-def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
-    """PyTorch's current stream on the tensor's device."""
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+def stream_of(t: torch.Tensor) -> int:
+    """PyTorch's current stream on the tensor's device, as the raw
+    ``cudaStream_t`` (read on every call: a stream context or a CUDA
+    graph's capture changes it)."""
+    return torch.cuda.current_stream(t.get_device()).cuda_stream
+
+
+def device_guard(t: torch.Tensor):
+    """The context a launch on ``t``'s device runs in: that device made
+    current, or nothing to do when it already is."""
+    idx = t.get_device()
+    if idx == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(idx)
 
 
 def bf16_steps(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:

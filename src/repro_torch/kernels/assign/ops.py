@@ -22,7 +22,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import check_launch, on_cuda, ptr, stream_of
+from repro_torch.kernels import (check_launch, device_guard, on_cuda, ptr,
+                                  stream_of)
 from repro_torch.kernels._build import library
 
 MAX_N = 2048        # the solve's scratch stays under 48 KB of shared memory
@@ -124,7 +125,7 @@ def assign_batch(costs: torch.Tensor, eff_n: Optional[int] = None
         return out
     err = torch.zeros(1, dtype=torch.int32, device=costs.device)
     lib, fn = _launcher()
-    with torch.cuda.device(costs.device):
+    with device_guard(costs):
         rc = fn(ptr(costs), ptr(out), ptr(err), K, N, eff,
                 stream_of(costs))
     check_launch(rc, lib, "assign_batch")

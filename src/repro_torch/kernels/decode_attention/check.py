@@ -1,0 +1,101 @@
+"""The ``decode_attention`` kernel against its plain version on the card:
+the cases, the operands, the comparison and the refusals, one copy for
+``chip_smoke.py`` and ``tests/test_torch_cuda.py``.  The tolerance is
+``flash_attention.check.kernel_agrees``'s: f32 within 1e-5, bf16 one
+bf16 ulp apart (the f32 bound near zero).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.decode_attention.ops import (decode_attention,
+                                                      decode_attention_ref)
+from repro_torch.kernels.flash_attention.check import (kernel_agrees,
+                                                       operands)
+
+# (name, B, S, Hq, Hkv, D, kv_len): the serving call at qwen2-0.5b's heads
+# and max_len 1024 with kv_len (1, 61, S/2, S); an empty row and lengths
+# on either side of a 64-key tile; and a full 16-head group (MAX_GROUP)
+CASES = (("B4 S1024 kv_len (1, 61, 512, 1024)", 4, 1024, 14, 2, 64,
+          (1, 61, 512, 1024)),
+         ("B4 S1024 kv_len (0, 64, 65, 1023)", 4, 1024, 14, 2, 64,
+          (0, 64, 65, 1023)),
+         ("G16 B2 S256 kv_len (200, 256)", 2, 256, 32, 2, 64, (200, 256)))
+DTYPES = (torch.bfloat16, torch.float32)
+
+
+def case_operands(case, dtype: torch.dtype, device, seed: int) -> list:
+    """q (B, Hq, D), k and v (B, S, Hkv, D) in ``dtype`` and kv_len (B,)
+    int32, all on ``device``."""
+    _, b, S, Hq, Hkv, D, lens = case
+    q, k, v = operands([(b, Hq, D), (b, S, Hkv, D), (b, S, Hkv, D)], dtype,
+                       device, seed)
+    return [q, k, v, torch.tensor(lens, dtype=torch.int32, device=device)]
+
+
+def check_decode(q, k, v, kv_len, label: str) -> float:
+    """One launch of the kernel on CUDA tensors against the plain version
+    on the same inputs; a row with kv_len 0 must be exactly 0.  Raises
+    AssertionError otherwise.  -> max |d|."""
+    before = decode_attention.launches
+    with torch.inference_mode():
+        got = decode_attention(q, k, v, kv_len)
+        want = decode_attention_ref(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    if decode_attention.launches != before + 1 or got.dtype != q.dtype \
+            or got.shape != q.shape:
+        raise AssertionError(f"{label}: {decode_attention.launches - before}"
+                             f" launches, out {tuple(got.shape)} "
+                             f"{got.dtype}")
+    err = kernel_agrees(got, want, label)
+    if got[kv_len <= 0].any():
+        raise AssertionError(f"{label}: a row with kv_len 0 is not 0")
+    return err
+
+
+def check_case(case, dtype: torch.dtype, device, seed: int) -> float:
+    """``check_decode`` on one of ``CASES``.  -> max |d|."""
+    return check_decode(*case_operands(case, dtype, device, seed),
+                        f"decode_attention {case[0]} {dtype}")
+
+
+def check_refusals(device) -> None:
+    """The wrapper refuses, before any launch, 17 query heads a KV head
+    (over ``MAX_GROUP``) and a head dim it has no build for (32)."""
+    for (Hq, Hkv, D), what in (((17, 1, 64), "per KV head"),
+                               ((2, 1, 32), "head dim")):
+        q, k, v = operands([(1, Hq, D), (1, 64, Hkv, D), (1, 64, Hkv, D)],
+                           torch.float32, device, 0)
+        lens = torch.full((1,), 64, dtype=torch.int32, device=device)
+        before = decode_attention.launches
+        try:
+            decode_attention(q, k, v, lens)
+        except NotImplementedError as e:
+            if what not in str(e) or decode_attention.launches != before:
+                raise AssertionError(f"decode_attention refusal: {e}") from e
+        else:
+            raise AssertionError(f"decode_attention took Hq {Hq}, Hkv "
+                                 f"{Hkv}, D {D}")
+
+
+def check_graph_replay(device, seed: int) -> float:
+    """The kernel captured once in a CUDA graph at the serving case's
+    shapes, then replayed after kv_len changed in place (it stays on the
+    card, read by the kernel: the capture holds no copy of its values),
+    agrees with the plain version on the new lengths.  -> max |d|."""
+    q, k, v, kv_len = case_operands(CASES[0], torch.bfloat16, device, seed)
+    errs = []
+    with torch.inference_mode():
+        decode_attention(q, k, v, kv_len)   # built and set up before it
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = decode_attention(q, k, v, kv_len)
+        for lens in ((1, 61, 512, 1024), (0, 700, 3, 64)):
+            kv_len.copy_(torch.tensor(lens, dtype=torch.int32))
+            graph.replay()
+            torch.cuda.synchronize()
+            errs.append(kernel_agrees(
+                out, decode_attention_ref(q, k, v, kv_len),
+                f"decode_attention graph replay, kv_len {lens}"))
+    return max(errs)

@@ -7,13 +7,17 @@ keys at or past kv_len[b].  The G = Hq / Hkv query heads of a KV head
 share its keys (q head h reads KV head h // G).  Every decode step of
 the model (``models.attention``) calls it once a layer.
 
-On a CUDA tensor it launches ``csrc/decode_attention.cu`` (kv_len stays
-on the card: no synchronisation); on a CPU tensor it runs
-``decode_attention_ref``, the plain PyTorch version of the JAX package's
-``_jnp_fallback`` (``kernels/decode_attention/ops.py``): one masked
-softmax over the cache.  As in ``flash_attention``, masked keys weigh
-exactly 0, so a row with kv_len 0 gives 0 (the Pallas kernel's answer;
-``_jnp_fallback`` averages V over the whole cache there).
+On a CUDA tensor it launches ``csrc/decode_attention.cu``, one launch a
+call: a cluster of 16 blocks per (KV head, batch row) splits the keys
+and merges its partial softmaxes in distributed shared memory (kv_len
+stays on the card, read by the kernel; the grid depends on B and Hkv
+only: no synchronisation, and a CUDA graph can capture it).  On a CPU
+tensor it runs ``decode_attention_ref``, the plain PyTorch version of
+the JAX package's ``_jnp_fallback`` (``kernels/decode_attention/ops.py``):
+one masked softmax over the cache.  As in ``flash_attention``, masked
+keys weigh exactly 0, so a row with kv_len 0 gives 0 (the Pallas
+kernel's answer; ``_jnp_fallback`` averages V over the whole cache
+there).
 """
 from __future__ import annotations
 
@@ -25,7 +29,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.kernels import check_launch, on_cuda, ptr, stream_of
+from repro_torch.kernels import (check_launch, device_guard, on_cuda, ptr,
+                                  stream_of)
 from repro_torch.kernels._build import library
 from repro_torch.kernels.flash_attention.ops import _check_operands
 
@@ -98,7 +103,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if out.numel() == 0:
         return out
     lib, fn = _launcher()
-    with torch.cuda.device(q.device):
+    with device_guard(q):
         err = fn(ptr(q), ptr(k), ptr(v), ptr(kv_len), ptr(out), B, S, Hq,
                  Hkv, D, float(sm_scale), int(q.dtype == torch.bfloat16),
                  stream_of(q))

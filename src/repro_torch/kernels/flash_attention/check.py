@@ -1,0 +1,124 @@
+"""The ``flash_attention`` kernel against its plain version on the card:
+the cases, the operands, the comparison and the refusals, one copy for
+``chip_smoke.py`` and ``tests/test_torch_cuda.py``.
+
+Tolerance (``kernel_agrees``, which ``decode_attention.check`` shares):
+f32 max |d| at most ``ATTN_F32_ATOL``; bf16 at most one bf16 value
+apart from the plain version's bf16 result, except near zero, where a
+bf16 ulp is finer than f32 rounding of O(1) sums and the f32 bound
+applies.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import bf16_steps
+from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                     flash_attention_ref)
+
+ATTN_F32_ATOL = 1e-5
+B = 4
+# qwen2-0.5b's heads: 14 query heads over 2 KV heads of 64
+HQ, HKV, D = 14, 2, 64
+# (name, dtype, Sq, Skv, causal, kv_valid): the serving shape (S 512) in
+# both dtypes, the prefill's own S 500 (the ragged edge, masked in the
+# kernel), Sq 128 < Skv 512 causal (queries at the end of the keys),
+# non-causal, kv_valid 500, and Sq 512 > Skv 256 causal, whose first 256
+# rows see no key (they must be 0)
+CASES = (("S512 causal", torch.bfloat16, 512, 512, True, 0),
+         ("S512 causal", torch.float32, 512, 512, True, 0),
+         ("S500 causal", torch.bfloat16, 500, 500, True, 0),
+         ("S500 causal", torch.float32, 500, 500, True, 0),
+         ("Sq128 Skv512 causal", torch.bfloat16, 128, 512, True, 0),
+         ("S512 non-causal", torch.float32, 512, 512, False, 0),
+         ("S512 kv_valid 500 non-causal", torch.bfloat16, 512, 512, False,
+          500),
+         ("Sq512 Skv256 causal (no key for rows < 256)", torch.float32,
+          512, 256, True, 0))
+
+
+def case_id(case) -> str:
+    return f"{case[0]} {str(case[1]).split('.')[-1]}"
+
+
+def operands(shapes, dtype: torch.dtype, device, seed: int) -> list:
+    """N(0, 1) tensors of ``shapes`` in ``dtype``, drawn from ``seed``
+    on ``device``."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return [torch.randn(s, generator=gen, device=device).to(dtype)
+            for s in shapes]
+
+
+def case_operands(case, device, seed: int) -> list:
+    """q (B, Sq, HQ, D), k and v (B, Skv, HKV, D) of one of ``CASES``."""
+    _, dtype, Sq, Skv, _, _ = case
+    return operands([(B, Sq, HQ, D), (B, Skv, HKV, D), (B, Skv, HKV, D)],
+                    dtype, device, seed)
+
+
+def kernel_agrees(got: torch.Tensor, want: torch.Tensor,
+                  label: str) -> float:
+    """The kernel against its plain version: f32 max |d| <=
+    ``ATTN_F32_ATOL``; bf16 at most one bf16 ulp apart, except near zero,
+    where the f32 bound applies.  Raises AssertionError outside it.
+    -> max |d|."""
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    bad = diff > ATTN_F32_ATOL
+    if got.dtype == torch.bfloat16:
+        bad &= bf16_steps(got, want) > 1
+    if bad.any():
+        at = tuple(int(i) for i in bad.nonzero()[0])
+        raise AssertionError(
+            f"{label}: kernel != plain version at {int(bad.sum())} "
+            f"elements, first {at}: {float(got[at])!r} against "
+            f"{float(want[at])!r} (max |d| {err!r})")
+    return err
+
+
+def check_flash(q, k, v, causal: bool, kv_valid: int, label: str) -> float:
+    """One launch of the kernel on CUDA tensors against the plain version
+    on the same inputs; rows that see no key must be exactly 0.  Raises
+    AssertionError otherwise.  -> max |d|."""
+    before = flash_attention.launches
+    with torch.inference_mode():
+        got = flash_attention(q, k, v, causal=causal, kv_valid=kv_valid)
+        want = flash_attention_ref(q, k, v, causal=causal,
+                                   kv_valid=kv_valid)
+    torch.cuda.synchronize()
+    if flash_attention.launches != before + 1 or got.dtype != q.dtype \
+            or got.shape != q.shape:
+        raise AssertionError(f"{label}: {flash_attention.launches - before}"
+                             f" launches, out {tuple(got.shape)} "
+                             f"{got.dtype}")
+    err = kernel_agrees(got, want, label)
+    Sq, Skv = q.shape[1], k.shape[1]
+    if causal and Sq > Skv and got[:, :Sq - Skv].any():
+        raise AssertionError(f"{label}: a row with no visible key is not 0")
+    return err
+
+
+def check_case(case, device, seed: int) -> float:
+    """``check_flash`` on one of ``CASES``.  -> max |d|."""
+    name, _, _, _, causal, kv_valid = case
+    q, k, v = case_operands(case, device, seed)
+    return check_flash(q, k, v, causal, kv_valid,
+                       f"flash_attention {case_id(case)}")
+
+
+def check_refusals(device) -> None:
+    """The wrapper refuses, before any launch, a head dim it has no
+    build for (32), in both dtypes."""
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = operands([(1, 64, 2, 32), (1, 64, 1, 32),
+                            (1, 64, 1, 32)], dtype, device, 0)
+        before = flash_attention.launches
+        try:
+            flash_attention(q, k, v)
+        except NotImplementedError as e:
+            if "head dim" not in str(e) or flash_attention.launches != before:
+                raise AssertionError(f"flash_attention refusal: {e}") from e
+        else:
+            raise AssertionError(f"flash_attention took head dim 32 in "
+                                 f"{dtype}")

@@ -8,7 +8,9 @@ by default.  Queries sit at the end of the key axis when Sq < Skv;
 0.  The model's prefill (``models.attention``) calls it once a layer.
 
 On a CUDA tensor it launches ``csrc/flash_attention.cu``, which masks
-the ragged edge itself (no padded copy); on a CPU tensor it runs
+the ragged edge itself (no padded copy): bf16 on tensor cores (wgmma,
+TMA), f32 on the CUDA cores; a bf16 call that the tensor-core kernel
+refuses raises, it never runs the f32 kernel.  On a CPU tensor it runs
 ``flash_attention_ref``, the plain PyTorch version: the JAX package's
 memory-bounded ``_chunked_jnp`` (``kernels/flash_attention/ops.py``), a
 loop over key blocks of 128 with the same online softmax.  One
@@ -28,7 +30,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.kernels import check_launch, on_cuda, ptr, stream_of
+from repro_torch.kernels import (check_launch, device_guard, on_cuda, ptr,
+                                  stream_of)
 from repro_torch.kernels._build import library
 
 NEG_INF = float(np.finfo(np.float32).min)
@@ -93,8 +96,9 @@ def _check_operands(name, q, k, v):
     """The CUDA kernels' contract: q, k, v contiguous, of one dtype (f32
     or bf16), on q's device, 16-byte aligned, with a supported head
     dim."""
+    idx, dtype = q.get_device(), q.dtype
     for arg, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != q.device or t.dtype != q.dtype \
+        if t.get_device() != idx or t.dtype != dtype \
                 or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name}: {arg} must be a contiguous, 16-byte "
                              f"aligned {q.dtype} tensor on {q.device}, got "
@@ -132,7 +136,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if out.numel() == 0:
         return out
     lib, fn = _launcher()
-    with torch.cuda.device(q.device):
+    with device_guard(q):
         err = fn(ptr(q), ptr(k), ptr(v), ptr(out), B, Sq, Skv, Hq, Hkv, D,
                  int(kv_valid), int(bool(causal)), float(sm_scale),
                  int(q.dtype == torch.bfloat16), stream_of(q))

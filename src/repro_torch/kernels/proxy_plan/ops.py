@@ -20,7 +20,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels import check_launch, on_cuda, ptr, stream_of
+from repro_torch.kernels import (check_launch, device_guard, on_cuda, ptr,
+                                  stream_of)
 from repro_torch.kernels._build import library
 
 STATS_W = 8     # [count, ymin, ymax, xmin, xmax, 0, 0, 0]
@@ -190,7 +191,7 @@ def proxy_plan(feat: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"proxy_plan: grid ({hp}, {wp}) -> ({hc}, {wc}) "
                          "needs more shared memory than one block has")
     sy, sx = _spans_on(feat.device, hc, hp, wc, wp)
-    with torch.cuda.device(feat.device):
+    with device_guard(feat):
         err = fn(ptr(feat), ptr(w), ptr(b), float(threshold), ptr(sy),
                  ptr(sx), ptr(grid), ptr(stats), B, hp, wp, C, hc, wc,
                  stream_of(feat))

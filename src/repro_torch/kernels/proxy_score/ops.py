@@ -19,7 +19,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels import check_launch, on_cuda, ptr, stream_of
+from repro_torch.kernels import (check_launch, device_guard, on_cuda, ptr,
+                                  stream_of)
 from repro_torch.kernels._build import library
 
 FLIP_ULPS = 8   # band around the threshold where a cell may flip
@@ -121,7 +122,7 @@ def proxy_score(feat: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if rows == 0:
         return scores, pos
     lib, fn = _launcher()
-    with torch.cuda.device(feat.device):
+    with device_guard(feat):
         err = fn(ptr(feat), ptr(w), ptr(b), float(threshold), ptr(scores),
                  ptr(pos), rows, C, stream_of(feat))
     check_launch(err, lib, "proxy_score")

@@ -39,7 +39,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import check_launch, on_cuda, ptr, stream_of
+from repro_torch.kernels import (check_launch, device_guard, on_cuda, ptr,
+                                  stream_of)
 from repro_torch.kernels._build import library
 
 MAX_CHUNK = 128                  # Q the kernel holds in shared memory
@@ -191,7 +192,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     fin = torch.empty((b, H, P, N), dtype=torch.float32, device=x.device)
     if b and H:
         lib, fn = _launcher()
-        with torch.cuda.device(x.device):
+        with device_guard(x):
             err = fn(ptr(x), ptr(dt), ptr(A), ptr(B), ptr(C), ptr(D),
                      ptr(y), ptr(fin), b, x.shape[1], H, P, N, Q,
                      int(x.dtype == torch.bfloat16), stream_of(x))

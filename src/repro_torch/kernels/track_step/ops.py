@@ -36,7 +36,8 @@ import torch
 from repro_torch import Device, resolve_device
 from repro_torch.core import fastmath as fm
 from repro_torch.core.hungarian import FORBIDDEN_DEVICE, assoc_side
-from repro_torch.kernels import check_launch, on_cuda, ptr, stream_of
+from repro_torch.kernels import (check_launch, device_guard, on_cuda, ptr,
+                                  stream_of)
 from repro_torch.kernels._build import library
 from repro_torch.kernels.assign.ops import solve_one_ref
 
@@ -207,7 +208,7 @@ def track_step(h_r, tbox_r, alive_r, te_gap_r, te_match, x, dbox, dvalid,
         return matched, h_upd, h_new
     err = torch.zeros(1, dtype=torch.int32, device=dev)
     lib, fn = _launcher()
-    with torch.cuda.device(dev):
+    with device_guard(h_r):
         rc = fn(*(ptr(t) for t in operands), ptr(cost), ptr(cols),
                 ptr(matched), ptr(h_upd), ptr(h_new), ptr(err), K, Q, H, e,
                 M, int(table.shape[0]), stream_of(h_r))

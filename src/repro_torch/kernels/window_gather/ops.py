@@ -28,7 +28,8 @@ from typing import Union
 import numpy as np
 import torch
 
-from repro_torch.kernels import check_launch, on_cuda, ptr, stream_of
+from repro_torch.kernels import (check_launch, device_guard, on_cuda, ptr,
+                                  stream_of)
 from repro_torch.kernels._build import library
 
 _MAX_WINDOWS = 65535        # the launch's grid.y limit
@@ -126,7 +127,7 @@ def window_gather_batch(frames: torch.Tensor,
         return out
     vec4 = _vec4(frames, out, W, C, win_w, cell)
     lib, fn = _launcher("window_gather_batch_launch", LAUNCH_ARGTYPES)
-    with torch.cuda.device(frames.device):
+    with device_guard(frames):
         err = fn(ptr(frames), ptr(table), ptr(out), n, B, H, W, C, win_h,
                  win_w, cell, vec4, stream_of(frames))
     check_launch(err, lib, "window_gather_batch")
@@ -166,7 +167,7 @@ def window_gather(frame: torch.Tensor,
         return out
     vec4 = _vec4(frame, out, W, C, win_w, cell)
     lib, fn = _launcher("window_gather_launch", LAUNCH_ARGTYPES_SINGLE)
-    with torch.cuda.device(frame.device):
+    with device_guard(frame):
         err = fn(ptr(frame), ptr(origins), ptr(out), n, H, W, C, win_h,
                  win_w, cell, vec4, stream_of(frame))
     check_launch(err, lib, "window_gather")

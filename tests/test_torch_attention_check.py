@@ -1,0 +1,160 @@
+"""The attention kernels' on-card comparison (``repro_torch.kernels.
+flash_attention.check.kernel_agrees``, shared by ``decode_attention.
+check``), on the CPU: what it lets through and what it stops.  f32 within
+1e-5; bf16 at most one bf16 ulp apart, the f32 bound near zero."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import bf16_steps  # noqa: E402
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    check as decode_check)
+from repro_torch.kernels.decode_attention.ops import MAX_GROUP  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    check as flash_check)
+from repro_torch.kernels.flash_attention.check import (  # noqa: E402
+    ATTN_F32_ATOL, kernel_agrees)
+
+
+def _bf16(values):
+    return torch.tensor(values, dtype=torch.float32).to(torch.bfloat16)
+
+
+def _step(t: torch.Tensor, n: int) -> torch.Tensor:
+    """``t`` (bf16) moved ``n`` bf16 values up, through the bit pattern
+    (positive values only)."""
+    assert bool((t > 0).all())
+    return (t.view(torch.int16) + n).view(torch.bfloat16)
+
+
+@pytest.mark.parametrize("x", [1.0, 0.37, 2.5, 1e-3])
+def test_bf16_one_ulp_apart_passes(x):
+    want = _bf16([x, 0.5, 0.25])
+    got = want.clone()
+    got[0] = _step(want[:1], 1)[0]
+    assert int(bf16_steps(got, want).max()) == 1
+    err = kernel_agrees(got, want, "one ulp")
+    assert err == pytest.approx(float(got[0].float() - want[0].float()))
+
+
+@pytest.mark.parametrize("x", [1.0, 0.37, 2.5, 1e-3])
+def test_bf16_two_ulps_apart_fails(x):
+    want = _bf16([0.5, x, 0.25])
+    got = want.clone()
+    got[1] = _step(want[1:2], 2)[0]
+    assert float((got.float() - want.float()).abs().max()) > ATTN_F32_ATOL
+    with pytest.raises(AssertionError, match=r"at 1 elements, first \(1,\)"):
+        kernel_agrees(got, want, "two ulps")
+
+
+@pytest.mark.parametrize("shape", [(4, 3, 2, 8), (2, 14, 64)])
+def test_f32_planted_error_fails(shape):
+    rng = np.random.default_rng(0)
+    want = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    got = want.clone()
+    at = tuple(int(rng.integers(0, n)) for n in shape)
+    got[at] += 1e-4
+    with pytest.raises(AssertionError, match="kernel != plain version at 1 "
+                       f"elements, first {at}".replace("(", r"\(")
+                       .replace(")", r"\)")):
+        kernel_agrees(got, want, "planted")
+
+
+def test_f32_rounding_level_difference_passes():
+    rng = np.random.default_rng(1)
+    want = torch.from_numpy(rng.standard_normal((4, 64)).astype(np.float32))
+    got = want + 5e-6 * torch.from_numpy(
+        rng.choice([-1.0, 1.0], (4, 64)).astype(np.float32))
+    assert kernel_agrees(got, want, "rounding") <= ATTN_F32_ATOL
+
+
+@pytest.mark.parametrize("want_v,got_v,ok", [
+    (1e-6, 5e-6, True),       # many bf16 ulps apart, 4e-6 absolute
+    (-2e-6, 3e-6, True),      # opposite signs near zero, 5e-6 absolute
+    (0.0, 9e-6, True),
+    (1e-6, 3e-5, False),      # many ulps and over the absolute bound
+    (0.0, -2e-5, False),
+])
+def test_bf16_near_zero_takes_the_absolute_bound(want_v, got_v, ok):
+    want = _bf16([0.5, want_v])
+    got = _bf16([0.5, got_v])
+    assert int(bf16_steps(got, want)[1]) > 1
+    if ok:
+        assert kernel_agrees(got, want, "near zero") <= ATTN_F32_ATOL
+    else:
+        with pytest.raises(AssertionError, match="near zero"):
+            kernel_agrees(got, want, "near zero")
+
+
+def test_flash_cases_cover_the_kernel_contract():
+    cases = flash_check.CASES
+    assert len(cases) == 8
+    assert {c[1] for c in cases} == {torch.float32, torch.bfloat16}
+    # the prefill's call, a ragged edge, queries at the end of the keys,
+    # kv_valid masking, non-causal, rows with no key
+    assert ("S500 causal", torch.bfloat16, 500, 500, True, 0) in cases
+    assert any(c[2] < c[3] and c[4] for c in cases)
+    assert any(c[5] for c in cases) and any(not c[4] for c in cases)
+    assert any(c[2] > c[3] and c[4] for c in cases)
+    assert len({flash_check.case_id(c) for c in cases}) == len(cases)
+
+
+def test_flash_case_operands_are_seeded_and_shaped():
+    case = flash_check.CASES[4]
+    q, k, v = flash_check.case_operands(case, "cpu", seed=3)
+    assert q.shape == (flash_check.B, case[2], flash_check.HQ, flash_check.D)
+    assert k.shape == v.shape == (flash_check.B, case[3], flash_check.HKV,
+                                  flash_check.D)
+    assert q.dtype == case[1]
+    again = flash_check.case_operands(case, "cpu", seed=3)
+    assert all(torch.equal(a, b) for a, b in zip((q, k, v), again))
+
+
+def test_decode_cases_cover_the_kernel_contract():
+    cases = decode_check.CASES
+    serving = cases[0]
+    S = serving[2]
+    assert serving[1:6] == (4, 1024, 14, 2, 64)
+    assert serving[6] == (1, 61, S // 2, S)
+    lens = [n for c in cases for n in c[6]]
+    assert 0 in lens                          # an empty row gives 0
+    assert any(c[3] // c[4] == MAX_GROUP for c in cases)
+    for _, b, S, Hq, Hkv, D, kv_len in cases:
+        assert len(kv_len) == b and max(kv_len) <= S and Hq % Hkv == 0
+    q, k, v, kv = decode_check.case_operands(cases[1], torch.bfloat16, "cpu",
+                                             seed=0)
+    assert q.shape == (4, 14, 64) and k.shape == v.shape == (4, 1024, 2, 64)
+    assert kv.dtype == torch.int32 and kv.tolist() == list(cases[1][6])
+
+
+def test_grid_blocks_counts_each_matching_launch_of_a_trace(monkeypatch):
+    """``chip_smoke.grid_blocks``, which reports the decode kernel's
+    thread blocks from the profiler's trace: grid x * y * z of each
+    launch of a kernel whose name matches, and nothing else."""
+    import importlib.util
+    import sys
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    monkeypatch.setitem(sys.modules, "chip_smoke", smoke)  # its dataclasses
+    spec.loader.exec_module(smoke)
+    trace = {"traceEvents": [
+        {"ph": "X", "cat": "kernel", "args": {"grid": [16, 2, 4],
+                                              "block": [128, 1, 1]},
+         "name": "void (anonymous namespace)::decode_attention_kernel"
+                 "<__nv_bfloat16, 64>(...)"},
+        {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernelExC",
+         "args": {}},
+        {"ph": "X", "cat": "kernel", "name": "elementwise_kernel",
+         "args": {"grid": [100, 1, 1]}},
+        {"ph": "X", "cat": "cpu_op", "name": "decode_attention_kernel",
+         "args": {}},
+        {"ph": "X", "cat": "kernel", "name": "decode_attention_kernel<float>",
+         "args": {"grid": [1, 2, 4]}},
+    ]}
+    names = ("decode_attention_kernel",)
+    assert smoke.grid_blocks(trace, names) == [128, 8]
+    assert smoke.grid_blocks(trace, ("ssd_scan_kernel",)) == []
+    assert smoke.grid_blocks({}, names) == []

@@ -1,20 +1,27 @@
-"""The port's ``ssd_scan`` CUDA kernel against its plain version, on the
-card.  Marked ``cuda``: each test skips without a CUDA device (a kernel
-has no CPU mode; the CPU tests hold the plain version to the JAX
-package).  This file imports torch only, so that it runs on a machine
-with a card and no JAX:
+"""The port's CUDA kernels against their plain versions, on the card:
+``ssd_scan``, ``flash_attention`` and ``decode_attention``.  Marked
+``cuda``: each test skips without a CUDA device (a kernel has no CPU
+mode; the CPU tests hold the plain versions to the JAX package).  This
+file imports torch only, so that it runs on a machine with a card and no
+JAX:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-The shapes, operands and tolerance are ``repro_torch.kernels.ssd_scan.
-check``'s, the same ``chip_smoke.py`` holds the kernel to: f32 y and
-final state within 1e-4 of max |plain|; bf16 y within 2 bf16 ulps of the
-plain version's f32 result on the same (bf16-valued) inputs.
+The shapes, operands and tolerances are the kernels' ``check`` modules'
+(``repro_torch.kernels.<name>.check``), the same ``chip_smoke.py`` holds
+the kernels to: ``ssd_scan``'s f32 y and final state within 1e-4 of max
+|plain|, bf16 y within 2 bf16 ulps of the plain version's f32 result on
+the same (bf16-valued) inputs; the attention kernels' f32 within 1e-5,
+bf16 one bf16 ulp apart (the f32 bound near zero).
 """
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    check as decode_check)
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    check as flash_check)
 from repro_torch.kernels.ssd_scan import check  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -39,3 +46,30 @@ def test_ssd_scan_kernel_matches_plain_version(dev, case, dtype):
 
 def test_ssd_scan_kernel_refuses_what_it_was_not_built_for(dev):
     check.check_refusals(dev)
+
+
+@pytest.mark.parametrize("case", flash_check.CASES,
+                         ids=[flash_check.case_id(c)
+                              for c in flash_check.CASES])
+def test_flash_attention_kernel_matches_plain_version(dev, case):
+    flash_check.check_case(case, dev, seed=0)
+
+
+def test_flash_attention_kernel_refuses_what_it_was_not_built_for(dev):
+    flash_check.check_refusals(dev)
+
+
+@pytest.mark.parametrize("dtype", decode_check.DTYPES,
+                         ids=["bfloat16", "float32"])
+@pytest.mark.parametrize("case", decode_check.CASES,
+                         ids=[c[0] for c in decode_check.CASES])
+def test_decode_attention_kernel_matches_plain_version(dev, case, dtype):
+    decode_check.check_case(case, dtype, dev, seed=0)
+
+
+def test_decode_attention_kernel_refuses_what_it_was_not_built_for(dev):
+    decode_check.check_refusals(dev)
+
+
+def test_decode_attention_kernel_replays_in_a_cuda_graph(dev):
+    decode_check.check_graph_replay(dev, seed=0)
