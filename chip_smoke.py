@@ -8,7 +8,9 @@ Run from the root of a checkout, with one card:
 It builds every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc``
 per source, started together), holds each kernel against its plain
 PyTorch version on the card at the main path's shapes and times both
-(``assign`` and ``track_step`` bit for bit), then runs the main path —
+(``assign`` and ``track_step`` bit for bit over their ``check`` modules'
+cases, with the JV's steps counted on the host and ns a step), then
+runs the main path —
 one 64-frame clip through the streaming ``ClipExecutor`` at the
 full-width MultiScope configuration (detector ssd-deep at 960x544, proxy
 416x256, recurrent tracker, chunks of 16) with untrained weights drawn
@@ -90,14 +92,17 @@ from repro_torch.core.executor import (ClipExecutor,  # noqa: E402
 from repro_torch.core.metrics import clip_count_accuracy, mota  # noqa: E402
 from repro_torch.core.refine import TrackRefiner  # noqa: E402
 from repro_torch.core.tracker import (RecurrentTracker,  # noqa: E402
-                                      _host_params, init_tracker)
+                                      init_tracker)
 from repro_torch.core.windows import plan_chunk, plan_from_mapped  # noqa: E402
 from repro_torch.data.video_synth import make_clip  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.assign import (assign_batch,  # noqa: E402
                                         assign_batch_ref)
+from repro_torch.kernels.assign import check as assign_check  # noqa: E402
 from repro_torch.kernels.track_step import (  # noqa: E402
-    LOG1P_TABLE_2D, pack_params, track_step, track_step_ref)
+    LOG1P_TABLE_2D, track_step, track_step_ref)
+from repro_torch.kernels.track_step import (  # noqa: E402
+    check as track_check)
 from repro_torch.kernels.proxy_plan import (proxy_plan,  # noqa: E402
                                             proxy_plan_ref)
 from repro_torch.kernels.proxy_plan.ops import (FLIP_ULPS,  # noqa: E402
@@ -148,6 +153,8 @@ LM_LOGIT_TOL = {"bfloat16": 0.2, "float32": 1e-3}
 # flash attention runs on tensor cores, f32 on CUDA cores
 FLASH_KERNEL_NAMES = ("flash_attention_kernel", "flash_attention_wgmma_kernel")
 DECODE_KERNEL_NAMES = ("decode_attention_kernel",)
+# the JV kernels of assign_batch (by the matrix size)
+ASSIGN_KERNEL_NAMES = ("assign_kernel", "assign_large_kernel")
 # SDPA's attention kernels (cuDNN's, PyTorch's flash and efficient ones)
 SDPA_KERNEL_NAMES = ("sdpa", "flash_fwd", "fmha")
 SSM_CFG = get_config("mamba2-370m")  # full width
@@ -570,13 +577,6 @@ def check_proxy_score(feat, w, b, thr):
     return rows
 
 
-def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
-    """Exact equality of two outputs, f32 compared as bit patterns."""
-    if a.dtype == torch.float32:
-        a, b = a.view(torch.int32), b.view(torch.int32)
-    return a.shape == b.shape and torch.equal(a.cpu(), b.cpu())
-
-
 def host_ms(fn, reps: int = 2) -> float:
     """Per-call host time of ``fn`` (a plain version on a CPU copy)."""
     fn()
@@ -587,93 +587,74 @@ def host_ms(fn, reps: int = 2) -> float:
 
 
 def check_assign():
-    """The JV kernel against its plain version, bit for bit: costs
-    quantised to 1/64 (so ties are frequent), K = 4 at N = 8, 64, 128,
-    and one case restricted to the leading eff_n square.  The plain
-    version is a Python loop of tiny tensor ops, so it runs on a CPU copy
-    of the inputs."""
-    rng = np.random.default_rng(SEED)
-    rows = []
-    for N, eff in ((8, None), (64, None), (128, None), (128, 40)):
-        costs = torch.from_numpy(
-            rng.integers(0, 256, (4, N, N)).astype(np.float32) / 64.0)
-        dev = costs.to(DEVICE)
-        got = assign_batch(dev, eff)
-        torch.cuda.synchronize()
-        want = assign_batch_ref(costs, eff)
-        if not bits_equal(got, want):
-            raise AssertionError(f"assign_batch N={N} eff_n={eff}: kernel "
-                                 "!= plain version")
+    """The JV kernel against its plain version over the cases of
+    ``repro_torch.kernels.assign.check`` (the card-only tests' own), bit
+    for bit: K = 4 at N = 8, 64, 128 and 128 restricted to eff_n 40 on
+    costs quantised to 1/64, all-equal rows, minima 32 columns apart,
+    zeros of either sign, N = 256 (rows past shared memory) and N = 2048
+    (the large-matrix instance); then
+    the batches that must raise (NaN costs, a row of +inf: a step with no
+    finite free column).  Each case timed, with the JV's steps (counted
+    on the host) and ns a step.  -> {case: record}."""
+    rows = {}
+    for case in assign_check.CASES:
+        name, K, N, eff, _ = case
+        row = assign_check.check_case(case, DEVICE)
+        host = assign_check.case_costs(case)
+        dev = host.to(DEVICE)
+        big = N > 1024
+
+        def kern():
+            return assign_batch(dev, eff)
         # (K, N) int32 out, (K, N, N) f32 in: the solve is sequential, so
         # the bound is bytes only and far below what a solve can reach
-        b_ms, b_by = bound(costs.numel() * 4 + got.numel() * 4, 0)
-        row = dict(N=N, eff_n=eff, max_abs_err=0.0,
-                   ms=event_ms(lambda: assign_batch(dev, eff)),
-                   device_ms=device_ms(lambda: assign_batch(dev, eff),
-                                       "assign_kernel"),
-                   plain_ms=host_ms(lambda: assign_batch_ref(costs, eff),
+        b_ms, b_by = bound(host.numel() * 4 + K * N * 4, 0)
+        dev_ms = device_ms(kern, ASSIGN_KERNEL_NAMES, reps=2 if big else 50)
+        steps = max(row["steps"])
+        row.update(ms=event_ms(kern, reps=2 if big else 50,
+                               warmup=1 if big else 5),
+                   device_ms=dev_ms,
+                   plain_ms=host_ms(lambda: assign_batch_ref(host, eff),
                                     reps=1),
-                   bound_ms=b_ms, bound_by=b_by)
-        log(f"assign_batch (4, {N}, {N}) eff_n={eff}: exact against the "
-            f"plain version on a CPU copy; kernel {row['ms']:.4f} ms/call "
-            f"(device, cold L2 {row['device_ms']}), plain (CPU) "
-            f"{row['plain_ms']:.2f} ms, bound {b_ms:.6f} ms ({b_by}: "
-            "matrices read once, columns written once)")
-        rows.append(row)
-    # non-finite costs never end the search: the step cap must raise
-    # (through the kernel's error flag), not hang the card
-    try:
-        assign_batch(torch.full((2, 8, 8), float("nan"), device=DEVICE))
-    except RuntimeError as exc:
-        log(f"assign_batch on NaN costs raises, as it must: {exc}")
-    else:
-        raise AssertionError("assign_batch answered for NaN costs")
+                   bound_ms=b_ms, bound_by=b_by,
+                   ns_per_step=None if dev_ms is None
+                   else dev_ms * 1e6 / steps)
+        log(f"assign_batch {name} ({K}, {N}, {N}) eff_n={eff}: exact "
+            f"against the plain version on a CPU copy; kernel "
+            f"{row['ms']:.4f} ms/call (device, cold L2 {dev_ms}), plain "
+            f"(CPU) {row['plain_ms']:.2f} ms, bound {b_ms:.6f} ms ({b_by}: "
+            f"matrices read once, columns written once); JV steps "
+            f"{row['steps']} (hops {row['hops']}), {row['ns_per_step']} ns "
+            "a step of the longest solve")
+        rows[name] = row
+    for case in assign_check.RAISE_CASES:
+        msg = assign_check.check_raises(case, DEVICE)
+        log(f"assign_batch on {case[0]} costs raises, as the plain version "
+            f"does ({msg}), and with err= sets the flag instead")
     return rows
 
 
-def track_step_operands(rng, K, Q, heads, live=None):
-    """Seeded operands in the slot layout: live tracks and valid
-    detections as prefixes (``live`` = (T, n) per stream, else random),
-    integer gaps, boxes in unit coordinates near each other so that some
-    pairs pass the threshold."""
-    H = heads[2].shape[1]
-    e = heads[0].shape[1]
-    ops = [np.zeros(s, np.float32) for s in
-           ((K, Q, H), (K, Q, 4), (K, Q), (K, Q), (K, Q), (K, Q, e),
-            (K, Q, 4), (K, Q))]
-    h_r, tbox_r, alive_r, te_gap_r, te_match, x, dbox, dvalid = ops
-    for k in range(K):
-        T, n = live if live is not None else rng.integers(0, 65, 2)
-        h_r[k, :T] = np.tanh(rng.standard_normal((T, H)))
-        tbox_r[k, :T] = rng.random((T, 4)) * [1, 1, 0.1, 0.1]
-        alive_r[k, :T] = 1.0
-        te_gap_r[k, :T] = rng.integers(1, 9, T)
-        te_match[k] = float(rng.integers(1, 4))
-        x[k, :n] = np.tanh(rng.standard_normal((n, e)))
-        dbox[k, :n] = rng.random((n, 4)) * [1, 1, 0.1, 0.1]
-        dvalid[k, :n] = 1.0
-    return [torch.from_numpy(a) for a in ops]
-
-
-def check_track_step(tracker_params, thr: float):
-    """The fused step against its plain version, bit for bit on all three
-    outputs, at the main path's widths (Q = 128 slots: up to 64 tracks +
-    64 detections): one stream with 40 live tracks and 30 detections at
-    the tracker's threshold, and a batch of 16 streams at threshold 0.5,
-    where the untrained heads forbid about half the pairs.  The plain
-    version also runs on a CPU copy, so that a mismatch can be placed
-    (the kernel, or PyTorch on the card)."""
-    rng = np.random.default_rng(SEED)
-    heads_cpu = pack_params(_host_params(tracker_params), "cpu")
+def check_track_step():
+    """The fused step against its plain version over the cases of
+    ``repro_torch.kernels.track_step.check`` (the card-only tests' own),
+    bit for bit on all three outputs, the plain version on the card equal
+    to the plain version on the CPU: at the main path's widths (Q = 128
+    slots) one stream with 40 live tracks and 30 detections at the
+    tracker's threshold, 16 streams at threshold 0.5, one live row, one
+    valid column, Q = 256 on squares of 64 and 256, and Q = 512 (the
+    large-matrix JV instance).  Each case
+    timed by kernel part, with the JV's steps and ns a step.
+    -> {case: record}."""
+    heads_cpu = track_check.heads("cpu")
     heads = [p.to(DEVICE) for p in heads_cpu]
     table_cpu = torch.from_numpy(LOG1P_TABLE_2D)
     table = table_cpu.to(DEVICE)
-    rows = []
-    for K, live, t in ((1, (40, 30), thr), (16, None, 0.5)):
-        thr_cpu = torch.full((1, 1), t)
-        ops_cpu = track_step_operands(rng, K, 128, heads_cpu, live)
+    rows = {}
+    for case in track_check.CASES:
+        name, K, Q, _, _ = case
+        row = track_check.check_case(case, DEVICE, heads_cpu)
+        ops_cpu, thr_cpu = track_check.case_operands(case, heads_cpu)
         ops = [a.to(DEVICE) for a in ops_cpu]
-
         thr_dev = thr_cpu.to(DEVICE)
 
         def kern():
@@ -681,32 +662,18 @@ def check_track_step(tracker_params, thr: float):
 
         def plain():
             return track_step_ref(*ops, thr_dev, heads, table)
-        got = kern()
-        card = plain()
-        torch.cuda.synchronize()
-        cpu = track_step_ref(*ops_cpu, thr_cpu, heads_cpu, table_cpu)
-        for name, a, b, c in zip(("matched", "h_upd", "h_new"), got, card,
-                                 cpu):
-            if not bits_equal(b, c):
-                raise AssertionError(f"track_step K={K}: plain version on "
-                                     f"the card != on the CPU ({name})")
-            if not bits_equal(a, b):
-                raise AssertionError(f"track_step K={K}: kernel != plain "
-                                     f"version ({name})")
         alive, dvalid = ops_cpu[2], ops_cpu[7]
-        T = (alive > 0).sum(1)
         n = (dvalid > 0).sum(1)
         H = ops_cpu[0].shape[2]
         e = ops_cpu[5].shape[2]
         M = heads_cpu[8].shape[1]
-        Q = ops_cpu[0].shape[1]
         # operations this data needs: the match MLP and logit over the
         # live pairs, the match-time features of the valid columns, and
         # both GRU batches with their features over all 2Q rows; the JV
         # solve is sequential and outside the bound
         feat = (e + 6) * e * 2
         gru = 3 * (e + H) * H * 2
-        pairs = int((T * n).sum())
+        pairs = row["live_pairs"]
         n_ops = (pairs * ((H + e + 6) * M * 2 + M * 2) + int(n.sum()) * feat
                  + 2 * Q * K * (feat + gru))
         n_bytes = (sum(a.numel() for a in ops_cpu) + 1
@@ -715,25 +682,31 @@ def check_track_step(tracker_params, thr: float):
         b_ms, b_by = bound(n_bytes, n_ops)
         q2_ms = K * (Q * Q * (H + e + 6) * M * 2 + Q * Q * M * 2) \
             / F32_OPS_PER_S * 1e3
-        parts = device_ms_by_kernel(kern, ("track_cost_kernel",
-                                           "track_assign_kernel",
-                                           "track_gru_kernel"))
-        dev_total = None if None in parts.values() else sum(parts.values())
-        row = dict(K=K, Q=Q, live_pairs=pairs,
-                   matched=int((got[0] >= 0).sum()), max_abs_err=0.0,
-                   ms=event_ms(kern, reps=20),
-                   device_ms=dev_total, device_ms_parts=parts,
-                   plain_ms=event_ms(plain, reps=1, warmup=0),
-                   bound_ms=b_ms, bound_by=b_by, bound_q2_ms=q2_ms)
-        log(f"track_step K={K} Q={Q} H={H} e={e} M={M}: {pairs} live pairs,"
-            f" {row['matched']} rows matched; kernel == plain on the card =="
-            f" plain on the CPU, bit for bit on matched/h_upd/h_new; kernel "
-            f"{row['ms']:.4f} ms/call (device, cold L2 {dev_total}: "
-            f"{json.dumps(parts)}), plain (card) {row['plain_ms']:.2f} ms, "
+        parts = {k: t for k, t in device_ms_by_kernel(
+            kern, track_check.KERNEL_NAMES).items() if t is not None}
+        jv_ms = parts.get("track_assign_kernel",
+                          parts.get("track_assign_large_kernel"))
+        main = name == track_check.CASES[0][0]
+        row.update(ms=event_ms(kern, reps=20),
+                   device_ms=sum(parts.values()) if parts else None,
+                   device_ms_parts=parts,
+                   plain_ms=event_ms(plain, reps=1, warmup=0) if main
+                   else None,
+                   bound_ms=b_ms, bound_by=b_by, bound_q2_ms=q2_ms,
+                   ns_per_step=None if jv_ms is None
+                   else jv_ms * 1e6 / max(max(row["steps"]), 1))
+        log(f"track_step {name}: K={K} Q={Q} H={H} e={e} M={M}: {pairs} "
+            f"live pairs, {row['matched']} rows matched, squares "
+            f"{row['sides']}; kernel == plain on the card == plain on the "
+            f"CPU, bit for bit on matched/h_upd/h_new; kernel "
+            f"{row['ms']:.4f} ms/call (device, cold L2 {row['device_ms']}: "
+            f"{json.dumps(parts)}), plain (card) {row['plain_ms']} ms, "
             f"bound {b_ms:.6f} ms ({b_by}: live-pair MLP + features + both "
             f"GRU batches at 67 TFLOP/s; JV sequential, outside it; all "
-            f"Q^2 pairs would be {q2_ms:.6f} ms)")
-        rows.append(row)
+            f"Q^2 pairs would be {q2_ms:.6f} ms); JV steps {row['steps']} "
+            f"(hops {row['hops']}), {row['ns_per_step']} ns a step of the "
+            "longest solve")
+        rows[name] = row
     return rows
 
 
@@ -1013,8 +986,7 @@ def run_video() -> list:
     check_against_cpu(bank, frames, feat, pres)
 
     asg = check_assign()
-    ts = check_track_step(bank.tracker_params,
-                          bank.cfg.tracker.match_threshold)
+    ts = check_track_step()
 
     # the main path through its entry point, the launch counts set to 0
     # just before each run and read just after.  Run 1 is cold (cuDNN
@@ -1190,8 +1162,8 @@ def run_video() -> list:
 
     src = "src/repro_torch/csrc/"
     dev_launches = runs["device_tracker"][1]
-    a_main = max(asg, key=lambda r: (r["eff_n"] is None, r["N"]))
-    t_main = ts[0]                      # K = 1, the main path's shape
+    a_main = asg["N128"]
+    t_main = ts[track_check.CASES[0][0]]    # K = 1, the main path's shape
     kernels = [
         dict(name="proxy_plan", route="cuda", source=src + "proxy_plan.cu",
              replaces="src/repro/kernels/proxy_plan/kernel.py:67",
@@ -1213,8 +1185,9 @@ def run_video() -> list:
              shape=f"{wg['n']} windows of {wg['size']} cells"),
         dict(name="track_step", route="cuda", source=src + "track_step.cu",
              replaces="src/repro/kernels/track_step/kernel.py:160",
-             design="cost, JV (one warp per stream) and GRU kernels, f32 "
-                    "cuda-core, bit-matched (-fmad=false)",
+             design="feature, cost (a thread per pair and hidden unit), "
+                    "JV (one warp per stream, state in registers) and GRU "
+                    "kernels, f32 cuda-core, bit-matched (-fmad=false)",
              launches=dev_launches["track_step"],
              launches_device_assign=runs["device_assign"][1]["track_step"],
              max_abs_err=t_main["max_abs_err"], ms=t_main["ms"],
@@ -1222,7 +1195,13 @@ def run_video() -> list:
              bound_by=t_main["bound_by"], library_ms=None,
              device_ms=t_main["device_ms"],
              device_ms_parts=t_main["device_ms_parts"],
-             shape=f"K=1 Q={t_main['Q']}, {t_main['live_pairs']} live pairs"),
+             jv_steps=t_main["steps"][0],
+             jv_ns_per_step=t_main["ns_per_step"],
+             shape=f"K=1 Q={t_main['Q']}, {t_main['live_pairs']} live pairs",
+             cases={k: {f: r[f] for f in ("ms", "device_ms",
+                                          "device_ms_parts", "steps",
+                                          "ns_per_step", "bound_ms")}
+                    for k, r in ts.items()}),
         dict(name="proxy_score", route="cuda", source=src + "proxy_score.cu",
              replaces="src/repro/kernels/proxy_score/kernel.py:40",
              design="one warp per cell row, f32 cuda-core",
@@ -1250,7 +1229,8 @@ def run_video() -> list:
                                            "plain_ms", "bound_ms")}),
         dict(name="assign_batch", route="cuda", source=src + "assign.cu",
              replaces="src/repro/kernels/assign/kernel.py:118",
-             design="JV, one warp per matrix, bit-matched (-fmad=false)",
+             design="JV, one warp per matrix, state in registers (shared "
+                    "memory past 287 columns), bit-matched (-fmad=false)",
              launches=quality["streaming"]["assign_launches"],
              launches_device_tracker=dev_launches["assign_batch"],
              launches_from="metrics.mota(assign='batch')",
@@ -1259,7 +1239,12 @@ def run_video() -> list:
              plain_ms=a_main["plain_ms"], plain_on="cpu",
              bound_ms=a_main["bound_ms"], bound_by=a_main["bound_by"],
              library_ms=None, device_ms=a_main["device_ms"],
-             shape=f"K=4 N={a_main['N']}"),
+             jv_steps=max(a_main["steps"]),
+             jv_ns_per_step=a_main["ns_per_step"],
+             shape=f"K=4 N={a_main['N']}",
+             cases={k: {f: r[f] for f in ("ms", "device_ms", "steps",
+                                          "ns_per_step")}
+                    for k, r in asg.items()}),
     ]
     return kernels
 

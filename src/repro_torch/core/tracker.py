@@ -44,6 +44,7 @@ from repro_torch.core.detector import SameConv2d, next_bucket, to_device
 from repro_torch.core.hungarian import BIG, hungarian_device_np
 from repro_torch.kernels.track_step import (LOG1P_TABLE_2D, pack_params,
                                             track_step)
+from repro_torch.kernels.track_step.ops import NOT_CONVERGED
 
 BOX_FEATS = 6      # cx, cy, w, h, t_elapsed/8, log1p(t_elapsed)
 REL_FEATS = 6      # dcx, dcy, dcx/te, dcy/te, dw, dh (candidate vs track)
@@ -445,12 +446,18 @@ def _device_chunk_scan(carry, fidx: Sequence[int], te_m: Sequence[float],
     track length); each step gathers slots into rank order, so the kernel
     sees exactly the rows the per-frame path would build.
 
+    The JV's error flag stays on the device for the whole chunk: every
+    frame's launch sets the one flag, which is read once after the loop,
+    so no frame waits on a sync; a solve that hit its cap raises here,
+    before any event leaves the device.
+
     Returns the per-frame events, stacked on the device: matched
     detection column per slot (or -1), assigned slot per detection
     column (Q for none), and the post-step h per slot."""
     h, tbox, alive, last_f, misses, length, order, next_key = carry
     Q = h.shape[0]
     dev = h.device
+    err = torch.zeros(1, dtype=torch.int32, device=dev)
     slot = torch.arange(Q, dtype=torch.int32, device=dev)
     dead_key = _BIGK + slot
     m_ev, new_ev, h_ev = [], [], []
@@ -467,7 +474,7 @@ def _device_chunk_scan(carry, fidx: Sequence[int], te_m: Sequence[float],
         matched_r, h_upd_r, h_new = (o[0] for o in track_step(
             h[perm][None], tbox[perm][None], alive_r[None],
             te_gap_r[None], te_match, xk[None], dbk[None], dvk[None], thr,
-            params, table))
+            params, table, err=err))
         # back to slot space; apply matched-track updates
         m_slot = torch.empty_like(matched_r)
         m_slot[perm] = matched_r
@@ -526,6 +533,8 @@ def _device_chunk_scan(carry, fidx: Sequence[int], te_m: Sequence[float],
         m_ev.append(m_slot)
         new_ev.append(tgt)
         h_ev.append(h)
+    if int(err.item()):
+        raise RuntimeError(NOT_CONVERGED)
     return torch.stack(m_ev), torch.stack(new_ev), torch.stack(h_ev)
 
 

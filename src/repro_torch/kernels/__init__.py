@@ -26,12 +26,16 @@ Kernels (sources in ``repro_torch/csrc/``, built by ``_build``):
                   ``window_gather_batch_pallas`` and
                   ``window_gather_pallas``).
   assign        — batched Jonker-Volgenant assignment, one warp per
-                  matrix (replaces ``kernels/assign``'s ``assign_pallas``;
-                  its solve, ``csrc/jv.cuh``, also runs inside
-                  track_step).
-  track_step    — one fused recurrent-tracker step for K streams: match
-                  MLP, cost, JV and both GRU batches (replaces
-                  ``kernels/track_step``'s ``track_step_pallas``).
+                  matrix with its per-column state in registers and the
+                  matrix in shared memory (replaces ``kernels/assign``'s
+                  ``assign_pallas``; its solve, ``csrc/jv.cuh``, also runs
+                  inside track_step).
+  track_step    — one fused recurrent-tracker step for K streams:
+                  detection features, match MLP, cost, JV and both GRU
+                  batches (replaces ``kernels/track_step``'s
+                  ``track_step_pallas``).  Both take an optional ``err``
+                  flag that they set instead of raising, so a caller
+                  checks many launches with one read.
   flash_attention — causal or full GQA attention with an online softmax:
                   bf16 on tensor cores (wgmma fed by TMA), f32 one query
                   row a thread on the CUDA cores (replaces
@@ -49,10 +53,10 @@ Kernels (sources in ``repro_torch/csrc/``, built by ``_build``):
 
 The attention kernels and ssd_scan share ``csrc/attention.cuh`` (f32 /
 bf16 loads and rounding); ``csrc/hopper.cuh`` holds the PTX of TMA,
-mbarriers and wgmma.  ``ssd_scan.check``, ``flash_attention.check`` and
-``decode_attention.check`` hold those kernels against their plain
-versions on the card (``chip_smoke.py`` and ``tests/test_torch_cuda.py``
-share them).
+mbarriers and wgmma.  ``ssd_scan.check``, ``flash_attention.check``,
+``decode_attention.check``, ``assign.check`` and ``track_step.check``
+hold those kernels against their plain versions on the card
+(``chip_smoke.py`` and ``tests/test_torch_cuda.py`` share them).
 
 assign and track_step give the host tracker's f32 bits: their math goes
 through ``csrc/fastmath.cuh`` and they are built with -fmad=false

@@ -1,8 +1,8 @@
 """Fused tracker step for K streams of Q slots.
 
 ``track_step(h_r, tbox_r, alive_r, te_gap_r, te_match, x, dbox, dvalid,
-thr, params, table)`` computes one recurrent-tracker step per stream, with
-the shapes and operand order of the JAX package's
+thr, params, table, err=None)`` computes one recurrent-tracker step per
+stream, with the shapes and operand order of the JAX package's
 ``kernels/track_step/ops.py::track_step``:
 
   h_r (K, Q, H), tbox_r (K, Q, 4), alive_r / te_gap_r / te_match / dvalid
@@ -23,12 +23,19 @@ bit for bit.
 On a CUDA tensor it launches ``csrc/track_step.cu``; on a CPU tensor it
 runs ``track_step_ref``, the plain PyTorch version, written from
 ``core/fastmath.py``'s ``t_*`` flavour and ``assign``'s ``solve_one_ref``.
+The kernel writes the cost matrices into a scratch buffer that the
+wrapper allocates with room after them for its workspace, K * Q * (e + M)
+floats: the detection features and h prefixes its first launch computes
+once per column and row.  A JV solve that hits its step cap raises;
+given ``err``, a (1,) int32 tensor on h_r's device, it sets ``err[0]``
+to 1 instead, and the call does not read it (no sync), so a caller
+checks one flag for many steps.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Sequence, Tuple, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -39,7 +46,7 @@ from repro_torch.core.hungarian import FORBIDDEN_DEVICE, assoc_side
 from repro_torch.kernels import (check_launch, device_guard, on_cuda, ptr,
                                   stream_of)
 from repro_torch.kernels._build import library
-from repro_torch.kernels.assign.ops import solve_one_ref
+from repro_torch.kernels.assign.ops import check_err, solve_one_ref
 
 # flat operand order of the tracker heads, as ``tracker._host_params``
 # names them; biases are reshaped to (1, n)
@@ -53,6 +60,7 @@ LOG1P_TABLE_2D = fm.LOG1P_TABLE[:, None]
 
 _FORBID = float(FORBIDDEN_DEVICE)
 _HALF_FORBID = float(FORBIDDEN_DEVICE / 2)
+NOT_CONVERGED = "track_step: the JV solve did not converge"
 # track_step_launch(8 stream operands, thr, 12 heads, table, cost, cols,
 #                   matched, h_upd, h_new, err, K, Q, H, e, M, n_table,
 #                   stream)
@@ -94,9 +102,11 @@ def _gru(h, feat, wz, wr, wh, bz, br, bh):
     return fm.t_fmadd(z, cand - h, h)       # single-multiply blend
 
 
-def _step_ref_one(h_r, tbox_r, alive_r, te_gap_r, te_match, x, dbox,
-                  dvalid, thr, params, table):
-    dp_w, dp_b, wz, wr, wh, bz, br, bh, m_w0, m_b0, m_w1, m_b1 = params
+def _cost_ref_one(h_r, tbox_r, alive_r, te_match, x, dbox, dvalid, thr,
+                  params, table) -> Tuple[torch.Tensor, int]:
+    """One stream's (Q, Q) cost matrix and the side of the square the JV
+    solves."""
+    dp_w, dp_b, _, _, _, _, _, _, m_w0, m_b0, m_w1, m_b1 = params
     Q, H = h_r.shape
     feats_m = _det_feats(x, dbox, te_match, dp_w, dp_b, table)
 
@@ -121,7 +131,14 @@ def _step_ref_one(h_r, tbox_r, alive_r, te_gap_r, te_match, x, dbox,
         cost[rows[:, None], cols[None, :]] = live
 
     # the canonical assoc_side square of the live/valid counts
-    side = min(assoc_side(len(rows), len(cols)), Q)
+    return cost, min(assoc_side(len(rows), len(cols)), Q)
+
+
+def _step_ref_one(h_r, tbox_r, alive_r, te_gap_r, te_match, x, dbox,
+                  dvalid, thr, params, table):
+    dp_w, dp_b, wz, wr, wh, bz, br, bh = params[:8]
+    cost, side = _cost_ref_one(h_r, tbox_r, alive_r, te_match, x, dbox,
+                               dvalid, thr, params, table)
     sol = solve_one_ref(cost, eff_n=side)
     got = cost.gather(1, sol[:, None].long())[:, 0]
     matched = torch.where(got < _HALF_FORBID, sol, -1).to(torch.int32)
@@ -135,11 +152,27 @@ def _step_ref_one(h_r, tbox_r, alive_r, te_gap_r, te_match, x, dbox,
     return matched, h_upd, h_new
 
 
+def track_costs_ref(h_r, tbox_r, alive_r, te_match, x, dbox, dvalid, thr,
+                    params: Sequence[torch.Tensor], table
+                    ) -> Tuple[torch.Tensor, Tuple[int, ...]]:
+    """The cost matrices the step solves, (K, Q, Q), and each stream's
+    square side: the JV's input, for counting its steps."""
+    thr = torch.as_tensor(thr, dtype=torch.float32).reshape(-1)[0].item()
+    table = table.reshape(-1)
+    outs = [_cost_ref_one(*(a[k] for a in (h_r, tbox_r, alive_r, te_match,
+                                           x, dbox, dvalid)),
+                          thr, params, table)
+            for k in range(h_r.shape[0])]
+    return torch.stack([o[0] for o in outs]), tuple(o[1] for o in outs)
+
+
 def track_step_ref(h_r, tbox_r, alive_r, te_gap_r, te_match, x, dbox,
-                   dvalid, thr, params: Sequence[torch.Tensor], table
+                   dvalid, thr, params: Sequence[torch.Tensor], table,
+                   err: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of ``track_step``: the same shapes, one stream at a
-    time, on the inputs' device."""
+    time, on the inputs' device.  Its costs are finite by construction,
+    so its solve never fails and ``err`` is left as it is."""
     thr = torch.as_tensor(thr, dtype=torch.float32).reshape(-1)[0].item()
     table = table.reshape(-1)
     outs = [_step_ref_one(*(a[k] for a in (h_r, tbox_r, alive_r, te_gap_r,
@@ -181,13 +214,16 @@ def _check_shapes(h_r, ops, params, table) -> Tuple[int, ...]:
 
 def track_step(h_r, tbox_r, alive_r, te_gap_r, te_match, x, dbox, dvalid,
                thr: Union[torch.Tensor, float],
-               params: Sequence[torch.Tensor], table: torch.Tensor
+               params: Sequence[torch.Tensor], table: torch.Tensor,
+               err: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One tracker step for K streams (module docstring); outputs on
-    h_r's device."""
+    h_r's device.  ``err`` (optional, (1,) int32 on h_r's device): a
+    capped JV solve sets it, and the call neither reads it nor raises."""
+    check_err(err, h_r, "track_step")
     if not on_cuda(h_r):
         return track_step_ref(h_r, tbox_r, alive_r, te_gap_r, te_match, x,
-                              dbox, dvalid, thr, params, table)
+                              dbox, dvalid, thr, params, table, err)
     dev = h_r.device
     thr = torch.as_tensor(thr, dtype=torch.float32, device=dev).reshape(1, 1)
     ops = [h_r, tbox_r, alive_r, te_gap_r, te_match, x, dbox, dvalid, thr]
@@ -199,23 +235,25 @@ def track_step(h_r, tbox_r, alive_r, te_gap_r, te_match, x, dbox, dvalid,
             raise ValueError(f"track_step: every operand must be f32 on "
                              f"{dev}, got {t.dtype} on {t.device}")
     operands = [t.contiguous() for t in operands]
-    cost = torch.empty((K, Q, Q), dtype=torch.float32, device=dev)
+    # the cost matrices, then the kernel's workspace (module note)
+    cost = torch.empty(K * Q * (Q + e + M), dtype=torch.float32, device=dev)
     cols = torch.empty((K, Q), dtype=torch.int32, device=dev)
     matched = torch.empty((K, Q), dtype=torch.int32, device=dev)
     h_upd = torch.empty((K, Q, H), dtype=torch.float32, device=dev)
     h_new = torch.empty((K, Q, H), dtype=torch.float32, device=dev)
     if K == 0 or Q == 0:
         return matched, h_upd, h_new
-    err = torch.zeros(1, dtype=torch.int32, device=dev)
+    flag = torch.zeros(1, dtype=torch.int32, device=dev) if err is None \
+        else err
     lib, fn = _launcher()
     with device_guard(h_r):
         rc = fn(*(ptr(t) for t in operands), ptr(cost), ptr(cols),
-                ptr(matched), ptr(h_upd), ptr(h_new), ptr(err), K, Q, H, e,
+                ptr(matched), ptr(h_upd), ptr(h_new), ptr(flag), K, Q, H, e,
                 M, int(table.shape[0]), stream_of(h_r))
     check_launch(rc, lib, "track_step")
     track_step.launches += 1
-    if int(err.item()):
-        raise RuntimeError("track_step: the JV solve did not converge")
+    if err is None and int(flag.item()):
+        raise RuntimeError(NOT_CONVERGED)
     return matched, h_upd, h_new
 
 

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions, on the card:
-``ssd_scan``, ``flash_attention`` and ``decode_attention``.  Marked
-``cuda``: each test skips without a CUDA device (a kernel has no CPU
-mode; the CPU tests hold the plain versions to the JAX package).  This
+``ssd_scan``, ``flash_attention``, ``decode_attention``, ``assign`` and
+``track_step``.  Marked ``cuda``: each test skips without a CUDA device
+(a kernel has no CPU mode; the CPU tests hold the plain versions to the
+JAX package).  This
 file imports torch only, so that it runs on a machine with a card and no
 JAX:
 
@@ -12,17 +13,23 @@ The shapes, operands and tolerances are the kernels' ``check`` modules'
 the kernels to: ``ssd_scan``'s f32 y and final state within 1e-4 of max
 |plain|, bf16 y within 2 bf16 ulps of the plain version's f32 result on
 the same (bf16-valued) inputs; the attention kernels' f32 within 1e-5,
-bf16 one bf16 ulp apart (the f32 bound near zero).
+bf16 one bf16 ulp apart (the f32 bound near zero); ``assign`` and
+``track_step`` bit for bit (their tie, signed-zero, all-inf, dead-row,
+padding and large-matrix cases included), and non-finite costs must
+raise in ``assign`` as in its plain version.
 """
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels.assign import check as assign_check  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     check as decode_check)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     check as flash_check)
 from repro_torch.kernels.ssd_scan import check  # noqa: E402
+from repro_torch.kernels.track_step import (  # noqa: E402
+    check as track_check)
 
 pytestmark = pytest.mark.cuda
 
@@ -73,3 +80,21 @@ def test_decode_attention_kernel_refuses_what_it_was_not_built_for(dev):
 
 def test_decode_attention_kernel_replays_in_a_cuda_graph(dev):
     decode_check.check_graph_replay(dev, seed=0)
+
+
+@pytest.mark.parametrize("case", assign_check.CASES,
+                         ids=[c[0] for c in assign_check.CASES])
+def test_assign_kernel_matches_plain_version(dev, case):
+    assign_check.check_case(case, dev)
+
+
+@pytest.mark.parametrize("case", assign_check.RAISE_CASES,
+                         ids=[c[0] for c in assign_check.RAISE_CASES])
+def test_assign_kernel_raises_where_plain_version_does(dev, case):
+    assign_check.check_raises(case, dev)
+
+
+@pytest.mark.parametrize("case", track_check.CASES,
+                         ids=[c[0] for c in track_check.CASES])
+def test_track_step_kernel_matches_plain_version(dev, case):
+    track_check.check_case(case, dev)

@@ -152,3 +152,83 @@ def test_make_tracker_selects_flavour(weights):
                       ttrk.DeviceTracker)
     with pytest.raises(ValueError):
         ttrk.RecurrentTracker(CFG, tp, assign="gpu")
+
+
+def _spy_track_step(monkeypatch, fail_at=None):
+    """Record every ``track_step`` call of the chunk scan (its ``err``
+    argument); with ``fail_at``, that call sets the flag as a capped
+    solve would."""
+    calls = []
+
+    def spy(*args, err=None):
+        calls.append(err)
+        if len(calls) == fail_at:
+            err.fill_(1)
+        return track_step(*args, err=err)
+    monkeypatch.setattr(ttrk, "track_step", spy)
+    return calls
+
+
+def test_chunk_scan_checks_one_flag_per_chunk(weights, monkeypatch):
+    """Every frame of a chunk gets the same (1,) int32 flag on the
+    device, a fresh one each chunk, and the tracks stay the host
+    tracker's bit for bit."""
+    _, tp = weights
+    data = _stream(1, 18, 10)
+    calls = _spy_track_step(monkeypatch)
+    scan = _run(ttrk.DeviceTracker(CFG, tp), data, 6)
+    _assert_same(scan, _run(ttrk.RecurrentTracker(CFG, tp), data, 6))
+    assert len(calls) == len(data)
+    for c in range(0, len(data), 6):
+        chunk = calls[c:c + 6]
+        assert all(e is chunk[0] for e in chunk)
+        assert chunk[0].shape == (1,) and chunk[0].dtype == torch.int32
+        assert int(chunk[0]) == 0
+    assert len({id(e) for e in calls}) == 3
+
+
+def test_chunk_scan_raises_after_its_chunk_on_a_capped_solve(weights,
+                                                             monkeypatch):
+    """A solve that hits its cap on frame 2 of a chunk still raises, once
+    every frame of the chunk has launched."""
+    _, tp = weights
+    data = _stream(1, 6, 10)
+    calls = _spy_track_step(monkeypatch, fail_at=2)
+    with pytest.raises(RuntimeError, match="did not converge"):
+        _run(ttrk.DeviceTracker(CFG, tp), data, 6)
+    assert len(calls) == 6
+
+
+def test_err_argument_on_cpu_tensors():
+    """``err`` on CPU tensors: the plain versions set it instead of
+    raising and leave it 0 otherwise, with the same answers; a flag of
+    another type or shape is refused."""
+    from repro_torch.kernels.assign import assign_batch
+    from repro_torch.kernels.track_step import (LOG1P_TABLE_2D,
+                                                pack_params)
+    rng = np.random.default_rng(0)
+    costs = torch.from_numpy(
+        rng.integers(0, 256, (2, 8, 8)).astype(np.float32) / 64)
+    err = torch.zeros(1, dtype=torch.int32)
+    assert torch.equal(assign_batch(costs, err=err), assign_batch(costs))
+    assert int(err) == 0
+    assign_batch(torch.full((1, 4, 4), float("nan")), err=err)
+    assert int(err) == 1
+    with pytest.raises(ValueError, match="err"):
+        assign_batch(costs, err=torch.zeros(1))
+    tp = ttrk.init_tracker(CFG, seed=1, device="cpu")
+    heads = pack_params(ttrk._host_params(tp), "cpu")
+    H, e = CFG.rnn_dim, CFG.embed_dim
+    Q = 8
+    ops = [torch.from_numpy(rng.random(s).astype(np.float32)) for s in
+           ((1, Q, H), (1, Q, 4), (1, Q), (1, Q), (1, Q), (1, Q, e),
+            (1, Q, 4), (1, Q))]
+    table = torch.from_numpy(LOG1P_TABLE_2D)
+    err = torch.zeros(1, dtype=torch.int32)
+    with_err = track_step(*ops, 0.2, heads, table, err=err)
+    for a, b in zip(with_err, track_step(*ops, 0.2, heads, table)):
+        assert torch.equal(a, b)
+    assert int(err) == 0
+    with pytest.raises(ValueError, match="err"):
+        track_step(*ops, 0.2, heads, table,
+                   err=torch.zeros(2, dtype=torch.int32))
