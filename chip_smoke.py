@@ -42,10 +42,11 @@ prompt alone, the first and last decode step against a fresh prefill;
 and four planted faults (decode attending kv_len = pos, decode one
 position late, decode without rope, a prefill that is not causal) must
 each break the check it targets.  Then Mamba2 serving (``run_ssm``):
-``ssd_scan`` against its plain version (f32 within 1e-4 of max |plain|,
-bf16 within 2 bf16 ulps of the f32 plain result) at the prefill's call
-(B 4, S 500 padded to 512, H 32, P 64, N 128), B 1 at S 61 and 512 and
-Q 100, timed, and its refusals; then ``ServeEngine.generate`` at
+``ssd_scan`` (bf16 on tensor cores, f32 on CUDA cores) against its
+plain version (f32 within 1e-4 of max |plain|, bf16 within 2 bf16 ulps
+of the f32 plain result) at the prefill's call (B 4, S 500 padded to
+512, H 32, P 64, N 128), B 1 at S 61, 512 and 2048 and Q 100, timed,
+and its refusals; then ``ServeEngine.generate`` at
 full mamba2-370m width (48 layers, bf16 activations, weights from the
 seed) on the same 4 prompts: twice (the same tokens, 48 ``ssd_scan``
 launches each, all in the prefill), timed, profiled, and the same
@@ -1417,6 +1418,8 @@ class ServeCell:
     rows: Optional[Tuple[int, ...]]
     faults: Tuple[Tuple[str, Any, str, Callable, str, bool], ...]
     tol: Dict[str, float]
+    # the device kernels behind ``kernels``, by the names a trace gives
+    device_names: Tuple[str, ...] = ()
 
     def counts(self) -> Dict[str, int]:
         return {n: fn.launches for n, (fn, _) in self.kernels.items()}
@@ -1588,7 +1591,8 @@ def dense_cell(cfg) -> ServeCell:
                                    cfg.n_layers * LM_NEW_TOKENS)},
         ((lm_attention, "flash_attention", flash_attention_ref),
          (lm_attention, "decode_attention", decode_attention_ref)),
-        None, LM_FAULTS, LM_LOGIT_TOL)
+        None, LM_FAULTS, LM_LOGIT_TOL,
+        FLASH_KERNEL_NAMES + DECODE_KERNEL_NAMES)
 
 
 def ssm_cell(cfg, prompts) -> ServeCell:
@@ -1598,7 +1602,7 @@ def ssm_cell(cfg, prompts) -> ServeCell:
     longest = max(range(len(prompts)), key=lambda i: len(prompts[i]))
     return ServeCell(cfg, {"ssd_scan": (ssd_scan, cfg.n_layers)},
                      ((lm_ssm, "ssd_scan", ssd_scan_ref),), (longest,),
-                     SSM_FAULTS, SSM_LOGIT_TOL)
+                     SSM_FAULTS, SSM_LOGIT_TOL, ssd_check.KERNEL_NAMES)
 
 
 def serve_checks(eng, prompts, cell: ServeCell) -> dict:
@@ -1675,13 +1679,14 @@ def serve_checks(eng, prompts, cell: ServeCell) -> dict:
     return r
 
 
-def serve_busy(eng, prompts, activities=None) -> dict:
+def serve_busy(eng, prompts, activities=None, kernel_names=()) -> dict:
     """One more generate under the profiler: the device's busy time
     summed over every kernel and copy it ran, against the wall time (an
-    upper bound on the idle share: the profiler slows the host), and the
-    host's side: kernel launches a token step (prefill included, over
-    ``LM_NEW_TOKENS + 1`` steps) and the host ops that took the most
-    self time."""
+    upper bound on the idle share: the profiler slows the host), the
+    part of it in the kernels whose names contain ``kernel_names``, and
+    the host's side: kernel launches a token step (prefill included,
+    over ``LM_NEW_TOKENS + 1`` steps) and the host ops that took the
+    most self time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     if activities is None:
@@ -1703,6 +1708,8 @@ def serve_busy(eng, prompts, activities=None) -> dict:
             # cuLaunchKernel, cuLaunchKernelEx
             launches += 1
     busy = sum(per_name.values()) / 1e6
+    kern = sum(us for k, us in per_name.items()
+               if any(n in k for n in kernel_names)) / 1e6
     top = sorted(((us, k) for k, us in per_name.items()), reverse=True)
     host = sorted(((ev.self_cpu_time_total, ev.key, ev.count)
                    for ev in prof.key_averages()
@@ -1712,12 +1719,15 @@ def serve_busy(eng, prompts, activities=None) -> dict:
         f"{busy * 1e3:.1f} ms of {wall * 1e3:.1f} ms wall = "
         f"{100 * busy / wall:.1f}% busy; top device time: "
         + "; ".join(f"{k[:60]} {us / 1e3:.2f} ms" for us, k in top[:6]))
+    log(f"device time in {', '.join(kernel_names)} (same run): "
+        f"{kern * 1e3:.4f} ms = {100 * kern / max(busy, 1e-12):.2f}% of "
+        "busy")
     log(f"host (same run): {launches} kernel launches = "
         f"{launches / steps:.0f} a token step; top aten ops by self CPU "
         "time: " + "; ".join(f"{k} {us / 1e3:.1f} ms over {n} calls"
                              for us, k, n in host[:6]))
     return dict(busy_s=busy, wall_s=wall, busy_share=busy / wall,
-                launches_per_step=launches / steps)
+                kernels_busy_s=kern, launches_per_step=launches / steps)
 
 
 def lm_prompts(cfg):
@@ -1813,7 +1823,7 @@ def run_serving(cfg, cell_of) -> dict:
     chk = serve_checks(eng, prompts, cell)
     if chk["out"] != runs[0][0]:
         raise AssertionError("recorded generate differs from the first")
-    busy = serve_busy(eng, prompts)
+    busy = serve_busy(eng, prompts, kernel_names=cell.device_names)
     del eng, params
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     model32 = build_model(cfg32)
@@ -1918,12 +1928,16 @@ def check_ssd_scan():
                 b_ms, b_by, f32_ms = attn_bound(n_bytes, n_ops, dt)
                 with torch.inference_mode():
                     row.update(ms=event_ms(kern, reps=20),
-                               device_ms=device_ms(kern, "ssd_scan_kernel",
-                                                   reps=20),
+                               device_ms=device_ms(
+                                   kern, ssd_check.KERNEL_NAMES, reps=20),
                                plain_ms=event_ms(plain, reps=5),
                                library_ms=None, bound_ms=b_ms, bound_by=b_by,
                                bound_f32_core_ms=f32_ms, flops=n_ops,
                                bytes=n_bytes)
+                if row["device_ms"] is None:
+                    raise AssertionError(f"{label}: the profiler recorded "
+                                         "no device time of "
+                                         f"{ssd_check.KERNEL_NAMES}")
                 log(f"{label}: max |d| {err!r}; kernel {row['ms']:.4f} "
                     f"ms/call (device, cold L2 {row['device_ms']}), plain "
                     f"{row['plain_ms']:.4f} ms, no one PyTorch call, bound "
@@ -1950,8 +1964,12 @@ def run_ssm() -> list:
         name="ssd_scan", route="cuda",
         source="src/repro_torch/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_scan/kernel.py:85",
-        design="one block per (head, row) walking the chunks, f32 state "
-               "in shared memory, f32 cuda-core",
+        design="one block per (head, row) walking the chunks; bf16: "
+               "wgmma (m64n64k16, m64n128k16) fed by TMA (2 stages behind "
+               "mbarriers, 128B swizzle), two warpgroups, f32 state in "
+               "registers, M, the state and x*w split into bf16 hi + lo, "
+               "a warp-shuffle cumsum, S unpadded; f32: cuda-core, f32 "
+               "state in shared memory",
         launches=served_run["launches"]["ssd_scan"],
         max_abs_err=max(r["max_abs_err"] for r in sc.values()),
         ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],

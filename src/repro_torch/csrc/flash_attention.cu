@@ -80,8 +80,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <mutex>
-
 #include "attention.cuh"
 #include "hopper.cuh"
 
@@ -431,79 +429,16 @@ __global__ void __launch_bounds__(kThreads) flash_attention_wgmma_kernel(
   }
 }
 
-// cuTensorMapEncodeTiled from the driver, found through the runtime (no
-// link against libcuda)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
-                                cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // a contiguous (B, S, H, D) bf16 tensor as a 4-D map (d, head, position,
-// batch), boxes of 64 positions of one head
+// batch), boxes of 64 positions of one head (cached, hopper.cuh)
 bool tensor_map(CUtensorMap* map, const void* ptr, int B, int S, int H,
                 int D) {
-  const EncodeTiled encode = encoder();
-  if (encode == nullptr) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
                                  (cuuint64_t)S * H * D * 2};
   const cuuint32_t box[4] = {(cuuint32_t)D, 1, (cuuint32_t)kBN, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(ptr), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// The last kMaps tensor maps, keyed by everything they encode: a map
-// depends only on the address and the shape, so a call on the same
-// tensors (or on new ones the caching allocator put at the same
-// addresses) skips the driver's encode, microseconds of the host time a
-// call costs.  Calls may come from several threads (ctypes drops the
-// GIL): a mutex guards the entries.
-bool cached_tensor_map(CUtensorMap* map, const void* ptr, int B, int S,
-                       int H, int D) {
-  constexpr int kMaps = 16;
-  struct Entry {
-    const void* ptr;
-    int B, S, H, D;
-    CUtensorMap map;
-  };
-  static Entry cache[kMaps] = {};
-  static int next = 0;
-  static std::mutex mu;
-  std::lock_guard<std::mutex> lock(mu);
-  for (const Entry& e : cache)
-    if (e.ptr == ptr && e.B == B && e.S == S && e.H == H && e.D == D) {
-      *map = e.map;
-      return true;
-    }
-  if (!tensor_map(map, ptr, B, S, H, D)) return false;
-  cache[next] = Entry{ptr, B, S, H, D, *map};
-  next = (next + 1) % kMaps;
-  return true;
+  return hopper::bf16_tensor_map(map, ptr, 4, dims, strides, box);
 }
 
 template <int D>
@@ -511,9 +446,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Sq, int Skv, int Hq, int Hkv, int n_valid, int causal,
            float scale, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
-  if (!cached_tensor_map(&tq, q, B, Sq, Hq, D)
-      || !cached_tensor_map(&tk, k, B, Skv, Hkv, D)
-      || !cached_tensor_map(&tv, v, B, Skv, Hkv, D))
+  if (!tensor_map(&tq, q, B, Sq, Hq, D)
+      || !tensor_map(&tk, k, B, Skv, Hkv, D)
+      || !tensor_map(&tv, v, B, Skv, Hkv, D))
     return (int)cudaErrorInvalidValue;
   constexpr int smem = Smem<D>::kBytes;
   static_assert(smem <= 48 * 1024, "more dynamic shared memory needs "

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks in inline PTX: mbarriers, TMA tile
-// loads, wgmma shared-memory descriptors and the m64n64k16 bf16 products
-// with f32 accumulators.  Used by flash_attention.cu.
+// loads, wgmma shared-memory descriptors and the m64n64k16 / m64n128k16
+// bf16 products with f32 accumulators; on the host, bf16 TMA tensor maps
+// (cached).  Used by flash_attention.cu and ssd_scan.cu.
 //
 // Register layout of an m64nN f32 accumulator d[N / 2] (PTX ISA, wgmma
 // "register fragment" figures): warp w of the warpgroup holds rows
@@ -15,6 +16,9 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
+
+#include <mutex>
 
 namespace hopper {
 
@@ -80,6 +84,30 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// the same for a 3-D box
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// make this thread's ordinary shared-memory writes visible to the async
+// proxy (a wgmma reading them as an operand); then a barrier
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// a barrier of the ``count`` threads (a multiple of 32) that name ``id``
+// (1-15: 0 is __syncthreads')
+__device__ __forceinline__ void named_barrier(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
 // A wgmma shared-memory descriptor for a tile in the 128-byte swizzle
 // that TMA's CU_TENSOR_MAP_SWIZZLE_128B writes (rows of 128 bytes, atoms
 // of 8 rows, the tile 1024-byte aligned): start address, leading and
@@ -101,6 +129,11 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
 }
+// wait until at most ``N`` committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
 
 // keep the compiler from moving reads or writes of accumulator registers
 // across an asynchronous wgmma
@@ -111,8 +144,10 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 }
 
 // d (m64n64, f32) = (scale_d ? d : 0) + A B, A (64 x 16) and B (16 x 64)
-// bf16 from shared memory, both K-major (A's rows and B's columns hold
-// their 16 K values contiguous)
+// bf16 from shared memory, by default both K-major (A's rows and B's
+// columns hold their 16 K values contiguous); TransA: A is M-major (its
+// columns hold their 64 M values contiguous), TransB: B is N-major
+template <int TransA = 0, int TransB = 0>
 __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
                                                    uint64_t desc_a,
                                                    uint64_t desc_b,
@@ -124,7 +159,7 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
       "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n"
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, %35, %36;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
@@ -133,6 +168,40 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TransA), "n"(TransB));
+}
+
+// d (m64n128, f32) = (scale_d ? d : 0) + A B, A (64 x 16) and B (16 x 128)
+// bf16 from shared memory, both K-major
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
+                                                    uint64_t desc_a,
+                                                    uint64_t desc_b,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, "
+      "1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
@@ -162,6 +231,95 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32],
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1));
+}
+
+// ---------------------------------------------------------------------------
+// host: TMA tensor maps
+// ---------------------------------------------------------------------------
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime (no
+// link against libcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+constexpr int kMaxRank = 5;
+
+// A tensor map over a bf16 tensor of ``rank`` dimensions (dims[0]
+// innermost and contiguous; strides[i], in bytes, between steps of
+// dims[i + 1]), boxes of ``box`` elements in the 128-byte swizzle;
+// elements out of bounds land as zeros.  The last kMaps maps are kept,
+// keyed by everything they encode: a map depends only on the address
+// and the shape, so a call on the same tensors (or on new ones the
+// caching allocator put at the same addresses) skips the driver's
+// encode, microseconds of the host time a call costs.  Calls may come
+// from several threads (ctypes drops the GIL): a mutex guards the
+// entries.
+inline bool bf16_tensor_map(CUtensorMap* map, const void* ptr, int rank,
+                            const cuuint64_t* dims,
+                            const cuuint64_t* strides,
+                            const cuuint32_t* box) {
+  constexpr int kMaps = 16;
+  struct Key {
+    const void* ptr;
+    int rank;
+    cuuint64_t dims[kMaxRank], strides[kMaxRank];
+    cuuint32_t box[kMaxRank];
+  };
+  struct Entry {
+    Key key;
+    CUtensorMap map;
+  };
+  if (rank < 1 || rank > kMaxRank) return false;
+  Key key;
+  memset(&key, 0, sizeof(key));
+  key.ptr = ptr;
+  key.rank = rank;
+  memcpy(key.dims, dims, rank * sizeof(cuuint64_t));
+  memcpy(key.strides, strides, (rank - 1) * sizeof(cuuint64_t));
+  memcpy(key.box, box, rank * sizeof(cuuint32_t));
+  static Entry cache[kMaps] = {};
+  static int next = 0;
+  static std::mutex mu;
+  std::lock_guard<std::mutex> lock(mu);
+  for (const Entry& e : cache)
+    if (e.key.rank && memcmp(&e.key, &key, sizeof(key)) == 0) {
+      *map = e.map;
+      return true;
+    }
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  const cuuint32_t elem[kMaxRank] = {1, 1, 1, 1, 1};
+  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+             const_cast<void*>(ptr), dims, strides, box, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return false;
+  cache[next] = Entry{key, *map};
+  next = (next + 1) % kMaps;
+  return true;
 }
 
 }  // namespace hopper

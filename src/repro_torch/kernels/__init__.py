@@ -47,13 +47,16 @@ Kernels (sources in ``repro_torch/csrc/``, built by ``_build``):
                   ``kernels/decode_attention``'s
                   ``decode_attention_pallas``; every LM decode step).
   ssd_scan      — Mamba2's SSD chunked scan, one block per (head, row)
-                  walking the chunks with the f32 state in shared memory
-                  (replaces ``kernels/ssd_scan``'s ``ssd_scan_pallas``;
-                  the Mamba2 prefill).
+                  walking the chunks: bf16 on tensor cores (wgmma fed by
+                  TMA, the f32 state in registers), f32 on the CUDA cores
+                  with the state in shared memory (replaces
+                  ``kernels/ssd_scan``'s ``ssd_scan_pallas``; the Mamba2
+                  prefill).
 
 The attention kernels and ssd_scan share ``csrc/attention.cuh`` (f32 /
 bf16 loads and rounding); ``csrc/hopper.cuh`` holds the PTX of TMA,
-mbarriers and wgmma.  ``ssd_scan.check``, ``flash_attention.check``,
+mbarriers and wgmma and the host's cached TMA tensor maps (the bf16
+instances of flash_attention and ssd_scan use it).  ``ssd_scan.check``, ``flash_attention.check``,
 ``decode_attention.check``, ``assign.check`` and ``track_step.check``
 hold those kernels against their plain versions on the card
 (``chip_smoke.py`` and ``tests/test_torch_cuda.py`` share them).

@@ -1,6 +1,8 @@
 """The ``ssd_scan`` kernel against its plain version on the card: the
-operands, the shapes and the tolerance, one copy for ``chip_smoke.py``
-and ``tests/test_torch_cuda.py``.
+operands, the shapes, the tolerance and the kernels' names, one copy for
+``chip_smoke.py`` and ``tests/test_torch_cuda.py``; the tolerance
+(``within_tolerance``) also holds the CPU model of the bf16 kernel's
+rounding in ``tests/test_torch_ssd_design.py``.
 
 Tolerance: the f32 final state within ``F32_RTOL`` of max |plain|; y in
 f32 within the same; y in bf16 at most ``BF16_ULPS`` bf16 values from
@@ -19,12 +21,19 @@ from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_ref
 F32_RTOL = 1e-4
 BF16_ULPS = 2
 # (name, b, S, H, P, N, chunk) at mamba2-370m's H, P, N: the prefill's
-# call (S 500 padded to 512), Q = S = 61, whole chunks, and Q 100 (row
-# blocks of 32 cut in the middle) with a padded tail
+# call (S 500 padded to 512), Q = S = 61, whole chunks, Q 100 (a chunk
+# ends inside a 64-row tile, so a 128-row tile reaches into the next
+# chunk) with a padded tail, and 16 chunks (the state carried through 15
+# updates)
 CASES = (("prefill B4 S500", 4, 500, 32, 64, 128, 128),
          ("B1 S61 (Q 61)", 1, 61, 32, 64, 128, 128),
          ("B1 S512", 1, 512, 32, 64, 128, 128),
-         ("B1 S250 Q100", 1, 250, 32, 64, 128, 100))
+         ("B1 S250 Q100", 1, 250, 32, 64, 128, 100),
+         ("B1 S2048", 1, 2048, 32, 64, 128, 128))
+# every CUDA kernel the wrapper may launch: bf16 on tensor cores, f32 on
+# CUDA cores (profiler names contain these)
+KERNEL_NAMES = ("ssd_scan_wgmma_kernel", "ssd_scan_kernel")
+F32_KERNEL = "ssd_scan_kernel"
 
 
 def operands(b: int, S: int, H: int, P: int, N: int, dtype: torch.dtype,
@@ -45,6 +54,29 @@ def operands(b: int, S: int, H: int, P: int, N: int, dtype: torch.dtype,
             randn(b, S, N).to(dtype), torch.ones(H, device=device))
 
 
+def outside(y: torch.Tensor, y_plain: torch.Tensor) -> torch.Tensor:
+    """Mask of the elements of y (f32 or bf16) outside the tolerance of
+    ``y_plain`` (f32): more than ``F32_RTOL`` of max |y_plain| away and,
+    in bf16, also more than ``BF16_ULPS`` bf16 values away.  A NaN is
+    outside (every comparison is written so that NaN fails it)."""
+    bad = ~((y.float() - y_plain).abs() <= F32_RTOL * float(
+        y_plain.abs().max()))
+    if y.dtype == torch.bfloat16:
+        bad &= ~(bf16_steps(y, y_plain.to(y.dtype)) <= BF16_ULPS)
+    return bad
+
+
+def within_tolerance(y: torch.Tensor, y_plain: torch.Tensor,
+                     state: torch.Tensor, state_plain: torch.Tensor) -> int:
+    """The tolerance of a scan against its plain version: the count of
+    elements of y (``outside``) and of the f32 final state (more than
+    ``F32_RTOL`` of max |state_plain| away, or NaN) outside it; 0 is
+    within."""
+    d_state = (state - state_plain).abs()
+    return int(outside(y, y_plain).sum()) + int(
+        (~(d_state <= F32_RTOL * float(state_plain.abs().max()))).sum())
+
+
 def check_scan(args: tuple, chunk: int, label: str) -> float:
     """One launch of the kernel on ``args`` (CUDA tensors) against the
     plain version run in f32 on the same inputs; raises AssertionError
@@ -61,17 +93,29 @@ def check_scan(args: tuple, chunk: int, label: str) -> float:
             f"{label}: {ssd_scan.launches - before} launches, y "
             f"{tuple(y.shape)} {y.dtype}, state {fin.dtype}")
     diff = (y.float() - yr).abs()
-    bad = diff > F32_RTOL * float(yr.abs().max())
-    if y.dtype == torch.bfloat16:
-        bad &= bf16_steps(y, yr.to(y.dtype)) > BF16_ULPS
-    d_state = float((fin - sr).abs().max())
-    if bad.any() or d_state > F32_RTOL * float(sr.abs().max()):
+    if within_tolerance(y, yr, fin, sr):
+        bad = outside(y, yr)
+        d_state = float((fin - sr).abs().max())
         at = tuple(int(i) for i in bad.nonzero()[0]) if bad.any() else ()
         raise AssertionError(
             f"{label}: kernel != plain version at {int(bad.sum())} "
             f"elements of y, first {at} (max |d| {float(diff.max())!r}); "
             f"state max |d| {d_state!r}")
     return float(diff.max())
+
+
+def kernels_launched(args: tuple, chunk: int, reps: int = 5) -> set:
+    """The entries of ``KERNEL_NAMES`` whose names the profiler's trace
+    of ``reps`` calls on ``args`` (CUDA tensors) holds as device kernels
+    (several calls: a trace may drop a launch)."""
+    from torch.profiler import ProfilerActivity, profile
+    with torch.inference_mode(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            ssd_scan(*args, chunk=chunk)
+        torch.cuda.synchronize()
+    return {name for ev in prof.key_averages() for name in KERNEL_NAMES
+            if name in ev.key}
 
 
 def check_refusals(device) -> None:

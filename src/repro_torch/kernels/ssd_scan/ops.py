@@ -18,9 +18,10 @@ sum of dt A inside the chunk,
 where decay[t, j] = exp(L_t - L_j) for j <= t and 0 above the diagonal
 (exp is never evaluated there: L_t - L_j can be thousands for j > t).
 S is padded up to a multiple of Q with dt = 0 steps, which leave y and
-the state exact (both versions do it); the kernel only ever sees
-S % Q == 0.  The model's
-prefill (``models.ssm``) calls it once a layer.
+the state exact: the plain version and the f32 kernel's wrapper pad;
+the bf16 kernel does the same inside (rows past S load as zeros), so
+its wrapper copies nothing.  The model's prefill (``models.ssm``) calls
+it once a layer.
 
 On a CUDA tensor it launches ``csrc/ssd_scan.cu``; on a CPU tensor it
 runs ``ssd_scan_ref``, the plain PyTorch version of the JAX package's
@@ -183,7 +184,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise NotImplementedError(f"ssd_scan: chunk {Q} > {MAX_CHUNK}, "
                                   "the kernel's shared-memory chunk")
     _check_operands(x, dt, A, B, C, D)
-    x, dt, B, C = _padded(x, dt, B, C, Q)
+    if x.dtype != torch.bfloat16:
+        x, dt, B, C = _padded(x, dt, B, C, Q)
     x, B, C = x.contiguous(), B.contiguous(), C.contiguous()
     dt = dt.float().contiguous()
     A, D = A.float().contiguous(), D.float().contiguous()

@@ -12,7 +12,8 @@ The shapes, operands and tolerances are the kernels' ``check`` modules'
 (``repro_torch.kernels.<name>.check``), the same ``chip_smoke.py`` holds
 the kernels to: ``ssd_scan``'s f32 y and final state within 1e-4 of max
 |plain|, bf16 y within 2 bf16 ulps of the plain version's f32 result on
-the same (bf16-valued) inputs; the attention kernels' f32 within 1e-5,
+the same (bf16-valued) inputs, and each dtype on its own kernel (bf16
+on tensor cores, f32 on CUDA cores, read from the profiler's trace); the attention kernels' f32 within 1e-5,
 bf16 one bf16 ulp apart (the f32 bound near zero); ``assign`` and
 ``track_step`` bit for bit (their tie, signed-zero, all-inf, dead-row,
 padding and large-matrix cases included), and non-finite costs must
@@ -49,6 +50,18 @@ def test_ssd_scan_kernel_matches_plain_version(dev, case, dtype):
     name, b, S, H, P, N, chunk = case
     args = check.operands(b, S, H, P, N, dtype, dev, seed=0)
     check.check_scan(args, chunk, f"{name} {dtype}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_ssd_scan_launches_the_kernel_of_its_dtype(dev, dtype):
+    # bf16 runs on tensor cores, never the f32 CUDA-core kernel
+    name, b, S, H, P, N, chunk = check.CASES[0]
+    args = check.operands(b, S, H, P, N, dtype, dev, seed=0)
+    got = check.kernels_launched(args, chunk)
+    want = ({check.F32_KERNEL} if dtype == torch.float32 else
+            set(check.KERNEL_NAMES) - {check.F32_KERNEL})
+    assert got == want, (dtype, got)
 
 
 def test_ssd_scan_kernel_refuses_what_it_was_not_built_for(dev):
