@@ -9,8 +9,11 @@ It builds every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc``
 per source, started together), holds each kernel against its plain
 PyTorch version on the card at the main path's shapes and times both
 (``assign`` and ``track_step`` bit for bit over their ``check`` modules'
-cases, with the JV's steps counted on the host and ns a step), then
-runs the main path —
+cases, with the JV's steps counted on the host and ns a step;
+``proxy_plan`` within the 8-ulp threshold band and ``window_gather_batch``
+bit for bit over theirs, beside two yardsticks: the card's launch floor,
+``zero_()`` on a one-element tensor, and a ``copy_`` of each gather's
+bytes), then runs the main path —
 one 64-frame clip through the streaming ``ClipExecutor`` at the
 full-width MultiScope configuration (detector ssd-deep at 960x544, proxy
 416x256, recurrent tracker, chunks of 16) with untrained weights drawn
@@ -104,15 +107,18 @@ from repro_torch.kernels.track_step import (  # noqa: E402
     LOG1P_TABLE_2D, track_step, track_step_ref)
 from repro_torch.kernels.track_step import (  # noqa: E402
     check as track_check)
-from repro_torch.kernels.proxy_plan import (proxy_plan,  # noqa: E402
-                                            proxy_plan_ref)
+from repro_torch.kernels.proxy_plan import (  # noqa: E402
+    plan_to_host, proxy_plan, proxy_plan_ref)
 from repro_torch.kernels.proxy_plan.ops import (FLIP_ULPS,  # noqa: E402
                                                 _spans_on, check_plan)
 from repro_torch.kernels.proxy_score import (  # noqa: E402
     check_scores, proxy_score, proxy_score_ref)
+from repro_torch.kernels.proxy_plan import check as plan_check  # noqa: E402
 from repro_torch.kernels.window_gather import (  # noqa: E402
     window_gather, window_gather_batch, window_gather_batch_ref,
     window_gather_ref)
+from repro_torch.kernels.window_gather import (  # noqa: E402
+    check as gather_check)
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention, decode_attention_ref)
 from repro_torch.kernels.decode_attention import (  # noqa: E402
@@ -351,105 +357,117 @@ def set_up(bank, clip):
     return params, frames, feat, first
 
 
+def traced_ms(fn, kernel_names, label: str, tries: int = 3) -> float:
+    """``device_ms`` of ``fn``, traced again (up to ``tries`` times) when
+    a trace holds none of the kernels (a trace late in a long process may
+    drop every launch); raises if none does."""
+    for _ in range(tries):
+        t = device_ms(fn, kernel_names)
+        if t is not None:
+            return t
+    raise AssertionError(f"{label}: the profiler recorded no device time "
+                         f"for {kernel_names} in {tries} traces")
+
+
+def launch_floor_ms() -> float:
+    """The card's launch floor: the device time of ``zero_()`` on a
+    one-element CUDA tensor, read as ``device_ms`` reads a kernel (the
+    flush fills f32, this fills int32, so the names differ)."""
+    one = torch.zeros(1, dtype=torch.int32, device=DEVICE)
+    t = traced_ms(lambda: one.zero_(), "FillFunctor<int>", "launch floor")
+    log(f"launch floor: zero_() on a one-element CUDA tensor, device (cold "
+        f"L2) {t!r} ms")
+    return t
+
+
+def copy_device_ms(n_bytes: int) -> float:
+    """The device time of ``out.copy_(src)`` over ``n_bytes`` of f32 (a
+    device-to-device memcpy), read as ``device_ms`` reads a kernel."""
+    src = torch.ones(n_bytes // 4, device=DEVICE)
+    out = torch.empty_like(src)
+    return traced_ms(lambda: out.copy_(src), "Memcpy DtoD", "copy_")
+
+
 def check_window_gather(frames, plan):
-    CELL_PX = pl.CELL_PX
+    """The batch gather against its plain version over the cases of
+    ``repro_torch.kernels.window_gather.check`` (the card-only tests'
+    own), bit for bit: the first chunk's plan for each size class it
+    holds (the set-up chunk's own frames and tables), seeded tables
+    padded with zero rows (one out of range), 8 windows of (30, 17) and
+    the scalar branch.  Each timed with its bound and the device time of
+    a ``copy_`` of the same bytes.  -> (the main-path record: the first
+    chunk's plan, the class with the most windows; every record)."""
     dev_frames = torch.from_numpy(frames).to(DEVICE)
-    B, H, W, _ = frames.shape
-    rng = np.random.default_rng(SEED)
-    rows = []
+    cases = list(gather_check.CASES)
     for size in SIZES_CELLS[1:]:
-        tables = []
-        entries = plan.by_size.get(size)
+        if plan.by_size.get(size) and size != cases[0][2]:
+            cases.insert(1, (f"first chunk's plan {size}", cases[0][1], size,
+                             "plan"))
+    rows = []
+    for case in cases:
+        name, shape, size, kind = case
+        table = None
+        entries = plan.by_size.get(size) if kind == "plan" else None
         if entries:
-            tbl = np.zeros((next_bucket(len(entries)), 3), np.int32)
+            table = np.zeros((next_bucket(len(entries)), 3), np.int32)
             for k, (slot, x, y, _) in enumerate(entries):
-                tbl[k] = (slot, y, x)
-            tables.append(("first chunk's plan", tbl))
-        # 5 windows padded to a bucket of 8 with zero rows, one of them
-        # out of range (both versions clamp it into the chunk)
-        tbl = np.zeros((8, 3), np.int32)
-        tbl[:4] = np.stack([rng.integers(0, B, 4),
-                            rng.integers(0, H // CELL_PX - size[1] + 1, 4),
-                            rng.integers(0, W // CELL_PX - size[0] + 1, 4)],
-                           1)
-        tbl[4] = (B + 3, 99, 99)
-        tables.append(("seeded padded table", tbl))
-        win_h, win_w = size[1] * CELL_PX, size[0] * CELL_PX
-        for src, tbl in tables:
-            t_dev = torch.from_numpy(tbl).to(DEVICE)
+                table[k] = (slot, y, x)
+        fr = dev_frames if shape == tuple(frames.shape) else None
+        rec = gather_check.check_case(case, DEVICE, frames=fr, table=table)
+        src, tbl, win_h, win_w = rec["operands"]
 
-            def kern():
-                return window_gather_batch(dev_frames, t_dev, win_h=win_h,
-                                           win_w=win_w, cell=CELL_PX)
+        def kern():
+            return window_gather_batch(src, tbl, win_h=win_h, win_w=win_w,
+                                       cell=pl.CELL_PX)
 
-            def plain():
-                return window_gather_batch_ref(dev_frames, t_dev,
-                                               win_h=win_h, win_w=win_w,
-                                               cell=CELL_PX)
-            got, want = kern(), plain()
-            torch.cuda.synchronize()
-            if not torch.equal(got, want):
-                raise AssertionError(f"window_gather_batch {size} ({src}): "
-                                     "kernel != plain version")
-            err = float((got - want).abs().max())
-            n = tbl.shape[0]
-            out_bytes = n * win_h * win_w * 3 * 4
-            b_ms, b_by = bound(2 * out_bytes + tbl.nbytes, 0)
-            row = dict(size=size, n=n, src=src, max_abs_err=err,
-                       ms=event_ms(kern), plain_ms=event_ms(plain),
-                       device_ms=device_ms(kern,
-                                           "window_gather_batch_kernel"),
-                       bound_ms=b_ms, bound_by=b_by)
-            log(f"window_gather_batch {size} cells, table {n} rows ({src})"
-                f": exact; kernel {row['ms']:.4f} ms/call (device, cold L2 "
-                f"{row['device_ms']}), plain {row['plain_ms']:.4f} ms, "
-                f"bound {b_ms:.5f} ms ({b_by})")
-            rows.append(row)
-    # the scalar-copy branch (rows not 16-byte aligned), off the main path
-    small = torch.randn((2, 64, 48, 1), device=DEVICE)
-    tbl = torch.tensor([[1, 1, 0], [0, 0, 1]], dtype=torch.int32,
-                       device=DEVICE)
-    if not torch.equal(
-            window_gather_batch(small, tbl, win_h=32, win_w=16, cell=16),
-            window_gather_batch_ref(small, tbl, win_h=32, win_w=16,
-                                    cell=16)):
-        raise AssertionError("window_gather_batch scalar branch differs")
+        def plain():
+            return window_gather_batch_ref(src, tbl, win_h=win_h,
+                                           win_w=win_w, cell=pl.CELL_PX)
+        b_ms, b_by = bound(2 * rec["out_bytes"] + tbl.numel() * 4, 0)
+        dev_ms = traced_ms(kern, gather_check.KERNEL_NAMES,
+                           f"window_gather_batch {name}")
+        row = dict(case=name, size=size, n=rec["n"],
+                   src="first chunk's plan" if table is not None
+                   else "seeded", max_abs_err=rec["max_abs_err"],
+                   ms=event_ms(kern), plain_ms=event_ms(plain),
+                   device_ms=dev_ms, copy_device_ms=copy_device_ms(
+                       rec["out_bytes"]), bound_ms=b_ms, bound_by=b_by)
+        log(f"window_gather_batch {name}: {rec['n']} rows of {size} cells "
+            f"({row['src']} table), exact; kernel {row['ms']:.4f} ms/call "
+            f"(device, cold L2 {dev_ms!r}), plain {row['plain_ms']:.4f} ms, "
+            f"bound {b_ms:.5f} ms ({b_by}); copy_ of the same "
+            f"{rec['out_bytes']} bytes, device {row['copy_device_ms']!r}")
+        rows.append(row)
     # the main-path entry: the planned class with the most windows
-    return max(rows, key=lambda r: (r["src"] != "seeded padded table",
-                                    r["n"]))
+    return max((r for r in rows if r["src"] == "first chunk's plan"),
+               key=lambda r: r["n"]), rows
 
 
 def check_proxy_plan(feat, w, b, thr, grid_hw):
+    """The fused plan against its plain version over the cases of
+    ``repro_torch.kernels.proxy_plan.check`` (the card-only tests'
+    own: the main path's shapes at a threshold between cells and on a
+    cell, an all-empty frame, B 1, the reduced config, an odd C), then
+    on the set-up chunk's own features at the main path's threshold,
+    timed there (device ms over ``KERNEL_NAMES``; the host's enqueue
+    time of the wrapper).  -> the record."""
     hc, wc = grid_hw
     B, hp, wp, C = feat.shape
-    sy, sx = _spans_on(feat.device, hc, hp, wc, wp)
-    cases = [("main path features", feat, thr)]
-    rng = np.random.default_rng(SEED)
-    rnd = torch.from_numpy(np.maximum(rng.standard_normal(
-        tuple(feat.shape)), 0).astype(np.float32)).to(DEVICE)
-    with torch.inference_mode():
-        on_cell = float(torch.sigmoid(rnd[B // 2, hp // 2, wp // 2] @ w + b))
-    cases.append(("random features, threshold on a cell", rnd, on_cell))
     flips = 0
-    err = 0.0
-    for name, f, t in cases:
-        with torch.inference_mode():
-            gk, sk = proxy_plan(f, w, b, t, grid_hw=grid_hw)
-            gp, sp = proxy_plan_ref(f, w, b, t, sy, sx)
-        torch.cuda.synchronize()
-        reach = check_plan(f, w, b, t, gk, sk)
-        check_plan(f, w, b, t, gp, sp)
-        diff = (gk != gp)
-        n_flip = int(diff.sum())
-        frames_same = ~diff.any(dim=(1, 2))
-        if not torch.equal(sk[frames_same], sp[frames_same]):
-            raise AssertionError("proxy_plan stats differ on a frame no "
-                                 "flip touched")
-        flips += n_flip
-        err = max(err, float((gk.int() - gp.int()).abs().max()))
-        log(f"proxy_plan ({name}): {n_flip} flipped grid cells, all "
-            f"within {FLIP_ULPS} ulp of threshold {t!r} ({reach} cells in "
-            "the band's reach); stats equal wherever no flip touched")
+    for case in plan_check.CASES:
+        rec = plan_check.check_case(case, DEVICE)
+        flips += rec["flips"]
+        log(f"proxy_plan {case[0]} {rec['shape']}: {rec['flips']} flipped "
+            f"grid cells, all within {FLIP_ULPS} ulp of the threshold "
+            f"({rec['reach']} cells in the band's reach); stats equal "
+            "wherever no flip touched")
+    rec = plan_check.check_call(feat, w, b, thr, grid_hw,
+                                "main path features")
+    flips += rec["flips"]
+    log(f"proxy_plan (main path features): {rec['flips']} flipped grid "
+        f"cells, all within {FLIP_ULPS} ulp of threshold {thr!r} "
+        f"({rec['reach']} cells in the band's reach)")
+    sy, sx = _spans_on(feat.device, hc, hp, wc, wp)
 
     def kern():
         return proxy_plan(feat, w, b, thr, grid_hw=grid_hw)
@@ -461,14 +479,38 @@ def check_proxy_plan(feat, w, b, thr, grid_hw):
     n_ops = B * hp * wp * (2 * C + 4) + B * (hc * wp * hp + hc * wc * wp) * 2
     b_ms, b_by = bound(n_bytes, n_ops)
     with torch.inference_mode():
-        row = dict(max_abs_err=err, flips=flips, ms=event_ms(kern),
-                   plain_ms=event_ms(plain),
-                   device_ms=device_ms(kern, "proxy_plan_kernel"),
-                   bound_ms=b_ms, bound_by=b_by)
+        dev_ms = traced_ms(kern, plan_check.KERNEL_NAMES, "proxy_plan")
+        row = dict(max_abs_err=float(flips > 0), flips=flips,
+                   ms=event_ms(kern), plain_ms=event_ms(plain),
+                   host_us=host_us(kern), device_ms=dev_ms, bound_ms=b_ms,
+                   bound_by=b_by)
+        # the plan's way back to the host, as ProxyModel.plan_batch takes
+        # it: one copy of the buffer that grid and stats share, against
+        # a copy of each
+        grid, stats = kern()
+        row.update(copy_back_us=host_us(lambda: plan_to_host(grid, stats)),
+                   copy_back_two_us=host_us(lambda: (grid.cpu().numpy(),
+                                                     stats.cpu().numpy())))
     log(f"proxy_plan {tuple(feat.shape)} -> {(B, hc, wc)}: kernel "
-        f"{row['ms']:.4f} ms/call (device, cold L2 {row['device_ms']}), "
-        f"plain {row['plain_ms']:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+        f"{row['ms']:.4f} ms/call (device, cold L2 {dev_ms!r}; host "
+        f"enqueue {row['host_us']:.2f} us a call), plain "
+        f"{row['plain_ms']:.4f} ms, bound {b_ms:.6f} ms ({b_by}); the plan "
+        f"to the host in one copy {row['copy_back_us']:.2f} us, in two "
+        f"{row['copy_back_two_us']:.2f} us")
     return row
+
+
+def host_us(fn, reps: int = 200) -> float:
+    """Host time of one call of ``fn`` (its enqueue: no synchronise
+    inside the loop), in us."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / reps * 1e6
 
 
 def check_window_gather_single(frame):
@@ -977,7 +1019,8 @@ def run_video() -> list:
     grid_hw = pl.det_grid(params.det_res)[::-1]
     enc = bank.proxies[pres].encoder
 
-    wg = check_window_gather(frames, first_plan)
+    floor_ms = launch_floor_ms()
+    wg, wg_rows = check_window_gather(frames, first_plan)
     wg1 = check_window_gather_single(frames[0])
     with torch.inference_mode():
         pp = check_proxy_plan(feat, enc.head_w, enc.head_b,
@@ -1168,22 +1211,35 @@ def run_video() -> list:
     kernels = [
         dict(name="proxy_plan", route="cuda", source=src + "proxy_plan.cu",
              replaces="src/repro/kernels/proxy_plan/kernel.py:67",
-             design="one block per frame, head + threshold + grid map + "
-                    "plan stats fused, f32 cuda-core",
+             design="one block of 512 per frame: the frame's features, w "
+                    "and spans in one wave of bulk copies into shared "
+                    "memory (ordinary loads where unaligned), head 4 "
+                    "threads a cell, spans as bitmasks, grid by AND/OR, "
+                    "plan stats; f32 cuda-core",
              launches=launches["proxy_plan"], max_abs_err=pp["max_abs_err"],
              ms=pp["ms"], plain_ms=pp["plain_ms"], bound_ms=pp["bound_ms"],
              bound_by=pp["bound_by"], library_ms=None,
-             device_ms=pp["device_ms"], flips=pp["flips"]),
+             device_ms=pp["device_ms"], host_us=pp["host_us"],
+             copy_back_us=pp["copy_back_us"],
+             copy_back_two_us=pp["copy_back_two_us"],
+             flips=pp["flips"], launch_floor_device_ms=floor_ms),
         dict(name="window_gather_batch", route="cuda",
              source=src + "window_gather.cu",
              replaces="src/repro/kernels/window_gather/kernel.py:76",
-             design="one block per (window, window row), 16-byte copies",
+             design="one block per (window, band of rows), every 16-byte "
+                    "load of the band issued before the first store; a "
+                    "host table's rows carried by the launch as a kernel "
+                    "parameter (scalar copies where unaligned)",
              launches=launches["window_gather_batch"],
              max_abs_err=wg["max_abs_err"], ms=wg["ms"],
              plain_ms=wg["plain_ms"], bound_ms=wg["bound_ms"],
              bound_by=wg["bound_by"], library_ms=None,
-             device_ms=wg["device_ms"],
-             shape=f"{wg['n']} windows of {wg['size']} cells"),
+             device_ms=wg["device_ms"], copy_device_ms=wg["copy_device_ms"],
+             launch_floor_device_ms=floor_ms,
+             shape=f"{wg['n']} windows of {wg['size']} cells",
+             cases={r["case"]: {f: r[f] for f in (
+                 "n", "ms", "device_ms", "copy_device_ms", "bound_ms")}
+                 for r in wg_rows}),
         dict(name="track_step", route="cuda", source=src + "track_step.cu",
              replaces="src/repro/kernels/track_step/kernel.py:160",
              design="feature, cost (a thread per pair and hidden unit), "

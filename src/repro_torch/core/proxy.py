@@ -21,7 +21,7 @@ from torch import nn
 
 from repro_torch import Device, resolve_device
 from repro_torch.core.detector import SameConv2d, pad_to_bucket, to_device
-from repro_torch.kernels.proxy_plan import proxy_plan
+from repro_torch.kernels.proxy_plan import plan_to_host, proxy_plan
 from repro_torch.kernels.proxy_score import proxy_score
 
 
@@ -207,4 +207,4 @@ class ProxyModel:
             grids, stats = proxy_plan(feat, self.encoder.head_w,
                                       self.encoder.head_b, threshold,
                                       grid_hw=(hc, wc))
-            return grids[:n].cpu().numpy(), stats[:n].cpu().numpy()
+            return plan_to_host(grids[:n], stats[:n])

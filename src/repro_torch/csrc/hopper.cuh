@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks in inline PTX: mbarriers, TMA tile
-// loads, wgmma shared-memory descriptors and the m64n64k16 / m64n128k16
-// bf16 products with f32 accumulators; on the host, bf16 TMA tensor maps
-// (cached).  Used by flash_attention.cu and ssd_scan.cu.
+// loads, 1-D bulk loads, wgmma shared-memory descriptors and the
+// m64n64k16 / m64n128k16 bf16 products with f32 accumulators; on the
+// host, bf16 TMA tensor maps (cached).  Used by flash_attention.cu and
+// ssd_scan.cu; proxy_plan.cu uses the mbarriers and the bulk loads.
 //
 // Register layout of an m64nN f32 accumulator d[N / 2] (PTX ISA, wgmma
 // "register fragment" figures): warp w of the warpgroup holds rows
@@ -93,6 +94,18 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// a 1-D bulk copy of ``bytes`` from global into shared memory (both
+// addresses 16-byte aligned, ``bytes`` a multiple of 16); the barrier
+// counts the bytes
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

@@ -14,15 +14,20 @@ Every kernel has, in its ``ops.py``:
 
 Kernels (sources in ``repro_torch/csrc/``, built by ``_build``):
   proxy_plan    — fused proxy head + threshold + detector-grid mapping +
-                  per-frame plan stats (replaces the JAX package's
+                  per-frame plan stats, one block per frame: the frame's
+                  features, w and spans in one wave of bulk copies into
+                  shared memory, the head 4 threads a cell, the spans as
+                  bitmasks mapped with AND/OR (replaces the JAX package's
                   ``kernels/proxy_plan`` Pallas kernel).
   proxy_score   — proxy head + sigmoid + strict threshold into a score
                   map and a positive grid, one warp per cell (replaces
                   ``kernels/proxy_score``'s ``proxy_score_pallas``).
   window_gather — crop one size class of windows out of a chunk of
-                  frames by a (frame, cy, cx) table, or out of one frame
-                  by a (cy, cx) table: two launchers over one row copy
-                  (replace ``kernels/window_gather``'s
+                  frames by a (frame, cy, cx) table (a block per window
+                  and band of rows, every 16-byte load of the band before
+                  the first store; a host table's rows carried by the
+                  launch), or out of one frame by a (cy, cx) table (a
+                  block per window row) (replace ``kernels/window_gather``'s
                   ``window_gather_batch_pallas`` and
                   ``window_gather_pallas``).
   assign        — batched Jonker-Volgenant assignment, one warp per
@@ -55,11 +60,14 @@ Kernels (sources in ``repro_torch/csrc/``, built by ``_build``):
 
 The attention kernels and ssd_scan share ``csrc/attention.cuh`` (f32 /
 bf16 loads and rounding); ``csrc/hopper.cuh`` holds the PTX of TMA,
-mbarriers and wgmma and the host's cached TMA tensor maps (the bf16
-instances of flash_attention and ssd_scan use it).  ``ssd_scan.check``, ``flash_attention.check``,
-``decode_attention.check``, ``assign.check`` and ``track_step.check``
-hold those kernels against their plain versions on the card
-(``chip_smoke.py`` and ``tests/test_torch_cuda.py`` share them).
+mbarriers, 1-D bulk copies and wgmma and the host's cached TMA tensor
+maps (the bf16 instances of flash_attention and ssd_scan, and
+proxy_plan's bulk copies, use it).  ``ssd_scan.check``,
+``flash_attention.check``, ``decode_attention.check``,
+``assign.check``, ``track_step.check``, ``proxy_plan.check`` and
+``window_gather.check`` hold those kernels against their plain versions
+on the card (``chip_smoke.py`` and ``tests/test_torch_cuda.py`` share
+them).
 
 assign and track_step give the host tracker's f32 bits: their math goes
 through ``csrc/fastmath.cuh`` and they are built with -fmad=false

@@ -7,7 +7,9 @@ and the per-frame plan-stat reduction, so only the (B, hc, wc) int8 grid
 and a (B, 8) int32 stats row [count, ymin, ymax, xmin, xmax, 0, 0, 0]
 leave the op.  An empty frame's row is [0, hc, -1, wc, -1, 0, 0, 0].
 
-On a CUDA tensor it launches ``csrc/proxy_plan.cu``; on a CPU tensor it
+On a CUDA tensor it launches ``csrc/proxy_plan.cu``, and the grid and
+stats it returns are views of one device buffer, which
+``plan_to_host`` brings to the host in one copy; on a CPU tensor it
 runs ``proxy_plan_ref``, the plain PyTorch version (a copy of the JAX
 package's ``kernels/proxy_plan/ref.py``).
 """
@@ -25,7 +27,7 @@ from repro_torch.kernels import (check_launch, device_guard, on_cuda, ptr,
 from repro_torch.kernels._build import library
 
 STATS_W = 8     # [count, ymin, ymax, xmin, xmax, 0, 0, 0]
-_SMEM_LIMIT = 48 * 1024     # dynamic shared memory without an opt-in
+_MASK_LIMIT = 7 * 1024      # the kernel's bitmask words (kMaxMasks)
 # proxy_plan_launch(feat, w, b, threshold, span_y, span_x, grid, stats,
 #                   B, hp, wp, C, hc, wc, stream)
 LAUNCH_ARGTYPES = ((ctypes.c_void_p,) * 3 + (ctypes.c_float,)
@@ -154,10 +156,20 @@ def _launcher():
     fn = lib.proxy_plan_launch
     fn.argtypes = list(LAUNCH_ARGTYPES)
     fn.restype = ctypes.c_int
-    smem = lib.proxy_plan_smem_bytes
-    smem.argtypes = [ctypes.c_int] * 3
-    smem.restype = ctypes.c_int
-    return lib, fn, smem
+    return lib, fn
+
+
+@functools.lru_cache(maxsize=None)
+def _layout(B: int, hp: int, wp: int, hc: int, wc: int) -> int:
+    """Byte offset of the stats in the output buffer (the grid's bytes
+    rounded up to 16); raises for a grid whose bitmasks (words of 32
+    bits: ``mask_bytes`` in ``csrc/proxy_plan.cu``) exceed the kernel's
+    shared memory."""
+    nwx, nwy = -(-wp // 32), -(-hp // 32)
+    if (hp * nwx + hc * nwy + wc * nwx + hc * nwx) * 4 > _MASK_LIMIT:
+        raise ValueError(f"proxy_plan: grid ({hp}, {wp}) -> ({hc}, {wc}) "
+                         "needs more shared memory than one block has")
+    return -(-B * hc * wc // 16) * 16
 
 
 def proxy_plan(feat: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -173,23 +185,22 @@ def proxy_plan(feat: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if not on_cuda(feat):
         sy, sx = _spans_on(feat.device, hc, hp, wc, wp)
         return proxy_plan_ref(feat, w, b, threshold, sy, sx)
+    dev = feat.get_device()
     for name, t, shape in (("feat", feat, (B, hp, wp, C)),
                            ("w", w, (C,)), ("b", b, (1,))):
-        if t.device != feat.device or t.dtype != torch.float32 \
-                or tuple(t.shape) != shape or not t.is_contiguous():
+        if t.get_device() != dev or t.dtype != torch.float32 \
+                or t.shape != shape or not t.is_contiguous():
             raise ValueError(f"proxy_plan: {name} must be a contiguous "
                              f"f32 tensor of shape {shape} on "
                              f"{feat.device}, got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
-    grid = torch.empty((B, hc, wc), dtype=torch.int8, device=feat.device)
-    stats = torch.empty((B, STATS_W), dtype=torch.int32,
-                        device=feat.device)
+    off = _layout(B, hp, wp, hc, wc)
+    buf = feat.new_empty(off + B * STATS_W * 4, dtype=torch.int8)
+    grid = buf[:B * hc * wc].view(B, hc, wc)
+    stats = buf[off:].view(torch.int32).view(B, STATS_W)
     if B == 0:
         return grid, stats
-    lib, fn, smem = _launcher()
-    if smem(hp, wp, hc) > _SMEM_LIMIT:
-        raise ValueError(f"proxy_plan: grid ({hp}, {wp}) -> ({hc}, {wc}) "
-                         "needs more shared memory than one block has")
+    lib, fn = _launcher()
     sy, sx = _spans_on(feat.device, hc, hp, wc, wp)
     with device_guard(feat):
         err = fn(ptr(feat), ptr(w), ptr(b), float(threshold), ptr(sy),
@@ -201,3 +212,20 @@ def proxy_plan(feat: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 proxy_plan.launches = 0
+
+
+def plan_to_host(grid: torch.Tensor, stats: torch.Tensor
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """(grid, stats) as host arrays: one device-to-host copy of the
+    buffer that both are views of, as ``proxy_plan`` returns them on the
+    card (slices along the batch included); two copies otherwise."""
+    store = grid.untyped_storage()
+    if not grid.is_contiguous() or not stats.is_contiguous() \
+            or stats.untyped_storage().data_ptr() != store.data_ptr():
+        return grid.cpu().numpy(), stats.cpu().numpy()
+    raw = torch.empty(0, dtype=torch.uint8).set_(store.cpu()).numpy()
+    g0 = grid.storage_offset()
+    s0 = stats.storage_offset() * stats.element_size()
+    return (raw[g0:g0 + grid.numel()].view(np.int8).reshape(grid.shape),
+            raw[s0:s0 + stats.numel() * 4].view(np.int32)
+            .reshape(stats.shape))

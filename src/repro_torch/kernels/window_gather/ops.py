@@ -14,10 +14,12 @@ semantics), so ``detect_with_windows``' zero padding rows crop cell
 (0, 0).
 
 On a CUDA tensor each launches its kernel in ``csrc/window_gather.cu``
-(``window_gather_batch_launch``, ``window_gather_launch``); on a CPU
-tensor it runs its plain PyTorch version (``window_gather_batch_ref``,
-``window_gather_ref``: indexing).  All are pure copies, so they agree
-exactly.
+(``window_gather_batch_launch``, or ``window_gather_batch_rows_launch``
+for a table of at most ``MAX_PARAM_ROWS`` rows on the host, whose rows
+the launch carries as a kernel parameter; ``window_gather_launch``); on
+a CPU tensor it runs its plain PyTorch version
+(``window_gather_batch_ref``, ``window_gather_ref``: indexing).  All
+are pure copies, so they agree exactly.
 """
 from __future__ import annotations
 
@@ -33,8 +35,9 @@ from repro_torch.kernels import (check_launch, device_guard, on_cuda, ptr,
 from repro_torch.kernels._build import library
 
 _MAX_WINDOWS = 65535        # the launch's grid.y limit
-# window_gather_batch_launch(frames, table, out, n, B, H, W, C, win_h,
-#                            win_w, cell, vec4, stream)
+MAX_PARAM_ROWS = 16         # kMaxRows: a host table the launch carries
+# window_gather_batch_launch and window_gather_batch_rows_launch(frames,
+#     table, out, n, B, H, W, C, win_h, win_w, cell, vec4, stream)
 LAUNCH_ARGTYPES = ((ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 9
                    + (ctypes.c_void_p,))
 # window_gather_launch(frame, origins, out, n, H, W, C, win_h, win_w,
@@ -102,8 +105,10 @@ def window_gather_batch(frames: torch.Tensor,
                         table: Union[np.ndarray, torch.Tensor], *,
                         win_h: int, win_w: int, cell: int) -> torch.Tensor:
     """frames: (B, H, W, C) f32 with H, W multiples of ``cell``; table:
-    (n, 3) int32 (frame, cy, cx) rows in cell units, host or device.
-    Returns (n, win_h, win_w, C) on frames' device."""
+    (n, 3) int32 (frame, cy, cx) rows in cell units, host or device (a
+    host table of at most ``MAX_PARAM_ROWS`` rows goes to the card
+    inside the launch).  Returns (n, win_h, win_w, C) on frames'
+    device."""
     B, H, W, C = frames.shape
     _check_window("window_gather_batch", H, W, win_h, win_w, cell)
     table = torch.as_tensor(table, dtype=torch.int32)
@@ -120,13 +125,18 @@ def window_gather_batch(frames: torch.Tensor,
     if n > _MAX_WINDOWS:
         raise ValueError(f"window_gather_batch: {n} windows > "
                          f"{_MAX_WINDOWS} per call")
-    table = table.to(frames.device).contiguous()
+    if table.is_cuda or n > MAX_PARAM_ROWS:
+        table = table.to(frames.device).contiguous()
+        symbol = "window_gather_batch_launch"
+    else:
+        table = table.contiguous()
+        symbol = "window_gather_batch_rows_launch"
     out = torch.empty((n, win_h, win_w, C), dtype=frames.dtype,
                       device=frames.device)
     if n == 0:
         return out
     vec4 = _vec4(frames, out, W, C, win_w, cell)
-    lib, fn = _launcher("window_gather_batch_launch", LAUNCH_ARGTYPES)
+    lib, fn = _launcher(symbol, LAUNCH_ARGTYPES)
     with device_guard(frames):
         err = fn(ptr(frames), ptr(table), ptr(out), n, B, H, W, C, win_h,
                  win_w, cell, vec4, stream_of(frames))

@@ -1,8 +1,8 @@
 """The port's CUDA kernels against their plain versions, on the card:
-``ssd_scan``, ``flash_attention``, ``decode_attention``, ``assign`` and
-``track_step``.  Marked ``cuda``: each test skips without a CUDA device
-(a kernel has no CPU mode; the CPU tests hold the plain versions to the
-JAX package).  This
+``ssd_scan``, ``flash_attention``, ``decode_attention``, ``assign``,
+``track_step``, ``proxy_plan`` and ``window_gather_batch``.  Marked
+``cuda``: each test skips without a CUDA device (a kernel has no CPU
+mode; the CPU tests hold the plain versions to the JAX package).  This
 file imports torch only, so that it runs on a machine with a card and no
 JAX:
 
@@ -17,7 +17,10 @@ on tensor cores, f32 on CUDA cores, read from the profiler's trace); the attenti
 bf16 one bf16 ulp apart (the f32 bound near zero); ``assign`` and
 ``track_step`` bit for bit (their tie, signed-zero, all-inf, dead-row,
 padding and large-matrix cases included), and non-finite costs must
-raise in ``assign`` as in its plain version.
+raise in ``assign`` as in its plain version; ``proxy_plan`` within the
+8-ulp threshold band of float64 arithmetic, its stats equal wherever no
+flip touched the frame, and ``window_gather_batch`` bit for bit, each
+on the branch of its shape (bulk copies where aligned).
 """
 import pytest
 
@@ -28,9 +31,12 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     check as decode_check)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     check as flash_check)
+from repro_torch.kernels.proxy_plan import check as plan_check  # noqa: E402
 from repro_torch.kernels.ssd_scan import check  # noqa: E402
 from repro_torch.kernels.track_step import (  # noqa: E402
     check as track_check)
+from repro_torch.kernels.window_gather import (  # noqa: E402
+    check as gather_check)
 
 pytestmark = pytest.mark.cuda
 
@@ -111,3 +117,35 @@ def test_assign_kernel_raises_where_plain_version_does(dev, case):
                          ids=[c[0] for c in track_check.CASES])
 def test_track_step_kernel_matches_plain_version(dev, case):
     track_check.check_case(case, dev)
+
+
+@pytest.mark.parametrize("case", plan_check.CASES,
+                         ids=[c[0] for c in plan_check.CASES])
+def test_proxy_plan_kernel_matches_plain_version(dev, case):
+    plan_check.check_case(case, dev)
+
+
+@pytest.mark.parametrize("case", plan_check.CASES,
+                         ids=[c[0] for c in plan_check.CASES])
+def test_proxy_plan_takes_the_branch_of_its_shape(dev, case):
+    rec = plan_check.check_case(case, dev)
+    got = plan_check.kernels_launched(rec["operands"], case[1][4:])
+    assert len(got) == 1, got
+    bulk = plan_check.BULK_KERNEL in got.pop()
+    assert bulk == plan_check.takes_bulk_branch(case)
+
+
+@pytest.mark.parametrize("case", gather_check.CASES,
+                         ids=[c[0] for c in gather_check.CASES])
+def test_window_gather_batch_kernel_matches_plain_version(dev, case):
+    gather_check.check_case(case, dev)
+
+
+@pytest.mark.parametrize("case", gather_check.CASES,
+                         ids=[c[0] for c in gather_check.CASES])
+def test_window_gather_batch_takes_the_branch_of_its_rows(dev, case):
+    rec = gather_check.check_case(case, dev)
+    got = gather_check.kernels_launched(rec["operands"])
+    assert len(got) == 1, got
+    scalar = gather_check.SCALAR_KERNEL in got.pop()
+    assert scalar == (case[3] == "unaligned")

@@ -351,6 +351,8 @@ LAUNCHERS = [
      "repro_torch.kernels.proxy_plan.ops", "LAUNCH_ARGTYPES"),
     ("window_gather.cu", "window_gather_batch_launch",
      "repro_torch.kernels.window_gather.ops", "LAUNCH_ARGTYPES"),
+    ("window_gather.cu", "window_gather_batch_rows_launch",
+     "repro_torch.kernels.window_gather.ops", "LAUNCH_ARGTYPES"),
     ("window_gather.cu", "window_gather_launch",
      "repro_torch.kernels.window_gather.ops", "LAUNCH_ARGTYPES_SINGLE"),
     ("proxy_score.cu", "proxy_score_launch",
