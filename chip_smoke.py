@@ -29,8 +29,8 @@ unrefined ones), and the quality readout (MOTA with the host Hungarian
 and with every frame in one ``assign`` launch, count accuracy).  It
 checks that every kernel of each path was launched and that the output
 is right, and profiles four more runs for the device's busy share.
-Then the LM serving path (``run_lm``): ``flash_attention`` (bf16 on
-tensor cores, f32 on CUDA cores) and ``decode_attention`` (the keys
+Then the LM serving path (``run_lm``): ``flash_attention`` (bf16 and
+f32 on tensor cores, f32 as 3xTF32) and ``decode_attention`` (the keys
 split over a cluster of 16 blocks) against their plain versions on
 their ``check`` modules' cases (f32 within 1e-5, bf16 one bf16 ulp
 apart), their refusals, and timed at the serving shapes beside
@@ -45,11 +45,11 @@ prompt alone, the first and last decode step against a fresh prefill;
 and four planted faults (decode attending kv_len = pos, decode one
 position late, decode without rope, a prefill that is not causal) must
 each break the check it targets.  Then Mamba2 serving (``run_ssm``):
-``ssd_scan`` (bf16 on tensor cores, f32 on CUDA cores) against its
+``ssd_scan`` (bf16 and f32 on tensor cores, f32 as 3xTF32) against its
 plain version (f32 within 1e-4 of max |plain|, bf16 within 2 bf16 ulps
-of the f32 plain result) at the prefill's call (B 4, S 500 padded to
-512, H 32, P 64, N 128), B 1 at S 61, 512 and 2048 and Q 100, timed,
-and its refusals; then ``ServeEngine.generate`` at
+of the f32 plain result) at the prefill's call (B 4, S 500, H 32, P 64,
+N 128), B 1 at S 61, 512 and 2048, Q 100 and B 2 at S 130, timed, and
+its refusals; then ``ServeEngine.generate`` at
 full mamba2-370m width (48 layers, bf16 activations, weights from the
 seed) on the same 4 prompts: twice (the same tokens, 48 ``ssd_scan``
 launches each, all in the prefill), timed, profiled, and the same
@@ -146,6 +146,8 @@ PROXY_QUANTILE = 0.85
 DET_QUANTILE = 0.995
 CONV_ATOL = 1e-4                # card vs CPU conv nets (TF32 off)
 BF16_OPS_PER_S = 989e12         # H100 SXM bf16 tensor cores, dense
+# f32 on tensor cores as 3xTF32: three tf32 products (495 TFLOP/s dense)
+TF32X3_OPS_PER_S = 495e12 / 3
 LM_CFG = get_config("qwen2-0.5b")   # full width
 LM_PROMPT_LENS = (61, 200, 384, 500)
 LM_MAX_LEN = 1024
@@ -156,14 +158,12 @@ LM_NEW_TOKENS = 32
 # activation dtype; set between the rounding-only gaps and the planted
 # faults' gaps that the serve checks print (PERF.md)
 LM_LOGIT_TOL = {"bfloat16": 0.2, "float32": 1e-3}
-# the device kernels each attention wrapper may launch, by name: bf16
-# flash attention runs on tensor cores, f32 on CUDA cores
-FLASH_KERNEL_NAMES = ("flash_attention_kernel", "flash_attention_wgmma_kernel")
+# the device kernels each attention wrapper may launch, by name (both
+# flash attention kernels run on tensor cores, f32 as 3xTF32)
+FLASH_KERNEL_NAMES = flash_check.KERNEL_NAMES
 DECODE_KERNEL_NAMES = ("decode_attention_kernel",)
 # the JV kernels of assign_batch (by the matrix size)
 ASSIGN_KERNEL_NAMES = ("assign_kernel", "assign_large_kernel")
-# SDPA's attention kernels (cuDNN's, PyTorch's flash and efficient ones)
-SDPA_KERNEL_NAMES = ("sdpa", "flash_fwd", "fmha")
 SSM_CFG = get_config("mamba2-370m")  # full width
 # the Mamba2 cell's serve checks, by the same rule: its 48 layers carry
 # bf16 rounding further (rounding-only gaps up to 0.23 of the RMS, the
@@ -198,15 +198,10 @@ def event_ms(fn, reps: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms_by_kernel(fn, kernel_names, reps: int = 50):
-    """Device time per call of ``fn`` of each CUDA kernel whose name
-    contains one of ``kernel_names``, from the profiler's trace, with the
-    L2 cache overwritten before each call so that the inputs come from
-    device memory, as the bound assumes: the mean time of the launches
-    the trace recorded, times the launches one call makes (the recorded
-    launches over ``reps``, rounded).  The trace may drop launches, so
-    its total over ``reps`` would read short.  {name: ms, or None if the
-    profiler recorded no device time for it}."""
+def profiled_cold(fn, reps: int):
+    """A profiler's record of ``reps`` calls of ``fn`` (after one
+    untimed call), the L2 cache overwritten before each so that the
+    inputs come from device memory, as the bound assumes."""
     from torch.profiler import ProfilerActivity, profile
     flush = torch.empty(L2_FLUSH_BYTES // 4, device=DEVICE)
     fn()
@@ -217,13 +212,31 @@ def device_ms_by_kernel(fn, kernel_names, reps: int = 50):
             flush.zero_()
             fn()
         torch.cuda.synchronize()
+    return prof
+
+
+def device_us(ev) -> float:
+    """An averaged profiler event's total device time in us (the name
+    of the field depends on the torch version)."""
+    total = getattr(ev, "device_time_total", None)
+    return getattr(ev, "cuda_time_total", 0.0) if total is None else total
+
+
+def device_ms_by_kernel(fn, kernel_names, reps: int = 50):
+    """Device time per call of ``fn`` of each CUDA kernel whose name
+    contains one of ``kernel_names``, from the profiler's trace, with the
+    L2 cache overwritten before each call so that the inputs come from
+    device memory, as the bound assumes: the mean time of the launches
+    the trace recorded, times the launches one call makes (the recorded
+    launches over ``reps``, rounded).  The trace may drop launches, so
+    its total over ``reps`` would read short.  {name: ms, or None if the
+    profiler recorded no device time for it}."""
+    prof = profiled_cold(fn, reps)
     out = {name: None for name in kernel_names}
     for ev in prof.key_averages():
         for name in kernel_names:
             if name in ev.key and ev.count and out[name] is None:
-                total = getattr(ev, "device_time_total", None)
-                if total is None:
-                    total = getattr(ev, "cuda_time_total", 0.0)
+                total = device_us(ev)
                 if total:
                     calls = max(1, round(ev.count / reps))
                     out[name] = total / ev.count * calls / 1e3  # us -> ms
@@ -367,6 +380,33 @@ def traced_ms(fn, kernel_names, label: str, tries: int = 3) -> float:
             return t
     raise AssertionError(f"{label}: the profiler recorded no device time "
                          f"for {kernel_names} in {tries} traces")
+
+
+def traced_kernels(launched, label: str, tries: int = 3) -> set:
+    """``launched()`` (a check module's ``kernels_launched``: the kernel
+    names one profiler trace holds), traced again (up to ``tries``
+    times) when a trace holds none, as ``traced_ms`` does; raises if
+    none does."""
+    for _ in range(tries):
+        got = launched()
+        if got:
+            return got
+    raise AssertionError(f"{label}: the profiler recorded none of the "
+                         f"kernels in {tries} traces")
+
+
+def check_kernel_of_each_dtype(label: str, check, launched) -> None:
+    """Each dtype launches only its own kernel: ``launched(dtype)`` (a
+    check module's ``kernels_launched``) holds ``check.F32_KERNEL`` alone
+    for f32 and the rest of ``check.KERNEL_NAMES`` for bf16."""
+    for dt in (torch.bfloat16, torch.float32):
+        got = traced_kernels(lambda: launched(dt), f"{label} {dt}")
+        want = ({check.F32_KERNEL} if dt == torch.float32 else
+                set(check.KERNEL_NAMES) - {check.F32_KERNEL})
+        if got != want:
+            raise AssertionError(f"{label} {dt}: the trace holds "
+                                 f"{sorted(got)}, expected {sorted(want)}")
+        log(f"{label} {dt}: launches {sorted(got)} only")
 
 
 def launch_floor_ms() -> float:
@@ -1311,11 +1351,26 @@ def run_video() -> list:
 # ---------------------------------------------------------------------------
 
 def attn_bound(n_bytes, n_ops, dtype):
-    """(bound ms, by) at the dtype's peak, and the f32 CUDA-core line
-    (the f32 attention kernels and ssd_scan compute on CUDA cores)."""
-    rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
+    """(bound ms, by) at the dtype's tensor-core peak (bf16; f32 as
+    3xTF32, the way flash_attention and ssd_scan compute it), and the
+    f32 CUDA-core line beside it."""
+    rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else TF32X3_OPS_PER_S
     b_ms, b_by = bound(n_bytes, n_ops, rate)
     return b_ms, b_by, bound(n_bytes, n_ops, F32_OPS_PER_S)[0]
+
+
+def op_device_ms(fn, op_name: str, reps: int = 20):
+    """Device time per call of every kernel that the host op ``op_name``
+    (an ``aten::`` op, children included) launches within ``fn``, with
+    the L2 overwritten before each call as in ``device_ms_by_kernel``;
+    None if the profiler attributed no device time to it.  For a library
+    call whose kernels' names vary with the dtype (SDPA's f32 path is
+    not a flash kernel)."""
+    for ev in profiled_cold(fn, reps).key_averages():
+        if ev.key == op_name and ev.count:
+            total = device_us(ev)
+            return total / ev.count / 1e3 if total else None
+    return None
 
 
 def check_flash_attention():
@@ -1325,10 +1380,11 @@ def check_flash_attention():
     (the ragged edge, masked in the kernel), Sq 128 < Skv 512 causal,
     non-causal, kv_valid 500, and Sq 512 > Skv 256 causal, whose first
     256 rows see no key (they must be 0); then the wrapper's refusals.
-    Timed at S 512 (both dtypes) and S 500 (bf16, the main path's call).
-    -> {case: record}."""
-    timed = {("S512 causal", torch.bfloat16), ("S512 causal", torch.float32),
-             ("S500 causal", torch.bfloat16)}
+    Timed at S 512 and S 500 (the main path's call), both dtypes, beside
+    SDPA (its device time: every kernel the call launches).  -> {case:
+    record}."""
+    timed = {(n, dt) for n in ("S512 causal", "S500 causal")
+             for dt in (torch.bfloat16, torch.float32)}
     Hq = flash_check.HQ
     rows = {}
     for i, case in enumerate(flash_check.CASES):
@@ -1368,8 +1424,8 @@ def check_flash_attention():
                            plain_ms=event_ms(plain, reps=5),
                            library_ms=event_ms(sdpa, reps=20)
                            if Sq == Skv and not kv_valid else None,
-                           library_device_ms=device_ms(
-                               sdpa, SDPA_KERNEL_NAMES, reps=20),
+                           library_device_ms=op_device_ms(
+                               sdpa, "aten::scaled_dot_product_attention"),
                            bound_ms=b_ms, bound_by=b_by,
                            bound_f32_core_ms=f32_ms, flops=n_ops,
                            bytes=n_bytes)
@@ -1383,6 +1439,11 @@ def check_flash_attention():
         else:
             log(f"{label}: max |d| {err!r} (within tolerance)")
         rows[(name, row["dtype"])] = row
+    check_kernel_of_each_dtype(
+        "flash_attention", flash_check,
+        lambda dt: flash_check.kernels_launched(
+            next(c for c in flash_check.CASES if c[1] == dt), DEVICE,
+            reps=20))
     flash_check.check_refusals(DEVICE)
     log("flash_attention: refuses head dim 32 in f32 and bf16")
     return rows
@@ -1771,7 +1832,8 @@ def serve_busy(eng, prompts, activities=None, kernel_names=()) -> dict:
                    for ev in prof.key_averages()
                    if ev.key.startswith("aten::")), reverse=True)
     steps = LM_NEW_TOKENS + 1
-    log(f"device busy (profiled generate, {eng.model.cfg.name}): "
+    log(f"device busy (profiled generate, {eng.model.cfg.name}, "
+        f"{eng.model.cfg.dtype}): "
         f"{busy * 1e3:.1f} ms of {wall * 1e3:.1f} ms wall = "
         f"{100 * busy / wall:.1f}% busy; top device time: "
         + "; ".join(f"{k[:60]} {us / 1e3:.2f} ms" for us, k in top[:6]))
@@ -1887,9 +1949,11 @@ def run_serving(cfg, cell_of) -> dict:
                                                      device=DEVICE),
                         max_len=LM_MAX_LEN)
     chk32 = serve_checks(eng32, prompts, cell_of(cfg32, prompts))
+    busy32 = serve_busy(eng32, prompts, kernel_names=cell.device_names)
     del eng32
     log(f"lm serving {cfg.name}: " + json.dumps(dict(
-        perf, **busy, **{f"{c['dtype']}_{k}": c[k]
+        perf, **busy, **{f"float32_{k}": v for k, v in busy32.items()},
+        **{f"{c['dtype']}_{k}": c[k]
                          for c in (chk, chk32)
                          for k in ("plain", "batch1", "decode_vs_prefill",
                                    "faults")})))
@@ -1909,14 +1973,17 @@ def run_lm() -> list:
     d_main = da["bfloat16"]
     keys = ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
             "bound_f32_core_ms", "max_abs_err")
-    f_keys = keys + ("library_device_ms",)
+    f_keys = keys + ("library_device_ms", "bound_by")
     return [
         dict(name="flash_attention", route="cuda",
              source=src + "flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:98",
-             design="bf16: wgmma m64n64k16 fed by TMA (producer warp, "
-                    "2-stage mbarrier ring, 128B swizzle), P split into "
-                    "bf16 hi + lo; f32: cuda-core, one query row a thread",
+             design="wgmma fed by TMA (producer warp, mbarrier ring, 128B "
+                    "swizzle); bf16: m64n64k16, 2 stages, P split into "
+                    "bf16 hi + lo; f32: 3xTF32 m64n64k8 (hi the raw f32 "
+                    "word, lo written beside it), 1 stage and 2 blocks an "
+                    "SM, S in two accumulators, V transposed with its keys "
+                    "in the register operand's K order",
              launches=served_run["launches"]["flash_attention"],
              max_abs_err=max(r["max_abs_err"] for r in fa.values()),
              ms=f_main["ms"], plain_ms=f_main["plain_ms"],
@@ -1926,7 +1993,9 @@ def run_lm() -> list:
              bound_f32_core_ms=f_main["bound_f32_core_ms"],
              shape="B 4, S 500, Hq 14, Hkv 2, D 64, causal, bf16",
              s512={dt: {k: fa[("S512 causal", dt)][k] for k in f_keys}
-                   for dt in ("bfloat16", "float32")}),
+                   for dt in ("bfloat16", "float32")},
+             s500_float32={k: fa[("S500 causal", "float32")][k]
+                           for k in f_keys}),
         dict(name="decode_attention", route="cuda",
              source=src + "decode_attention.cu",
              replaces="src/repro/kernels/decode_attention/kernel.py:76",
@@ -1948,10 +2017,11 @@ def run_lm() -> list:
 
 def check_ssd_scan():
     """The scan kernel against its plain version on the card
-    (``kernels.ssd_scan.check``): the prefill's call (B 4, S 500 through
-    the padding wrapper to 512, H 32, P 64, N 128, Q 128), B 1 at S 61
-    (Q 61) and at S 512, and Q 100 over a padded S 250, each in bf16 and
-    f32; then the wrapper's refusals.  Timed at the prefill's call, both
+    (``kernels.ssd_scan.check``): the prefill's call (B 4, S 500, H 32, P
+    64, N 128, Q 128), B 1 at S 61 (Q 61), 512 and 2048, Q 100 over S
+    250, and B 2 at S 130, each in bf16 and f32 (no padding copy in
+    either); then that each dtype runs its own kernel (the profiler's
+    trace) and the wrapper's refusals.  Timed at the prefill's call, both
     dtypes.  -> {(case, dtype): record}."""
     rows = {}
     for i, (name, b, S, h, p, n, chunk) in enumerate(ssd_check.CASES):
@@ -2003,6 +2073,12 @@ def check_ssd_scan():
             else:
                 log(f"{label}: max |d| {err!r} (within tolerance)")
             rows[(name, row["dtype"])] = row
+    name, b, S, h, p, n, chunk = ssd_check.CASES[0]
+    check_kernel_of_each_dtype(
+        "ssd_scan", ssd_check,
+        lambda dt: ssd_check.kernels_launched(
+            ssd_check.operands(b, S, h, p, n, dt, DEVICE, SEED), chunk,
+            reps=20))
     ssd_check.check_refusals(DEVICE)
     log("ssd_scan: refuses an unbuilt (P, N) and a chunk over 128")
     return rows
@@ -2014,18 +2090,20 @@ def run_ssm() -> list:
     sc = check_ssd_scan()
     served_run = run_serving(SSM_CFG, ssm_cell)
     main = sc[("prefill B4 S500", "bfloat16")]
-    keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_f32_core_ms",
-            "max_abs_err")
+    keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "bound_f32_core_ms", "max_abs_err")
     return [dict(
         name="ssd_scan", route="cuda",
         source="src/repro_torch/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_scan/kernel.py:85",
-        design="one block per (head, row) walking the chunks; bf16: "
-               "wgmma (m64n64k16, m64n128k16) fed by TMA (2 stages behind "
-               "mbarriers, 128B swizzle), two warpgroups, f32 state in "
-               "registers, M, the state and x*w split into bf16 hi + lo, "
-               "a warp-shuffle cumsum, S unpadded; f32: cuda-core, f32 "
-               "state in shared memory",
+        design="one block per (head, row) walking the chunks, the f32 "
+               "state in registers, S unpadded; bf16: wgmma (m64n64k16, "
+               "m64n128k16) fed by TMA (2 stages behind mbarriers, 128B "
+               "swizzle), two warpgroups, M, the state and x*w split into "
+               "bf16 hi + lo, a warp-shuffle cumsum; f32: 3xTF32 wgmma "
+               "(m64n64k8, m64n128k8) in 64-row steps, one TMA stage, x "
+               "and (w B) transposed, the state's registers the A operand "
+               "of C state^T",
         launches=served_run["launches"]["ssd_scan"],
         max_abs_err=max(r["max_abs_err"] for r in sc.values()),
         ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],

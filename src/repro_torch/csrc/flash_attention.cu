@@ -17,9 +17,12 @@
 // visible (query, key) pairs, 1.8 GFLOP: 1.8 us at the 989 TFLOP/s bf16
 // tensor-core peak, 27 us at the 67 TFLOP/s f32 CUDA-core peak.  So bf16
 // is bound by bytes on paper, and only tensor cores come near that line.
+// In f32 (3xTF32: three tf32 products at 495 TFLOP/s) the same work is
+// 11 us, against 5 us for its 16.8 MB at S 512.
 //
-// Two kernels, one per dtype; flash_attention_launch dispatches on bf16
-// and a bf16 call never runs the f32 kernel.
+// Two kernels, one per dtype, both on tensor cores;
+// flash_attention_launch dispatches on bf16 and a bf16 call never runs
+// the f32 kernel.
 //
 // bf16: flash_attention_wgmma_kernel, on tensor cores.  One block per
 // (64-row query tile, q head, batch row): one consumer warpgroup owns the
@@ -63,18 +66,34 @@
 // output is acc times 1 / l.  The outputs then differ from the plain
 // version by f32 rounding, rounded to bf16: at most one bf16 ulp.
 //
-// f32: flash_attention_kernel, the first port's kernel, unchanged: f32
-// FMAs on the CUDA cores (TF32 tensor cores keep 10 mantissa bits and
-// cannot meet the 1e-5 check).  One block of 64 threads per (64-row query
-// tile, q head, batch row), each thread holding one query row
-// (pre-scaled), its running max m, denominator l and D-wide accumulator
-// in registers; K/V tiles of 64 keys are staged through shared memory as
-// f32 (every thread reads the same key: a broadcast); the softmax is
-// rescaled once per 16 keys.  The dot products are fmaf chains in d
-// order, and the softmax is rescaled every 16 keys where the plain
-// version rescales every 128: outputs differ from it by f32 rounding
-// (about 1e-7 at the serving shape).  expf is the correctly rounded one
-// (no fast math).
+// f32: flash_attention_tf32_kernel, the bf16 kernel's design (producer
+// warp, TMA ring of K and V tiles, one consumer warpgroup per 64-row
+// query tile, the last tiles first, tiles above the diagonal or past
+// n_valid never loaded, a masked key's p exactly 0) with every product
+// 3xTF32: a tf32 product keeps 10 mantissa bits (max |d| 3e-3 against
+// the 1e-5 check), so each f32 operand v is split into hi (the raw word:
+// the tensor cores read an f32 word's top 19 bits, tf32 by truncation)
+// and lo = v - trunc(v), and hi hi' + hi lo' + lo hi' go into one f32
+// accumulator.  Each wgmma truncates its sum, so a long chain in one
+// accumulator drifts: S sums d 0-31 and 32-63 in two accumulators, and
+// each tile's P V its own, added in f32 as O = alpha O + P V (one chain
+// read just over the 1e-5 check at one seed of S 512; PERF.md).
+// tests/test_torch_tf32_design.py models the rounding, the truncating
+// sums and ex2.approx's error included.  f32 tiles of 64 rows are two
+// 32-float panels (128-byte swizzle).  Per tile: K lo beside K; S = Q
+// K^T (K-major on both sides, 3 x 8 products of m64n64k8); then V
+// transposed into V^T hi and lo (wgmma reads tf32 only K-major), lo over
+// K lo; the stage is released; the online softmax as in bf16
+// (ex2.approx, scaled after the product); O's products with P from the
+// registers (hi the raw words, lo written here) as the A operand, whose
+// 8-key blocks hold their keys in the order 0 2 4 6 1 3 5 7 (hopper.cuh):
+// V^T's key columns are written in that order.  Q lo is written once.
+// Shared memory: Q and Q lo, one stage of K and V, K lo (then V^T lo)
+// and V^T hi, 97 KB: two blocks an SM, so one block's softmax and
+// transposes run beside the other's products.  Two stages with V^T
+// written while S runs (144 KB, one block an SM) read slower, and Q lo
+// in registers gave wrong products after a block's first tile
+// (PERF.md).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -84,129 +103,6 @@
 #include "hopper.cuh"
 
 namespace {
-
-// ---------------------------------------------------------------------------
-// f32: CUDA cores
-// ---------------------------------------------------------------------------
-
-
-constexpr int kBQ = 64;   // query rows per block, one per thread
-constexpr int kBK = 64;   // keys per shared-memory tile
-constexpr int kSub = 16;  // keys per softmax rescale
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kBQ) flash_attention_kernel(
-    const T* __restrict__ q,  // (B, Sq, Hq, D)
-    const T* __restrict__ k,  // (B, Skv, Hkv, D)
-    const T* __restrict__ v,
-    T* __restrict__ o,        // (B, Sq, Hq, D)
-    int Sq, int Skv, int Hq, int Hkv, int n_valid, int causal,
-    float scale) {
-  constexpr int V = attn::Ld<T>::N;
-  __shared__ __align__(16) float Ks[kBK][D];
-  __shared__ __align__(16) float Vs[kBK][D];
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int hk = h / (Hq / Hkv);
-  const int q0 = blockIdx.x * kBQ;
-  const int row = q0 + threadIdx.x;
-  const bool live = row < Sq;
-  const int shift = Skv - Sq;
-  const int qpos = row + shift;  // absolute position of this query
-
-  float qr[D];
-  if (live) {
-    const T* qp = q + (((size_t)b * Sq + row) * Hq + h) * D;
-#pragma unroll
-    for (int d = 0; d < D; d += V) attn::Ld<T>::load(qp + d, qr + d);
-#pragma unroll
-    for (int d = 0; d < D; ++d) qr[d] *= scale;
-  } else {
-#pragma unroll
-    for (int d = 0; d < D; ++d) qr[d] = 0.f;
-  }
-  // keys any row of this tile can see
-  int kend = n_valid;
-  if (causal) kend = min(kend, min(q0 + kBQ, Sq) + shift);
-
-  float m = attn::kNegInf, l = 0.f;
-  float acc[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) acc[d] = 0.f;
-
-  for (int k0 = 0; k0 < kend; k0 += kBK) {
-    const int nk = min(kBK, kend - k0);
-    __syncthreads();  // the previous tile is consumed
-    for (int c = threadIdx.x; c < kBK * (D / V); c += kBQ) {
-      const int j = c / (D / V);
-      const int d = (c % (D / V)) * V;
-      if (j < nk) {
-        const size_t off = (((size_t)b * Skv + k0 + j) * Hkv + hk) * D + d;
-        attn::Ld<T>::load(k + off, &Ks[j][d]);
-        attn::Ld<T>::load(v + off, &Vs[j][d]);
-      } else {
-#pragma unroll
-        for (int i = 0; i < V; ++i) Ks[j][d + i] = Vs[j][d + i] = 0.f;
-      }
-    }
-    __syncthreads();
-    for (int j0 = 0; j0 < nk; j0 += kSub) {
-      float s[kSub];
-      float mt = attn::kNegInf;
-      unsigned vis = 0;
-#pragma unroll
-      for (int jj = 0; jj < kSub; ++jj) {
-        const int j = j0 + jj;
-        float dot = 0.f;
-#pragma unroll
-        for (int d = 0; d < D; d += 4) {
-          const float4 kk = *reinterpret_cast<const float4*>(&Ks[j][d]);
-          dot = fmaf(qr[d], kk.x, dot);
-          dot = fmaf(qr[d + 1], kk.y, dot);
-          dot = fmaf(qr[d + 2], kk.z, dot);
-          dot = fmaf(qr[d + 3], kk.w, dot);
-        }
-        s[jj] = dot;
-        if (j < nk && (!causal || k0 + j <= qpos)) {
-          vis |= 1u << jj;
-          mt = fmaxf(mt, dot);
-        }
-      }
-      if (!vis) continue;  // p = 0 and alpha = 1: nothing changes
-      const float m_new = fmaxf(m, mt);
-      const float alpha = expf(m - m_new);
-      float ps = 0.f;
-#pragma unroll
-      for (int jj = 0; jj < kSub; ++jj) {
-        s[jj] = (vis >> jj) & 1u ? expf(s[jj] - m_new) : 0.f;
-        ps += s[jj];
-      }
-      l = l * alpha + ps;
-#pragma unroll
-      for (int d = 0; d < D; d += 4) {
-        float a0 = acc[d] * alpha, a1 = acc[d + 1] * alpha;
-        float a2 = acc[d + 2] * alpha, a3 = acc[d + 3] * alpha;
-#pragma unroll
-        for (int jj = 0; jj < kSub; ++jj) {
-          const float4 vv =
-              *reinterpret_cast<const float4*>(&Vs[j0 + jj][d]);
-          a0 = fmaf(s[jj], vv.x, a0);
-          a1 = fmaf(s[jj], vv.y, a1);
-          a2 = fmaf(s[jj], vv.z, a2);
-          a3 = fmaf(s[jj], vv.w, a3);
-        }
-        acc[d] = a0; acc[d + 1] = a1; acc[d + 2] = a2; acc[d + 3] = a3;
-      }
-      m = m_new;
-    }
-  }
-  if (!live) return;
-  const float den = l == 0.f ? 1.f : l;  // no visible key: acc = 0
-  T* op = o + (((size_t)b * Sq + row) * Hq + h) * D;
-#pragma unroll
-  for (int d = 0; d < D; ++d) op[d] = attn::from_f32<T>(acc[d] / den);
-}
-
 
 // ---------------------------------------------------------------------------
 // bf16: tensor cores (wgmma), TMA, a producer warp
@@ -462,17 +358,315 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// f32: tensor cores, 3xTF32 (wgmma), TMA, a producer warp
+// ---------------------------------------------------------------------------
+
+namespace tf {
+
+using tc::ex2;
+using tc::kBM;
+using tc::kBN;
+using tc::kConsumers;
+using tc::kLog2e;
+using tc::kThreads;
+// one stage of K and V: with V^T lo over K lo (written once S is done) a
+// block fits twice an SM (PERF.md)
+constexpr int kStages = 1;
+constexpr int kPanel = kBN * 128;             // 64 rows of 32 f32
+
+template <int D>
+struct Smem {
+  static constexpr int kTile = (D / 32) * kPanel;   // a 64-row f32 tile
+  static constexpr int kQ = 0;                      // Q, then Q lo
+  static constexpr int kK = 2 * kTile;              // kStages tiles
+  static constexpr int kV = kK + kStages * kTile;   // kStages tiles
+  static constexpr int kKL = kV + kStages * kTile;  // K lo, then V^T lo
+  static constexpr int kVT = kKL + kTile;           // V^T hi
+  static constexpr int kBars = kVT + kTile;
+  static constexpr int kBytes = 1024 + kBars + (1 + 2 * kStages) * 8;
+};
+
+// K step kk's descriptor of a tile of this kernel's panels
+__device__ __forceinline__ uint64_t kdesc(const unsigned char* tile,
+                                          int kk) {
+  return hopper::desc_tf32_k(tile, kk, kPanel);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 2) flash_attention_tf32_kernel(
+    const __grid_constant__ CUtensorMap tm_q,  // (B, Sq, Hq, D) f32
+    const __grid_constant__ CUtensorMap tm_k,  // (B, Skv, Hkv, D)
+    const __grid_constant__ CUtensorMap tm_v,
+    float* __restrict__ o,                     // (B, Sq, Hq, D)
+    int Sq, int Skv, int Hq, int Hkv, int n_valid, int causal,
+    float scale_log2) {
+  static_assert(D == 64, "two 32-float panels a row, two accumulators of "
+                "S over 4 k-steps each: other head dims need other tiles");
+  using L = Smem<D>;
+  constexpr int kTile = L::kTile;
+  extern __shared__ unsigned char smem_raw[];
+  // the 128-byte swizzle repeats every 1024 bytes: tiles start on one
+  const uint32_t pad = (1024u - (hopper::smem_u32(smem_raw) & 1023u)) & 1023u;
+  unsigned char* base = smem_raw + pad;
+  unsigned char* sQ = base + L::kQ;
+  unsigned char* sQL = sQ + kTile;
+  unsigned char* sK = base + L::kK;
+  unsigned char* sV = base + L::kV;
+  unsigned char* sKL = base + L::kKL;
+  unsigned char* sVT = base + L::kVT;
+  unsigned char* sVTL = sKL;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + L::kBars);
+  uint64_t* q_full = bars;
+  uint64_t* full = bars + 1;                         // kStages
+  uint64_t* empty = bars + 1 + kStages;              // kStages
+
+  // blocks start in the order of their linear index: the heavy causal
+  // tiles (the last rows, which see the most keys) of every head first
+  const int qt = gridDim.z - 1 - blockIdx.z;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int hk = h / (Hq / Hkv);
+  const int q0 = qt * kBM;
+  const int shift = Skv - Sq;
+  // keys any row of this tile can see
+  int kend = n_valid;
+  if (causal) kend = min(kend, min(q0 + kBM, Sq) + shift);
+  const int n_tiles = kend > 0 ? (kend + kBN - 1) / kBN : 0;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 4);  // a lane of each consuming warp
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // producer: one lane issues every copy, two 32-float panels a tile
+    if (threadIdx.x == kConsumers) {
+      hopper::mbar_expect_tx(q_full, kTile);
+      for (int k = 0; k < D / 32; ++k)
+        hopper::tma_load_4d(sQ + k * kPanel, &tm_q, q_full, 32 * k, h, q0,
+                            b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kStages;
+        if (t >= kStages)  // the consumers are done with its last use
+          hopper::mbar_wait(&empty[s], ((t / kStages) - 1) & 1);
+        hopper::mbar_expect_tx(&full[s], 2 * kTile);
+        for (int k = 0; k < D / 32; ++k) {
+          hopper::tma_load_4d(sK + s * kTile + k * kPanel, &tm_k, &full[s],
+                              32 * k, hk, t * kBN, b);
+          hopper::tma_load_4d(sV + s * kTile + k * kPanel, &tm_v, &full[s],
+                              32 * k, hk, t * kBN, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: thread (warp w, lane l) holds rows r0 and r0 + 8 of the
+  // tile, columns 8 j + 2 (l % 4) + {0, 1} (hopper.cuh)
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int r0 = warp * 16 + (lane >> 2);
+  const int c0 = 2 * (lane & 3);
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  float m[2] = {attn::kNegInf, attn::kNegInf};
+  float l[2] = {0.f, 0.f};   // this lane's share of each row's sum
+
+  hopper::mbar_wait(q_full, 0);
+  for (int i = tid; i < kTile / 16; i += kConsumers)
+    reinterpret_cast<float4*>(sQL)[i] =
+        hopper::tf32_lo4(reinterpret_cast<const float4*>(sQ)[i]);
+  // V^T hi (the raw word) and lo: row d, key j at slot tf32_k_slot(j) of
+  // its 8; a warp reads 32 keys of one 4-wide chunk of d and writes 32
+  // consecutive elements
+  auto transpose_v = [&](const unsigned char* sVs) {
+    for (int i = tid; i < kBN * D / 4; i += kConsumers) {
+      const int j = i & (kBN - 1), dd = (i / kBN) * 4;
+      const float4 v = *reinterpret_cast<const float4*>(
+          sVs + (dd >> 5) * kPanel + hopper::sw128_f32(j, dd & 31));
+      const float vv[4] = {v.x, v.y, v.z, v.w};
+      const int slot = hopper::tf32_k_slot(j);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int off = (slot >> 5) * kPanel
+                        + hopper::sw128_f32(dd + e, slot & 31);
+        *reinterpret_cast<float*>(sVT + off) = vv[e];
+        *reinterpret_cast<float*>(sVTL + off) = hopper::tf32_lo(vv[e]);
+      }
+    }
+  };
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % kStages;
+    const unsigned char* sKs = sK + s * kTile;
+    hopper::mbar_wait(&full[s], (t / kStages) & 1);
+    for (int i = tid; i < kTile / 16; i += kConsumers)
+      reinterpret_cast<float4*>(sKL)[i] =
+          hopper::tf32_lo4(reinterpret_cast<const float4*>(sKs)[i]);
+    hopper::fence_proxy_async();
+    hopper::named_barrier(1, kConsumers);   // Q lo (first tile), K lo
+
+    // S = Q K^T: K-major on both sides, 8-wide K steps of d, d 0-31 and
+    // 32-63 in two accumulators added in f32 (the tensor cores' sums
+    // truncate: a long chain in one accumulator drifts, PERF.md)
+    float sc[32], s2[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = s2[i] = 0.f;
+    hopper::fence_regs(sc);
+    hopper::fence_regs(s2);
+    hopper::wgmma_fence();
+    auto qk = [&](float (&sk)[32], int kk) {
+      const uint64_t dq = kdesc(sQ, kk), dk = kdesc(sKs, kk);
+      hopper::wgmma_m64n64k8_tf32_ss(sk, dq, dk, 1);
+      hopper::wgmma_m64n64k8_tf32_ss(sk, dq, kdesc(sKL, kk), 1);
+      hopper::wgmma_m64n64k8_tf32_ss(sk, kdesc(sQL, kk), dk, 1);
+    };
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) qk(sc, kk);
+#pragma unroll
+    for (int kk = D / 16; kk < D / 8; ++kk) qk(s2, kk);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait_all();
+    hopper::fence_regs(sc);
+    hopper::fence_regs(s2);
+    transpose_v(sV + s * kTile);            // V^T lo over K lo
+    hopper::fence_proxy_async();
+    hopper::named_barrier(1, kConsumers);   // V^T written; K, V read
+    if (lane == 0) hopper::mbar_arrive(&empty[s]);
+
+    // mask (bit i of vis: sc[i] is visible; every key of a tile below
+    // the diagonal and inside n_valid is) and scale; each row's max
+    const int k0 = t * kBN;
+    uint32_t vis = 0xffffffffu;
+    if (k0 + kBN > n_valid || (causal && k0 + kBN - 1 > q0 + shift)) {
+      vis = 0;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int key = k0 + (i >> 2) * 8 + c0 + (i & 1);
+        const int qpos = q0 + r0 + 8 * ((i >> 1) & 1) + shift;
+        if (key < n_valid && (!causal || key <= qpos)) vis |= 1u << i;
+      }
+    }
+    float mx[2] = {attn::kNegInf, attn::kNegInf};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1;
+      sc[i] = (sc[i] + s2[i]) * scale_log2;
+      if ((vis >> i) & 1u) mx[r] = fmaxf(mx[r], sc[i]);
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      // no visible key yet: m = m_new = kNegInf, alpha = 1 (acc, l are 0)
+      alpha[r] = ex2(m[r] - m_new);
+      m[r] = m_new;
+    }
+    float ps[2] = {0.f, 0.f};
+    float pl[32];                           // P lo
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1;
+      const float p = (vis >> i) & 1u ? ex2(sc[i] - m[r]) : 0.f;
+      sc[i] = p;
+      pl[i] = hopper::tf32_lo(p);
+      ps[r] += p;
+    }
+    l[0] = l[0] * alpha[0] + ps[0];
+    l[1] = l[1] * alpha[1] + ps[1];
+
+    // P V into its own accumulator (s2, free again), then O = alpha O +
+    // P V in f32; P's registers are the A operand of 8-key step kk, in
+    // the permuted K order that V^T's columns follow
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s2[i] = 0.f;
+    hopper::fence_regs(s2);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBN / 8; ++kk) {
+      const uint64_t dv = kdesc(sVT, kk);
+      hopper::wgmma_m64n64k8_tf32_rs(s2, sc[4 * kk], sc[4 * kk + 2],
+                                     sc[4 * kk + 1], sc[4 * kk + 3], dv);
+      hopper::wgmma_m64n64k8_tf32_rs(s2, sc[4 * kk], sc[4 * kk + 2],
+                                     sc[4 * kk + 1], sc[4 * kk + 3],
+                                     kdesc(sVTL, kk));
+      hopper::wgmma_m64n64k8_tf32_rs(s2, pl[4 * kk], pl[4 * kk + 2],
+                                     pl[4 * kk + 1], pl[4 * kk + 3], dv);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait_all();
+    hopper::fence_regs(s2);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = acc[i] * alpha[(i >> 1) & 1] + s2[i];
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float lt = l[r] + __shfl_xor_sync(0xffffffffu, l[r], 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    const float inv = lt == 0.f ? 0.f : 1.f / lt;  // no visible key: 0
+    const int row = q0 + r0 + 8 * r;
+    if (row < Sq) {
+      float* op = o + (((size_t)b * Sq + row) * Hq + h) * D;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<float2*>(op + 8 * j + c0) =
+            make_float2(acc[4 * j + 2 * r] * inv,
+                        acc[4 * j + 2 * r + 1] * inv);
+    }
+  }
+}
+
+// a contiguous (B, S, H, D) f32 tensor as a 4-D map (d, head, position,
+// batch), boxes of 32 d of 64 positions of one head (cached, hopper.cuh)
+bool tensor_map(CUtensorMap* map, const void* ptr, int B, int S, int H,
+                int D) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 4, (cuuint64_t)H * D * 4,
+                                 (cuuint64_t)S * H * D * 4};
+  const cuuint32_t box[4] = {32, 1, (cuuint32_t)kBN, 1};
+  return hopper::f32_tensor_map(map, ptr, 4, dims, strides, box);
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, int B,
+           int Sq, int Skv, int Hq, int Hkv, int n_valid, int causal,
+           float scale, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  if (!tensor_map(&tq, q, B, Sq, Hq, D)
+      || !tensor_map(&tk, k, B, Skv, Hkv, D)
+      || !tensor_map(&tv, v, B, Skv, Hkv, D))
+    return (int)cudaErrorInvalidValue;
+  constexpr int smem = Smem<D>::kBytes;
+  auto kern = flash_attention_tf32_kernel<D>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(Hq, B, (Sq + kBM - 1) / kBM);
+  kern<<<grid, kThreads, smem, stream>>>(
+      tq, tk, tv, static_cast<float*>(o), Sq, Skv, Hq, Hkv, n_valid, causal,
+      scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tf
+
 int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
                int Sq, int Skv, int Hq, int Hkv, int D, int n_valid,
                int causal, float scale, cudaStream_t stream) {
   // built for the head dim of the configs served on the card (64)
   if (D != 64) return (int)cudaErrorInvalidValue;
-  const dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B);
-  flash_attention_kernel<float, 64><<<grid, kBQ, 0, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), Sq, Skv, Hq, Hkv,
-      n_valid, causal, scale);
-  return (int)cudaGetLastError();
+  return tf::launch<64>(q, k, v, o, B, Sq, Skv, Hq, Hkv, n_valid, causal,
+                        scale, stream);
 }
 
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,

@@ -2,12 +2,13 @@
 // C (b, S, N) (one group) in f32 or bf16; dt (b, S, H) post-softplus, A
 // and D (H,) in f32, A < 0.  Out: y (b, S, H, P) in x's dtype and the
 // final state (b, H, P, N) in f32, from a zero state, by chunks of Q <=
-// 128 rows (in f32, S is a multiple of Q: the wrapper pads with dt = 0
-// steps; in bf16 the kernel masks the ragged end itself).  Per chunk,
-// with L the cumulative sum of dt A:
+// 128 rows (both kernels mask the ragged end themselves: S need not be a
+// multiple of Q).  Per chunk, with L the cumulative sum of dt A:
 //   y     = [(C B^T) * decay] (dt x) + exp(L) * (C state^T) + D x
 //   state = exp(L_Q) state + (x w)^T B,      w = exp(L_Q - L) dt,
-// decay[t, j] = exp(L_t - L_j) for j <= t, else 0.
+// decay[t, j] = exp(L_t - L_j) for j <= t, else 0.  Any chunking gives
+// the same y and state up to rounding: the f32 kernel takes steps of 64
+// rows whatever Q.
 //
 // Replaces the JAX package's TPU kernel
 //   src/repro/kernels/ssd_scan/kernel.py::ssd_scan_pallas (body _ssd_kernel).
@@ -22,14 +23,15 @@
 // tensor-core peak, 0.041 ms on the CUDA cores' 67 TFLOP/s f32.  So only
 // tensor cores come near the bound.
 //
-// Two kernels, one per dtype; ssd_scan_launch dispatches on bf16 and a
-// bf16 call never runs the f32 kernel.  Both keep the Pallas grid's
-// sequential chunk axis as a loop inside one block per (head, batch row)
-// (4 x 32 = 128 blocks at the serving shape, on 132 SMs), with the state
-// carried on chip.  The chunk-parallel form (every chunk's state written
-// to device memory, then a state-passing pass, as mamba_ssm's Triton
-// ssd_combined) would add 16.8 MB of f32 states here, 77% of the call's
-// bytes, for parallelism B 4 does not need; it is the lever for B 1.
+// Two kernels, one per dtype, both on tensor cores; ssd_scan_launch
+// dispatches on bf16, and a bf16 call never runs the f32 kernel.  Both
+// keep the Pallas grid's sequential chunk axis as a loop inside one block
+// per (head, batch row) (4 x 32 = 128 blocks at the serving shape, on 132
+// SMs), with the state carried on chip in registers.  The chunk-parallel
+// form (every chunk's state written to device memory, then a
+// state-passing pass, as mamba_ssm's Triton ssd_combined) would add 16.8
+// MB of f32 states here, 77% of the call's bf16 bytes, for parallelism B
+// 4 does not need; it is the lever for B 1.
 //
 // bf16: ssd_scan_wgmma_kernel, on tensor cores.  Two warpgroups (256
 // threads, one block an SM: 231,440 bytes of shared memory); warpgroup r
@@ -82,257 +84,60 @@
 // exp is evaluated only where the mask keeps it (above the diagonal
 // L_t - L_j reaches hundreds: exp would be inf, and inf * 0 NaN).
 //
-// f32: ssd_scan_kernel, the first port's kernel, unchanged: 256 threads
-// per (head, row) walking the chunks with the (P, N) f32 state in shared
-// memory; a chunk's B and C (transposed), x and dt staged in shared
-// memory as f32; the chunk's rows done in blocks of 32 (C B^T at or left
-// of the diagonal block, masked and decayed into M, then y from M x and
-// C state^T), then the state update; every product an f32 FMA loop on
-// the CUDA cores (TF32 keeps 10 mantissa bits and cannot meet the 1e-4
-// check); 216,704 bytes of shared memory at P 64, N 128.  dt A is
-// rounded before one thread's sequential cumsum; exp only at or below
-// the diagonal; dt folded into M.  expf is the correctly rounded one (no
-// fast math).
+// f32: ssd_scan_tf32_kernel, 3xTF32 on the tensor cores.  A tf32 product
+// keeps 10 mantissa bits and misses the 1e-4 check by over 10x; each f32
+// operand v is split into hi (the raw word: the tensor cores read an f32
+// word's top 19 bits, tf32 by truncation) and lo = v - trunc(v), and hi
+// hi' + hi lo' + lo hi' go into one f32 accumulator (CUTLASS's "fast
+// f32"; tests/test_torch_tf32_design.py models it, each wgmma's sum
+// truncated: it holds the check's cases, one tf32 product does not).
+// wgmma takes tf32 only K-major, so every operand the bf16 kernel reads
+// MN-major is transposed in the pass that writes its lo term.  f32 tiles
+// are twice bf16's: a 128-row chunk with its lo and transposed copies
+// needs over 400 KB, so the kernel takes steps of 64 rows (exact steps
+// of the recurrence, the rounding differs at f32 level), one stage: x, B
+// and C (80 KB by TMA,
+// 128-byte swizzle, rows past S as zeros) plus 128 KB of terms it writes
+// (213 KB, one block an SM).  Per step, two warpgroups:
+//   all:  C lo and B lo beside their tiles; x^T hi and lo (rows p);
+//   W0:   G = C B^T (m64n64k8, K = N = 128, 48 products) into registers,
+//         then M = G * decay * dt (mask first: exp only where j <= t),
+//         written as M hi and lo (rows t);
+//   W1:   y^T = state C^T (rows p, columns t: K = N runs over the state,
+//         whose accumulator registers are the A operand, 48 products),
+//         scaled by exp(L_t) per column, then y^T += x^T M^T (24);
+//   all:  (w B)^T hi and lo (rows n, w folded into B, so x^T serves both
+//         products) over C lo and B lo;
+//   W1:   state = exp(L_Q) state + x^T (w B) (m64n128k8, 24), and y = y^T
+//         + D x stored (f32, rows t < S) while it runs.
+// W1 holds the (P, N) = (64, 128) state as one m64n128 accumulator.  Fed
+// as an A operand, an accumulator's 8-column block holds its K values in
+// the order 0 2 4 6 1 3 5 7 (hopper.cuh), so (w B)^T's rows are written
+// in that order: accumulator column c holds state column tf32_k_slot(c),
+// and the A operand reads the state in natural K order, matching C's
+// tile.  The next step's x, C and B load as soon as each is copied out or
+// read (after x^T, after G and C state^T, after (w B)^T); warp 0 runs the
+// next step's scan of dt A (2 rows a lane, then a Hillis-Steele scan over
+// the lane totals) while W1 updates the state.  The decay and w take e^x
+// as ex2.approx of x log2 e (relative error about 2^-22); exp(L) and
+// exp(L_Q), which scale y and the whole state, are expf (no fast math).
+// Bound at the prefill's call (B 4, S 500): 2.72 GFLOP at 495 / 3 TFLOP/s
+// (tf32, three products) = 0.0165 ms; 40.1 MB at 3.35 TB/s = 0.0120 ms.
+// The kernel takes about 4.2x that: a step is a chain of four phases
+// behind barriers.  G's C from registers (half its shared-memory reads)
+// and skipping the zero state's products read no faster (PERF.md); the
+// lever is overlapping step c + 1's G and M with step c's state update,
+// which needs the shared memory one stage already fills.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "attention.cuh"
 #include "hopper.cuh"
 
 namespace {
 
-// ---------------------------------------------------------------------------
-// f32: CUDA cores
-// ---------------------------------------------------------------------------
-
-constexpr int kThreads = 256;
-constexpr int kQmax = 128;       // chunk rows held in shared memory
-constexpr int kRB = 32;          // rows of a row block of M and y
-constexpr int kQs = kQmax + 1;   // padded row stride of B^T, C^T and M
-
-template <int P, int N>
-constexpr int smem_floats() {
-  return 2 * N * kQs          // B^T, C^T
-         + kQmax * P          // x
-         + N * (P + 1)        // state^T, padded
-         + kRB * kQs          // M of one row block
-         + 4 * kQmax;         // dt, L, exp(L), w
-}
-
-template <typename T, int P, int N>
-__global__ void __launch_bounds__(kThreads, 1) ssd_scan_kernel(
-    const T* __restrict__ x,        // (b, S, H, P)
-    const float* __restrict__ dt,   // (b, S, H)
-    const float* __restrict__ A,    // (H,)
-    const T* __restrict__ Bm,       // (b, S, N)
-    const T* __restrict__ Cm,       // (b, S, N)
-    const float* __restrict__ D,    // (H,)
-    T* __restrict__ y,              // (b, S, H, P)
-    float* __restrict__ fin,        // (b, H, P, N)
-    int S, int H, int Q) {
-  static_assert(P % 16 == 0 && N % 16 == 0, "16 x 16 thread tiles");
-  constexpr int kPT = P / 16;       // p a thread (y, state)
-  constexpr int kNT = N / 16;       // n a thread (state)
-  constexpr int kYT = kRB / 16;     // t a thread (y)
-  constexpr int kGT = kRB / 8;      // t a thread (M)
-  constexpr int kGJ = kQmax / 32;   // j a thread (M)
-  extern __shared__ float smem[];
-  float* BT = smem;                 // [N][kQs]
-  float* CT = BT + N * kQs;         // [N][kQs]
-  float* xs = CT + N * kQs;         // [kQmax][P]
-  float* stT = xs + kQmax * P;      // [N][P + 1], state[p][n] at [n][p]
-  float* Mb = stT + N * (P + 1);    // [kRB][kQs]
-  float* dts = Mb + kRB * kQs;      // [kQmax]
-  float* Ls = dts + kQmax;
-  float* eL = Ls + kQmax;
-  float* ws = eL + kQmax;
-
-  const int h = blockIdx.x, bi = blockIdx.y, tid = threadIdx.x;
-  const int ty = tid >> 4, tx = tid & 15;   // y and state: 16 x 16
-  const int gy = tid >> 5, gx = tid & 31;   // M: 8 x 32
-  const float a = A[h], d = D[h];
-  const int n_rb = (Q + kRB - 1) / kRB;
-  const int Qr = n_rb * kRB;                // rows up to whole row blocks
-
-  for (int e = tid; e < N * (P + 1); e += kThreads) stT[e] = 0.f;
-
-  for (int t0 = 0; t0 < S; t0 += Q) {
-    __syncthreads();  // the previous chunk is done with the buffers
-    // stage the chunk; rows Q..Qr-1 are zero
-    for (int e = tid; e < Qr * N; e += kThreads) {
-      const int t = e / N, n = e % N;
-      float bv = 0.f, cv = 0.f;
-      if (t < Q) {
-        const size_t off = ((size_t)bi * S + t0 + t) * N + n;
-        bv = attn::to_f32(Bm[off]);
-        cv = attn::to_f32(Cm[off]);
-      }
-      BT[n * kQs + t] = bv;
-      CT[n * kQs + t] = cv;
-    }
-    for (int e = tid; e < Qr * P; e += kThreads) {
-      const int t = e / P, p = e % P;
-      xs[e] = t < Q ? attn::to_f32(
-                          x[(((size_t)bi * S + t0 + t) * H + h) * P + p])
-                    : 0.f;
-    }
-    if (tid < Qr)
-      dts[tid] = tid < Q ? dt[((size_t)bi * S + t0 + tid) * H + h] : 0.f;
-    __syncthreads();
-    if (tid == 0) {
-      float L = 0.f;
-      for (int t = 0; t < Qr; ++t) {
-        L += __fmul_rn(dts[t], a);   // dt = 0 past Q: L stays L_Q
-        Ls[t] = L;
-      }
-    }
-    __syncthreads();
-    const float LQ = Ls[Q - 1];
-    if (tid < Qr) {
-      eL[tid] = expf(Ls[tid]);
-      ws[tid] = expf(LQ - Ls[tid]) * dts[tid];
-    }
-
-    for (int rb = 0; rb < n_rb; ++rb) {
-      const int r0 = rb * kRB;
-      __syncthreads();  // M free; eL and ws written
-      // M rows r0 + gy + 8 i, columns gx + 32 k: C B^T for k <= rb (the
-      // column blocks at or left of the diagonal block)
-      float g[kGT][kGJ];
-#pragma unroll
-      for (int i = 0; i < kGT; ++i)
-#pragma unroll
-        for (int k = 0; k < kGJ; ++k) g[i][k] = 0.f;
-#pragma unroll 4
-      for (int n = 0; n < N; ++n) {
-        const float* cr = CT + n * kQs + r0 + gy;
-        const float* br = BT + n * kQs + gx;
-        float cv[kGT], bv[kGJ];
-#pragma unroll
-        for (int i = 0; i < kGT; ++i) cv[i] = cr[8 * i];
-#pragma unroll
-        for (int k = 0; k < kGJ; ++k) bv[k] = k <= rb ? br[32 * k] : 0.f;
-#pragma unroll
-        for (int i = 0; i < kGT; ++i)
-#pragma unroll
-          for (int k = 0; k < kGJ; ++k)
-            if (k <= rb) g[i][k] = fmaf(cv[i], bv[k], g[i][k]);
-      }
-#pragma unroll
-      for (int i = 0; i < kGT; ++i) {
-        const int t = r0 + gy + 8 * i;
-        const float Lt = Ls[t];
-#pragma unroll
-        for (int k = 0; k < kGJ; ++k) {
-          const int j = gx + 32 * k;
-          // decide the mask first: exp only at or below the diagonal
-          Mb[(gy + 8 * i) * kQs + j] =
-              j <= t ? g[i][k] * expf(Lt - Ls[j]) * dts[j] : 0.f;
-        }
-      }
-      __syncthreads();
-      // y rows r0 + ty + 16 i, columns tx + 16 k
-      float yi[kYT][kPT], yo[kYT][kPT];
-#pragma unroll
-      for (int i = 0; i < kYT; ++i)
-#pragma unroll
-        for (int k = 0; k < kPT; ++k) yi[i][k] = yo[i][k] = 0.f;
-      const int jn = min(Q, r0 + kRB);
-      for (int j = 0; j < jn; ++j) {         // intra: M x
-        float mv[kYT], xv[kPT];
-#pragma unroll
-        for (int i = 0; i < kYT; ++i) mv[i] = Mb[(ty + 16 * i) * kQs + j];
-#pragma unroll
-        for (int k = 0; k < kPT; ++k) xv[k] = xs[j * P + tx + 16 * k];
-#pragma unroll
-        for (int i = 0; i < kYT; ++i)
-#pragma unroll
-          for (int k = 0; k < kPT; ++k)
-            yi[i][k] = fmaf(mv[i], xv[k], yi[i][k]);
-      }
-#pragma unroll 4
-      for (int n = 0; n < N; ++n) {          // inter: C state^T
-        float cv[kYT], sv[kPT];
-#pragma unroll
-        for (int i = 0; i < kYT; ++i) cv[i] = CT[n * kQs + r0 + ty + 16 * i];
-#pragma unroll
-        for (int k = 0; k < kPT; ++k) sv[k] = stT[n * (P + 1) + tx + 16 * k];
-#pragma unroll
-        for (int i = 0; i < kYT; ++i)
-#pragma unroll
-          for (int k = 0; k < kPT; ++k)
-            yo[i][k] = fmaf(cv[i], sv[k], yo[i][k]);
-      }
-#pragma unroll
-      for (int i = 0; i < kYT; ++i) {
-        const int t = r0 + ty + 16 * i;
-        if (t >= Q) continue;
-        T* yp = y + (((size_t)bi * S + t0 + t) * H + h) * P;
-#pragma unroll
-        for (int k = 0; k < kPT; ++k) {
-          const int p = tx + 16 * k;
-          float v = yi[i][k] + eL[t] * yo[i][k];
-          v += d * xs[t * P + p];
-          yp[p] = attn::from_f32<T>(v);
-        }
-      }
-    }
-
-    __syncthreads();  // every read of the old state is done
-    // state[p][n] = exp(L_Q) state[p][n] + sum_t x[t][p] w[t] B[t][n],
-    // n = ty + 16 i, p = tx + 16 k: each thread owns its entries
-    float acc[kNT][kPT];
-#pragma unroll
-    for (int i = 0; i < kNT; ++i)
-#pragma unroll
-      for (int k = 0; k < kPT; ++k) acc[i][k] = 0.f;
-    for (int t = 0; t < Q; ++t) {
-      const float wt = ws[t];
-      float bv[kNT], xv[kPT];
-#pragma unroll
-      for (int i = 0; i < kNT; ++i) bv[i] = BT[(ty + 16 * i) * kQs + t];
-#pragma unroll
-      for (int k = 0; k < kPT; ++k) xv[k] = xs[t * P + tx + 16 * k] * wt;
-#pragma unroll
-      for (int i = 0; i < kNT; ++i)
-#pragma unroll
-        for (int k = 0; k < kPT; ++k)
-          acc[i][k] = fmaf(xv[k], bv[i], acc[i][k]);
-    }
-    const float eLQ = expf(LQ);
-#pragma unroll
-    for (int i = 0; i < kNT; ++i)
-#pragma unroll
-      for (int k = 0; k < kPT; ++k) {
-        float* s = stT + (ty + 16 * i) * (P + 1) + tx + 16 * k;
-        *s = eLQ * *s + acc[i][k];
-      }
-  }
-
-  __syncthreads();
-  float* fp = fin + ((size_t)bi * H + h) * P * N;
-  for (int e = tid; e < P * N; e += kThreads)
-    fp[e] = stT[(e % N) * (P + 1) + e / N];
-}
-
-template <typename T, int P, int N>
-int launch(const void* x, const float* dt, const float* A, const void* B,
-           const void* C, const float* D, void* y, float* fin, int b,
-           int S, int H, int Q, cudaStream_t stream) {
-  constexpr int smem = smem_floats<P, N>() * (int)sizeof(float);
-  auto kern = ssd_scan_kernel<T, P, N>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(H, b);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), dt, A, static_cast<const T*>(B),
-      static_cast<const T*>(C), D, static_cast<T*>(y), fin, S, H, Q);
-  return (int)cudaGetLastError();
-}
-
+constexpr int kMaxChunk = 128;   // Q a chunk may take (the bf16 tile)
 
 // ---------------------------------------------------------------------------
 // bf16: tensor cores (wgmma), TMA
@@ -753,15 +558,394 @@ int launch(const void* x, const float* dt, const float* A, const void* B,
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// f32: tensor cores, 3xTF32 (wgmma), TMA
+// ---------------------------------------------------------------------------
+
+namespace tf {
+
+constexpr int kRows = 64;               // rows a step
+constexpr int kThreads = 256;           // two warpgroups
+constexpr int kPanel = kRows * 128;     // 64 rows of 128 bytes (32 f32)
+
+template <int P, int N>
+struct Smem {
+  static_assert(P == 64, "x: two 32-float panels, x^T one m64 operand");
+  static_assert(N == 128, "B, C: four 32-float panels; the state one "
+                "m64n128 accumulator");
+  // the TMA tiles (rows t), used as the hi terms as they land
+  static constexpr int kX = 0;                       // 2 panels
+  static constexpr int kB = kX + 2 * kPanel;         // 4 panels
+  static constexpr int kC = kB + 4 * kPanel;         // 4 panels
+  // C lo and B lo (C's and B's layout), then (w B)^T hi and lo (128 rows
+  // n, 2 panels of 64 j each)
+  static constexpr int kCL = kC + 4 * kPanel;
+  static constexpr int kBL = kCL + 4 * kPanel;
+  static constexpr int kXT = kBL + 4 * kPanel;       // x^T hi, lo (rows p)
+  static constexpr int kMT = kXT + 4 * kPanel;       // M hi, lo (rows t)
+  static constexpr int kArr = kMT + 4 * kPanel;      // L, dt, exp(L), w
+  static constexpr int kBars = kArr + 4 * kRows * 4;
+  static constexpr int kBytes = 1024 + kBars + 3 * 8; // alignment slack
+};
+
+using tc::exp_approx;
+
+// K step kk's descriptor of a tile of this kernel's panels
+__device__ __forceinline__ uint64_t kdesc(const unsigned char* tile, int kk,
+                                          int panel = kPanel) {
+  return hopper::desc_tf32_k(tile, kk, panel);
+}
+
+template <int P, int N>
+__global__ void __launch_bounds__(kThreads, 1) ssd_scan_tf32_kernel(
+    const __grid_constant__ CUtensorMap tm_x,   // (b, S, H, P) f32
+    const __grid_constant__ CUtensorMap tm_b,   // (b, S, N) f32
+    const __grid_constant__ CUtensorMap tm_c,
+    const float* __restrict__ dt,               // (b, S, H)
+    const float* __restrict__ A,                // (H,)
+    const float* __restrict__ D,                // (H,)
+    float* __restrict__ y,                      // (b, S, H, P)
+    float* __restrict__ fin,                    // (b, H, P, N)
+    int S, int H) {
+  using L = Smem<P, N>;
+  extern __shared__ unsigned char smem_raw[];
+  // the 128-byte swizzle repeats every 1024 bytes: tiles start on one
+  const uint32_t pad = (1024u - (hopper::smem_u32(smem_raw) & 1023u)) & 1023u;
+  unsigned char* base = smem_raw + pad;
+  unsigned char* sx = base + L::kX;
+  unsigned char* sb = base + L::kB;
+  unsigned char* sc = base + L::kC;
+  unsigned char* scl = base + L::kCL;        // then (w B)^T hi
+  unsigned char* sbl = base + L::kBL;        // then (w B)^T lo
+  unsigned char* sxt = base + L::kXT;        // lo at + 2 panels
+  unsigned char* smt = base + L::kMT;        // lo at + 2 panels
+  float* Ls = reinterpret_cast<float*>(base + L::kArr);
+  float* dts = Ls + kRows;
+  float* eLs = dts + kRows;
+  float* ws = eLs + kRows;
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + L::kBars);  // x B C
+
+  const int h = blockIdx.x, bi = blockIdx.y, tid = threadIdx.x;
+  // warp-uniform as the compiler sees it (a shuffle): the branches on it
+  // hold wgmma, which ptxas serialises in a path it thinks divergent
+  const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0), wtid = tid & 127;
+  const int warp = wtid >> 5, lane = tid & 31;
+  const float a = A[h], d = D[h];
+  const int n_steps = (S + kRows - 1) / kRows;
+
+  // one thread: step c's tiles, each behind its own barrier
+  auto load_x = [&](int c) {
+    hopper::mbar_expect_tx(&full[0], 2 * kPanel);
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+      hopper::tma_load_4d(sx + k * kPanel, &tm_x, &full[0], 32 * k, h,
+                          c * kRows, bi);
+  };
+  auto load_bc = [&](unsigned char* dst, const CUtensorMap* map,
+                     uint64_t* bar, int c) {
+    hopper::mbar_expect_tx(bar, 4 * kPanel);
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      hopper::tma_load_3d(dst + k * kPanel, map, bar, 32 * k, c * kRows, bi);
+  };
+  float dtv[2];                        // warp 0: rows 2 lane + k
+  auto load_dt = [&](int c) {
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int t = c * kRows + 2 * lane + k;
+      dtv[k] = t < S ? dt[((size_t)bi * S + t) * H + h] : 0.f;
+    }
+  };
+  auto scan = [&]() {                  // warp 0: L, exp(L), w of dtv's step
+    const float v0 = __fmul_rn(dtv[0], a);
+    const float v1 = __fadd_rn(v0, __fmul_rn(dtv[1], a));
+    float tot = v1;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float u = __shfl_up_sync(0xffffffffu, tot, o);
+      if (lane >= o) tot = __fadd_rn(tot, u);
+    }
+    float ex = __shfl_up_sync(0xffffffffu, tot, 1);
+    if (lane == 0) ex = 0.f;
+    const float L0 = __fadd_rn(ex, v0), L1 = __fadd_rn(ex, v1);
+    const float LQ = __shfl_sync(0xffffffffu, L1, 31);
+    Ls[2 * lane] = L0;
+    Ls[2 * lane + 1] = L1;
+    dts[2 * lane] = dtv[0];
+    dts[2 * lane + 1] = dtv[1];
+    eLs[2 * lane] = expf(L0);
+    eLs[2 * lane + 1] = expf(L1);
+    ws[2 * lane] = exp_approx(LQ - L0) * dtv[0];
+    ws[2 * lane + 1] = exp_approx(LQ - L1) * dtv[1];
+  };
+
+  if (tid == 0) {
+    for (int k = 0; k < 3; ++k) hopper::mbar_init(&full[k], 1);
+    hopper::fence_barrier_init();
+    load_x(0);
+    load_bc(sb, &tm_b, &full[1], 0);
+    load_bc(sc, &tm_c, &full[2], 0);
+  }
+  if (tid < 32) {
+    load_dt(0);
+    scan();
+    if (n_steps > 1) load_dt(1);
+  }
+  __syncthreads();
+
+  // W1: state[p][tf32_k_slot(c)] at row p, column c of an m64n128
+  // accumulator (hopper.cuh)
+  float st[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) st[i] = 0.f;
+  const int r0 = 16 * warp + (lane >> 2);   // accumulator rows r0, r0 + 8
+  const int c0 = 2 * (lane & 3);            // columns 8 j + c0 + {0, 1}
+
+  for (int c = 0; c < n_steps; ++c) {
+    const uint32_t par = c & 1;
+    hopper::mbar_wait(&full[0], par);
+    hopper::mbar_wait(&full[1], par);
+    hopper::mbar_wait(&full[2], par);
+
+    // C lo and B lo, in place of their tiles' layout
+    for (int i = tid; i < 4 * kPanel / 16; i += kThreads) {
+      reinterpret_cast<float4*>(scl)[i] =
+          hopper::tf32_lo4(reinterpret_cast<const float4*>(sc)[i]);
+      reinterpret_cast<float4*>(sbl)[i] =
+          hopper::tf32_lo4(reinterpret_cast<const float4*>(sb)[i]);
+    }
+    // x^T hi (the raw word) and lo: row p, element t; a warp reads 32
+    // rows t of one 4-column chunk and writes 32 consecutive elements
+    for (int i = tid; i < kRows * P / 4; i += kThreads) {
+      const int t = i & (kRows - 1), p = (i / kRows) * 4;
+      const float4 v = *reinterpret_cast<const float4*>(
+          sx + (p >> 5) * kPanel + hopper::sw128_f32(t, p & 31));
+      const float xv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int off = (t >> 5) * kPanel + hopper::sw128_f32(p + e, t & 31);
+        *reinterpret_cast<float*>(sxt + off) = xv[e];
+        *reinterpret_cast<float*>(sxt + 2 * kPanel + off) =
+            hopper::tf32_lo(xv[e]);
+      }
+    }
+    hopper::fence_proxy_async();
+    __syncthreads();                   // x is copied out: load the next
+    if (tid == 0 && c + 1 < n_steps) load_x(c + 1);
+
+    float acc[32];                     // W0: G, M (rows t, columns j);
+#pragma unroll                         // W1: y^T (rows p, columns t)
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    float eLQ = 0.f;
+    if (wg == 0) {
+      hopper::fence_regs(acc);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < N / 8; ++kk) {
+        const uint64_t dc = kdesc(sc, kk), db = kdesc(sb, kk);
+        hopper::wgmma_m64n64k8_tf32_ss(acc, dc, db, kk);
+        hopper::wgmma_m64n64k8_tf32_ss(acc, dc, kdesc(sbl, kk), 1);
+        hopper::wgmma_m64n64k8_tf32_ss(acc, kdesc(scl, kk), db, 1);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+      // M = G * decay * dt; then M hi (raw) and lo at row t, element j
+      const float Lr[2] = {Ls[r0], Ls[r0 + 8]};
+#pragma unroll
+      for (int jb = 0; jb < 8; ++jb) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int j = 8 * jb + c0 + e;
+          const float Lj = Ls[j], dj = dts[j];
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            float& m = acc[4 * jb + 2 * r + e];
+            // decide the mask first: exp only at or below the diagonal
+            m = j <= r0 + 8 * r ? m * exp_approx(Lr[r] - Lj) * dj : 0.f;
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int j = 8 * jb + c0;
+          const int off = (j >> 5) * kPanel
+                          + hopper::sw128_f32(r0 + 8 * r, j & 31);
+          const float m0 = acc[4 * jb + 2 * r], m1 = acc[4 * jb + 2 * r + 1];
+          *reinterpret_cast<float2*>(smt + off) = make_float2(m0, m1);
+          *reinterpret_cast<float2*>(smt + 2 * kPanel + off) =
+              make_float2(hopper::tf32_lo(m0), hopper::tf32_lo(m1));
+        }
+      }
+    } else {
+      // y^T = state C^T: the state's registers are the A operand (hi the
+      // raw words, lo written here), K order permuted (hopper.cuh)
+      float sl[64];
+#pragma unroll
+      for (int i = 0; i < 64; ++i) sl[i] = hopper::tf32_lo(st[i]);
+      hopper::fence_regs(acc);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < N / 8; ++kk) {
+        const uint64_t dc = kdesc(sc, kk);
+        hopper::wgmma_m64n64k8_tf32_rs(acc, st[4 * kk], st[4 * kk + 2],
+                                       st[4 * kk + 1], st[4 * kk + 3], dc);
+        hopper::wgmma_m64n64k8_tf32_rs(acc, st[4 * kk], st[4 * kk + 2],
+                                       st[4 * kk + 1], st[4 * kk + 3],
+                                       kdesc(scl, kk));
+        hopper::wgmma_m64n64k8_tf32_rs(acc, sl[4 * kk], sl[4 * kk + 2],
+                                       sl[4 * kk + 1], sl[4 * kk + 3], dc);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+      hopper::fence_regs(st);
+      // scale column t by exp(L_t)
+#pragma unroll
+      for (int jb = 0; jb < 8; ++jb)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float f = eLs[8 * jb + c0 + e];
+          acc[4 * jb + e] *= f;
+          acc[4 * jb + 2 + e] *= f;
+        }
+      eLQ = eLs[kRows - 1];
+    }
+    hopper::fence_proxy_async();
+    __syncthreads();                   // M written; C, C lo, B lo read
+    if (tid == 0 && c + 1 < n_steps) load_bc(sc, &tm_c, &full[2], c + 1);
+
+    if (wg == 1) {                     // y^T += x^T M^T
+      hopper::fence_regs(acc);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kRows / 8; ++kk) {
+        const uint64_t dx = kdesc(sxt, kk), dm = kdesc(smt, kk);
+        hopper::wgmma_m64n64k8_tf32_ss(acc, dx, dm, 1);
+        hopper::wgmma_m64n64k8_tf32_ss(acc, dx, kdesc(smt + 2 * kPanel, kk),
+                                       1);
+        hopper::wgmma_m64n64k8_tf32_ss(acc, kdesc(sxt + 2 * kPanel, kk), dm,
+                                       1);
+      }
+      hopper::wgmma_commit();
+      // awaited here: a product in flight across the barrier and the
+      // branches below makes ptxas serialise every wgmma (C7518)
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+    }
+    // (w B)^T hi and lo over C lo and B lo: row tf32_k_col(n) (the state's
+    // column order), element j; a warp reads 32 rows j of one 4-column
+    // chunk of B and writes 32 consecutive elements
+    for (int i = tid; i < kRows * N / 4; i += kThreads) {
+      const int j = i & (kRows - 1), n = (i / kRows) * 4;
+      const float4 v = *reinterpret_cast<const float4*>(
+          sb + (n >> 5) * kPanel + hopper::sw128_f32(j, n & 31));
+      const float w = ws[j];
+      const float bv[4] = {v.x * w, v.y * w, v.z * w, v.w * w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int off = (j >> 5) * (2 * kPanel)
+                        + hopper::sw128_f32(hopper::tf32_k_col(n + e),
+                                            j & 31);
+        *reinterpret_cast<float*>(scl + off) = bv[e];
+        *reinterpret_cast<float*>(sbl + off) = hopper::tf32_lo(bv[e]);
+      }
+    }
+    hopper::fence_proxy_async();
+    __syncthreads();                   // (w B)^T written; B, L, w read
+    if (tid == 0 && c + 1 < n_steps) load_bc(sb, &tm_b, &full[1], c + 1);
+    if (tid < 32 && c + 1 < n_steps) {
+      scan();                          // L, exp(L), w of step c + 1
+      if (c + 2 < n_steps) load_dt(c + 2);
+    }
+
+    if (wg == 1) {
+      // state = exp(L_Q) state + x^T (w B)
+#pragma unroll
+      for (int i = 0; i < 64; ++i) st[i] *= eLQ;
+      hopper::fence_regs(st);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kRows / 8; ++kk) {
+        const uint64_t dx = kdesc(sxt, kk);
+        const uint64_t dw = kdesc(scl, kk, 2 * kPanel);
+        hopper::wgmma_m64n128k8_tf32_ss(st, dx, dw, 1);
+        hopper::wgmma_m64n128k8_tf32_ss(st, dx, kdesc(sbl, kk, 2 * kPanel),
+                                        1);
+        hopper::wgmma_m64n128k8_tf32_ss(st, kdesc(sxt + 2 * kPanel, kk), dw,
+                                        1);
+      }
+      hopper::wgmma_commit();
+      // meanwhile y = y^T + D x (x^T hi is x), rows t < S: a warp's store
+      // covers 8 consecutive p of 4 rows t
+#pragma unroll
+      for (int jb = 0; jb < 8; ++jb)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int t = 8 * jb + c0 + e;
+          if (c * kRows + t >= S) continue;
+          float* yp = y + (((size_t)bi * S + c * kRows + t) * H + h) * P;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int p = r0 + 8 * r;
+            const float xv = *reinterpret_cast<const float*>(
+                sxt + (t >> 5) * kPanel + hopper::sw128_f32(p, t & 31));
+            yp[p] = acc[4 * jb + 2 * r + e] + d * xv;
+          }
+        }
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(st);
+    }
+    __syncthreads();                   // x^T, M, (w B)^T read; next L
+  }
+
+  if (wg == 1) {
+    float* fp = fin + ((size_t)bi * H + h) * P * N;
+#pragma unroll
+    for (int jb = 0; jb < N / 8; ++jb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        fp[(r0 + 8 * (e >> 1)) * N
+           + hopper::tf32_k_slot(8 * jb + c0 + (e & 1))] = st[4 * jb + e];
+  }
+}
+
+template <int P, int N>
+int launch(const void* x, const float* dt, const float* A, const void* B,
+           const void* C, const float* D, void* y, float* fin, int b,
+           int S, int H, cudaStream_t stream) {
+  const cuuint64_t xd[4] = {(cuuint64_t)P, (cuuint64_t)H, (cuuint64_t)S,
+                            (cuuint64_t)b};
+  const cuuint64_t xs[3] = {(cuuint64_t)P * 4, (cuuint64_t)H * P * 4,
+                            (cuuint64_t)S * H * P * 4};
+  const cuuint32_t xbox[4] = {32, 1, kRows, 1};
+  const cuuint64_t bd[3] = {(cuuint64_t)N, (cuuint64_t)S, (cuuint64_t)b};
+  const cuuint64_t bs[2] = {(cuuint64_t)N * 4, (cuuint64_t)S * N * 4};
+  const cuuint32_t bbox[3] = {32, kRows, 1};
+  CUtensorMap tx, tb, tcm;
+  if (!hopper::f32_tensor_map(&tx, x, 4, xd, xs, xbox)
+      || !hopper::f32_tensor_map(&tb, B, 3, bd, bs, bbox)
+      || !hopper::f32_tensor_map(&tcm, C, 3, bd, bs, bbox))
+    return (int)cudaErrorInvalidValue;
+  constexpr int smem = Smem<P, N>::kBytes;
+  auto kern = ssd_scan_tf32_kernel<P, N>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<dim3(H, b), kThreads, smem, stream>>>(
+      tx, tb, tcm, dt, A, D, static_cast<float*>(y), fin, S, H);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tf
+
 }  // namespace
 
 extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* A,
                                const void* B, const void* C, const void* D,
                                void* y, void* fin, int b, int S, int H,
                                int P, int N, int Q, int bf16, void* stream) {
-  // bf16 takes any S >= Q; f32 a multiple of Q (the wrapper pads)
-  if (Q < 1 || Q > kQmax || S < Q || (!bf16 && S % Q))
-    return (int)cudaErrorInvalidValue;
+  // any S >= Q: both kernels mask the ragged end
+  if (Q < 1 || Q > kMaxChunk || S < Q) return (int)cudaErrorInvalidValue;
   if (b == 0 || H == 0) return 0;
   // built for the (P, N) a configuration runs on the card: mamba2-370m's
   if (P != 64 || N != 128) return (int)cudaErrorInvalidValue;
@@ -772,8 +956,8 @@ extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* A,
   float* ff = static_cast<float*>(fin);
   return bf16 ? tc::launch<64, 128>(x, dtf, Af, B, C, Df, y, ff, b, S, H,
                                     Q, s)
-              : launch<float, 64, 128>(x, dtf, Af, B, C, Df, y, ff, b, S, H,
-                                       Q, s);
+              : tf::launch<64, 128>(x, dtf, Af, B, C, Df, y, ff, b, S, H,
+                                    s);
 }
 
 extern "C" const char* kernel_error_string(int err) {

@@ -41,9 +41,9 @@ Kernels (sources in ``repro_torch/csrc/``, built by ``_build``):
                   ``track_step_pallas``).  Both take an optional ``err``
                   flag that they set instead of raising, so a caller
                   checks many launches with one read.
-  flash_attention — causal or full GQA attention with an online softmax:
-                  bf16 on tensor cores (wgmma fed by TMA), f32 one query
-                  row a thread on the CUDA cores (replaces
+  flash_attention — causal or full GQA attention with an online softmax
+                  on tensor cores (wgmma fed by TMA), f32 as 3xTF32
+                  (replaces
                   ``kernels/flash_attention``'s ``flash_attention_pallas``;
                   the LM prefill).
   decode_attention — one query token per row against a KV cache masked
@@ -52,18 +52,16 @@ Kernels (sources in ``repro_torch/csrc/``, built by ``_build``):
                   ``kernels/decode_attention``'s
                   ``decode_attention_pallas``; every LM decode step).
   ssd_scan      — Mamba2's SSD chunked scan, one block per (head, row)
-                  walking the chunks: bf16 on tensor cores (wgmma fed by
-                  TMA, the f32 state in registers), f32 on the CUDA cores
-                  with the state in shared memory (replaces
-                  ``kernels/ssd_scan``'s ``ssd_scan_pallas``; the Mamba2
-                  prefill).
+                  walking the chunks on tensor cores (wgmma fed by TMA,
+                  the f32 state in registers), f32 as 3xTF32 in steps of
+                  64 rows (replaces ``kernels/ssd_scan``'s
+                  ``ssd_scan_pallas``; the Mamba2 prefill).
 
-The attention kernels and ssd_scan share ``csrc/attention.cuh`` (f32 /
-bf16 loads and rounding); ``csrc/hopper.cuh`` holds the PTX of TMA,
-mbarriers, 1-D bulk copies and wgmma and the host's cached TMA tensor
-maps (the bf16 instances of flash_attention and ssd_scan, and
-proxy_plan's bulk copies, use it).  ``ssd_scan.check``,
-``flash_attention.check``, ``decode_attention.check``,
+The attention kernels share ``csrc/attention.cuh`` (f32 / bf16 loads
+and rounding); ``csrc/hopper.cuh`` holds the PTX of TMA, mbarriers, 1-D
+bulk copies and wgmma (bf16 and tf32) and the host's cached TMA tensor
+maps (flash_attention, ssd_scan and proxy_plan's bulk copies use it).
+``ssd_scan.check``, ``flash_attention.check``, ``decode_attention.check``,
 ``assign.check``, ``track_step.check``, ``proxy_plan.check`` and
 ``window_gather.check`` hold those kernels against their plain versions
 on the card (``chip_smoke.py`` and ``tests/test_torch_cuda.py`` share

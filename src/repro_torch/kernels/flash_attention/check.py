@@ -37,6 +37,12 @@ CASES = (("S512 causal", torch.bfloat16, 512, 512, True, 0),
           512, 256, True, 0))
 
 
+# every CUDA kernel the wrapper may launch: bf16 and f32 (3xTF32), both
+# on tensor cores (profiler names contain these)
+KERNEL_NAMES = ("flash_attention_wgmma_kernel", "flash_attention_tf32_kernel")
+F32_KERNEL = "flash_attention_tf32_kernel"
+
+
 def case_id(case) -> str:
     return f"{case[0]} {str(case[1]).split('.')[-1]}"
 
@@ -105,6 +111,22 @@ def check_case(case, device, seed: int) -> float:
     q, k, v = case_operands(case, device, seed)
     return check_flash(q, k, v, causal, kv_valid,
                        f"flash_attention {case_id(case)}")
+
+
+def kernels_launched(case, device, reps: int = 5) -> set:
+    """The entries of ``KERNEL_NAMES`` whose names the profiler's trace
+    of ``reps`` calls on one of ``CASES`` holds as device kernels
+    (several calls: a trace may drop a launch)."""
+    from torch.profiler import ProfilerActivity, profile
+    _, _, _, _, causal, kv_valid = case
+    q, k, v = case_operands(case, device, 0)
+    with torch.inference_mode(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flash_attention(q, k, v, causal=causal, kv_valid=kv_valid)
+        torch.cuda.synchronize()
+    return {name for ev in prof.key_averages() for name in KERNEL_NAMES
+            if name in ev.key}
 
 
 def check_refusals(device) -> None:

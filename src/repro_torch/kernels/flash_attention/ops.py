@@ -8,9 +8,10 @@ by default.  Queries sit at the end of the key axis when Sq < Skv;
 0.  The model's prefill (``models.attention``) calls it once a layer.
 
 On a CUDA tensor it launches ``csrc/flash_attention.cu``, which masks
-the ragged edge itself (no padded copy): bf16 on tensor cores (wgmma,
-TMA), f32 on the CUDA cores; a bf16 call that the tensor-core kernel
-refuses raises, it never runs the f32 kernel.  On a CPU tensor it runs
+the ragged edge itself (no padded copy): both dtypes on tensor cores
+(wgmma fed by TMA), f32 as 3xTF32 (each operand split into a tf32 hi
+and lo term, three products); each dtype has its own kernel, and a call
+the kernel refuses raises.  On a CPU tensor it runs
 ``flash_attention_ref``, the plain PyTorch version: the JAX package's
 memory-bounded ``_chunked_jnp`` (``kernels/flash_attention/ops.py``), a
 loop over key blocks of 128 with the same online softmax.  One

@@ -21,19 +21,21 @@ from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_ref
 F32_RTOL = 1e-4
 BF16_ULPS = 2
 # (name, b, S, H, P, N, chunk) at mamba2-370m's H, P, N: the prefill's
-# call (S 500 padded to 512), Q = S = 61, whole chunks, Q 100 (a chunk
-# ends inside a 64-row tile, so a 128-row tile reaches into the next
-# chunk) with a padded tail, and 16 chunks (the state carried through 15
-# updates)
+# call (S 500, a ragged last chunk), Q = S = 61, whole chunks, Q 100 (a
+# chunk ends inside a 64-row tile, so a 128-row tile reaches into the
+# next chunk) with a ragged tail, 16 chunks (the state carried through 15
+# updates), and a tail of 2 rows past whole chunks (the f32 kernel's last
+# 64-row step holds 2 rows)
 CASES = (("prefill B4 S500", 4, 500, 32, 64, 128, 128),
          ("B1 S61 (Q 61)", 1, 61, 32, 64, 128, 128),
          ("B1 S512", 1, 512, 32, 64, 128, 128),
          ("B1 S250 Q100", 1, 250, 32, 64, 128, 100),
-         ("B1 S2048", 1, 2048, 32, 64, 128, 128))
-# every CUDA kernel the wrapper may launch: bf16 on tensor cores, f32 on
-# CUDA cores (profiler names contain these)
-KERNEL_NAMES = ("ssd_scan_wgmma_kernel", "ssd_scan_kernel")
-F32_KERNEL = "ssd_scan_kernel"
+         ("B1 S2048", 1, 2048, 32, 64, 128, 128),
+         ("B2 S130 (a tail of 2)", 2, 130, 32, 64, 128, 128))
+# every CUDA kernel the wrapper may launch: bf16 and f32 (3xTF32), both
+# on tensor cores (profiler names contain these)
+KERNEL_NAMES = ("ssd_scan_wgmma_kernel", "ssd_scan_tf32_kernel")
+F32_KERNEL = "ssd_scan_tf32_kernel"
 
 
 def operands(b: int, S: int, H: int, P: int, N: int, dtype: torch.dtype,

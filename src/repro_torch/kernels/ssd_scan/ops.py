@@ -18,12 +18,12 @@ sum of dt A inside the chunk,
 where decay[t, j] = exp(L_t - L_j) for j <= t and 0 above the diagonal
 (exp is never evaluated there: L_t - L_j can be thousands for j > t).
 S is padded up to a multiple of Q with dt = 0 steps, which leave y and
-the state exact: the plain version and the f32 kernel's wrapper pad;
-the bf16 kernel does the same inside (rows past S load as zeros), so
-its wrapper copies nothing.  The model's prefill (``models.ssm``) calls
-it once a layer.
+the state exact: the plain version pads; both kernels do the same
+inside (rows past S load as zeros), so the wrapper copies nothing.  The
+model's prefill (``models.ssm``) calls it once a layer.
 
-On a CUDA tensor it launches ``csrc/ssd_scan.cu``; on a CPU tensor it
+On a CUDA tensor it launches ``csrc/ssd_scan.cu`` (bf16 on tensor cores,
+f32 on tensor cores as 3xTF32, in steps of 64 rows); on a CPU tensor it
 runs ``ssd_scan_ref``, the plain PyTorch version of the JAX package's
 ``_chunked_jnp`` (``kernels/ssd_scan/ops.py``): the same chunked math
 vectorised over (b, H), a loop over chunks.  ``ssd_scan_seq_ref`` is the
@@ -44,7 +44,7 @@ from repro_torch.kernels import (check_launch, device_guard, on_cuda, ptr,
                                   stream_of)
 from repro_torch.kernels._build import library
 
-MAX_CHUNK = 128                  # Q the kernel holds in shared memory
+MAX_CHUNK = 128                  # the largest Q (the bf16 kernel's tile)
 # (P, N) the kernel is built for: mamba2-370m's, the one the card runs
 SHAPES = ((64, 128),)
 DTYPES = (torch.float32, torch.bfloat16)
@@ -184,8 +184,6 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise NotImplementedError(f"ssd_scan: chunk {Q} > {MAX_CHUNK}, "
                                   "the kernel's shared-memory chunk")
     _check_operands(x, dt, A, B, C, D)
-    if x.dtype != torch.bfloat16:
-        x, dt, B, C = _padded(x, dt, B, C, Q)
     x, B, C = x.contiguous(), B.contiguous(), C.contiguous()
     dt = dt.float().contiguous()
     A, D = A.float().contiguous(), D.float().contiguous()
@@ -196,11 +194,11 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         lib, fn = _launcher()
         with device_guard(x):
             err = fn(ptr(x), ptr(dt), ptr(A), ptr(B), ptr(C), ptr(D),
-                     ptr(y), ptr(fin), b, x.shape[1], H, P, N, Q,
+                     ptr(y), ptr(fin), b, S, H, P, N, Q,
                      int(x.dtype == torch.bfloat16), stream_of(x))
         check_launch(err, lib, "ssd_scan")
         ssd_scan.launches += 1
-    return y[:, :S], fin
+    return y, fin
 
 
 ssd_scan.launches = 0

@@ -12,9 +12,11 @@ The shapes, operands and tolerances are the kernels' ``check`` modules'
 (``repro_torch.kernels.<name>.check``), the same ``chip_smoke.py`` holds
 the kernels to: ``ssd_scan``'s f32 y and final state within 1e-4 of max
 |plain|, bf16 y within 2 bf16 ulps of the plain version's f32 result on
-the same (bf16-valued) inputs, and each dtype on its own kernel (bf16
-on tensor cores, f32 on CUDA cores, read from the profiler's trace); the attention kernels' f32 within 1e-5,
-bf16 one bf16 ulp apart (the f32 bound near zero); ``assign`` and
+the same (bf16-valued) inputs, f32 at a ragged S with no padding copy,
+and each dtype on its own kernel (both on tensor cores, f32 as 3xTF32,
+read from the profiler's trace); the attention kernels' f32 within
+1e-5, bf16 one bf16 ulp apart (the f32 bound near zero), flash
+attention's dtypes each on its own kernel; ``assign`` and
 ``track_step`` bit for bit (their tie, signed-zero, all-inf, dead-row,
 padding and large-matrix cases included), and non-finite costs must
 raise in ``assign`` as in its plain version; ``proxy_plan`` within the
@@ -61,13 +63,35 @@ def test_ssd_scan_kernel_matches_plain_version(dev, case, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["float32", "bfloat16"])
 def test_ssd_scan_launches_the_kernel_of_its_dtype(dev, dtype):
-    # bf16 runs on tensor cores, never the f32 CUDA-core kernel
+    # each dtype runs its own tensor-core kernel, never the other's
     name, b, S, H, P, N, chunk = check.CASES[0]
     args = check.operands(b, S, H, P, N, dtype, dev, seed=0)
     got = check.kernels_launched(args, chunk)
     want = ({check.F32_KERNEL} if dtype == torch.float32 else
             set(check.KERNEL_NAMES) - {check.F32_KERNEL})
     assert got == want, (dtype, got)
+
+
+def test_ssd_scan_f32_takes_a_ragged_s_without_a_padded_copy(dev,
+                                                              monkeypatch):
+    # S 130 (a 64-row step of 2 rows, a chunk of 2) reaches the kernel
+    # as it is: the wrapper's padding helper must not run
+    from repro_torch.kernels.ssd_scan import ops
+    name, b, S, H, P, N, chunk = check.CASES[-1]
+    assert S % 64 and S % chunk
+    args = check.operands(b, S, H, P, N, torch.float32, dev, seed=1)
+
+    def refuse(*_):
+        raise AssertionError("the f32 wrapper padded its operands")
+    with monkeypatch.context() as m:
+        m.setattr(ops, "_padded", refuse)
+        with torch.inference_mode():
+            y, fin = ops.ssd_scan(*args, chunk=chunk)
+    with torch.inference_mode():
+        yr, sr = ops.ssd_scan_ref(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert y.shape == (b, S, H, P)
+    assert check.within_tolerance(y, yr, fin, sr) == 0
 
 
 def test_ssd_scan_kernel_refuses_what_it_was_not_built_for(dev):
@@ -79,6 +103,17 @@ def test_ssd_scan_kernel_refuses_what_it_was_not_built_for(dev):
                               for c in flash_check.CASES])
 def test_flash_attention_kernel_matches_plain_version(dev, case):
     flash_check.check_case(case, dev, seed=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_flash_attention_launches_the_kernel_of_its_dtype(dev, dtype):
+    # each dtype runs its own tensor-core kernel, never the other's
+    case = next(c for c in flash_check.CASES if c[1] == dtype)
+    got = flash_check.kernels_launched(case, dev)
+    want = ({flash_check.F32_KERNEL} if dtype == torch.float32 else
+            set(flash_check.KERNEL_NAMES) - {flash_check.F32_KERNEL})
+    assert got == want, (dtype, got)
 
 
 def test_flash_attention_kernel_refuses_what_it_was_not_built_for(dev):
