@@ -58,8 +58,22 @@ only the longest row alone and against a fresh prefill, since shorter
 rows absorb the right padding into their state by the reference's
 design), with three planted faults (decode without the state's decay,
 decode with a zeroed conv tail, a prefill scan that drops the state
-between chunks).  Every phase runs uncaught: any failure exits non-zero
-before the result line.
+between chunks).  Last the fleet (``run_fleet``, after every phase that
+reads the profiler, at the video cell's θ): caldot1 test clips 0-2 at 32
+frames, round-robin over concurrent streams, each stream's tracks held
+to its solo run: through one ``BatchBroker`` at 1, 4 and 16 streams on one
+chunk clock (``on_clock``; fewer detector dispatches than the solo runs
+at 4 and 16), the detector's batch drift read at every bucket the broker
+formed (bit for bit where it is 0.0 everywhere and at 1 stream; else
+every detector score within twice the drift of its solo value, a window
+whose kept cells differ counted as a decision flip, and the tracks of
+each stream without one held to the same decisions and boxes within
+1e-4 / 2e-5), through one ``TrackBroker`` with ``device_assign`` at 4 and 16
+streams (bit for bit; ``track_step`` launches equal the broker's
+dispatches), and ``run_clips`` over the three clips on fresh frames with
+the shared ``DecodePool`` at ``decode_workers`` 1 and 3 (bit for bit).
+Every phase runs uncaught: any failure exits non-zero before the result
+line.
 
 The last three lines of standard output are the kernels' JSON record,
 the card's name and power limit as ``nvidia-smi`` reports them, and
@@ -74,6 +88,7 @@ import json
 import math
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 from typing import Any, Callable, Dict, Optional, Tuple
@@ -89,12 +104,17 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.configs.multiscope import MULTISCOPE_PIPELINE  # noqa: E402
 from repro_torch.core import pipeline as pl  # noqa: E402
-from repro_torch.core.detector import Detector, next_bucket  # noqa: E402
+from repro_torch.core.detector import (Detector, batch_drift,  # noqa: E402
+                                       next_bucket)
 from repro_torch.core.proxy import ProxyModel  # noqa: E402
-from repro_torch.core.executor import (ClipExecutor,  # noqa: E402
-                                       ExecutorOptions)
+from repro_torch.core.executor import (BatchBroker,  # noqa: E402
+                                       ClipExecutor, ExecutorOptions,
+                                       TrackBroker, run_clips,
+                                       stage_proxy)
 from repro_torch.core.metrics import clip_count_accuracy, mota  # noqa: E402
 from repro_torch.core.refine import TrackRefiner  # noqa: E402
+from repro_torch.core import tracker as trk_mod  # noqa: E402
+from repro_torch.core.hungarian import BIG  # noqa: E402
 from repro_torch.core.tracker import (RecurrentTracker,  # noqa: E402
                                       init_tracker)
 from repro_torch.core.windows import plan_chunk, plan_from_mapped  # noqa: E402
@@ -145,6 +165,27 @@ SIZES_CELLS = [(60, 34), (15, 9), (30, 17)]   # full frame + two windows
 PROXY_QUANTILE = 0.85
 DET_QUANTILE = 0.995
 CONV_ATOL = 1e-4                # card vs CPU conv nets (TF32 off)
+# the fleet phase: caldot1 test clips 0-2 at 32 frames (two chunks) a
+# stream, round-robin over the streams; tracks of a brokered stream
+# against its solo run: bit for bit, or (where the detector moved with
+# the batch and no decision flipped) the same frames and ids and boxes
+# within the slice's tolerances
+FLEET_FRAMES = 32
+FLEET_CLIPS = 3
+FLEET_STREAMS = (1, 4, 16)
+FLEET_TRACK_STREAMS = (4, 16)
+FLEET_POOLS = (1, 3)
+FLEET_JOIN_S = 300.0
+# profiler traces that held none of their kernels: traced again after a
+# pause, this many times in all
+TRACE_TRIES = 8
+TRACE_PAUSE_S = 1.0
+# how far a brokered stream's host-tracker costs may move from its solo
+# run's before their first differing assignment: the detector's drift
+# carried through the GRU (1.2e-7 read on the card); a fault moves
+# them by tenths
+FLEET_COST_ATOL = 1e-5
+BOX_RTOL, BOX_ATOL = 1e-4, 2e-5
 BF16_OPS_PER_S = 989e12         # H100 SXM bf16 tensor cores, dense
 # f32 on tensor cores as 3xTF32: three tf32 products (495 TFLOP/s dense)
 TF32X3_OPS_PER_S = 495e12 / 3
@@ -370,29 +411,35 @@ def set_up(bank, clip):
     return params, frames, feat, first
 
 
-def traced_ms(fn, kernel_names, label: str, tries: int = 3) -> float:
-    """``device_ms`` of ``fn``, traced again (up to ``tries`` times) when
-    a trace holds none of the kernels (a trace late in a long process may
-    drop every launch); raises if none does."""
-    for _ in range(tries):
-        t = device_ms(fn, kernel_names)
-        if t is not None:
-            return t
-    raise AssertionError(f"{label}: the profiler recorded no device time "
-                         f"for {kernel_names} in {tries} traces")
-
-
-def traced_kernels(launched, label: str, tries: int = 3) -> set:
-    """``launched()`` (a check module's ``kernels_launched``: the kernel
-    names one profiler trace holds), traced again (up to ``tries``
-    times) when a trace holds none, as ``traced_ms`` does; raises if
-    none does."""
-    for _ in range(tries):
-        got = launched()
-        if got:
+def traced(trace, label: str, tries: int = TRACE_TRIES):
+    """``trace()`` (one profiler trace, read down to a value: None or
+    empty where the trace held none of its kernels) again, after a
+    pause, up to ``tries`` times: a trace late in a long process may
+    drop every launch, and did so three times in a row for one call.
+    Logs any empty trace; raises if every trace was empty."""
+    for k in range(tries):
+        got = trace()
+        if got is not None and got != set():
+            if k:
+                log(f"{label}: {k} empty profiler trace(s) before this one")
             return got
+        torch.cuda.synchronize()
+        time.sleep(TRACE_PAUSE_S)
     raise AssertionError(f"{label}: the profiler recorded none of the "
                          f"kernels in {tries} traces")
+
+
+def traced_ms(fn, kernel_names, label: str) -> float:
+    """``device_ms`` of ``fn``, from the first trace that holds its
+    kernels (``traced``)."""
+    return traced(lambda: device_ms(fn, kernel_names), label)
+
+
+def traced_kernels(launched, label: str) -> set:
+    """``launched()`` (a check module's ``kernels_launched``: the kernel
+    names one profiler trace holds), from the first trace that holds
+    any (``traced``)."""
+    return traced(launched, label)
 
 
 def check_kernel_of_each_dtype(label: str, check, launched) -> None:
@@ -1049,9 +1096,561 @@ def check_result(res, n_frames):
             raise AssertionError("track frames not increasing in range")
 
 
-def run_video() -> list:
-    """The video paths: every check and run above; -> their six kernels'
-    records."""
+# ---------------------------------------------------------------------------
+# The fleet: many streams through the cross-stream brokers, and run_clips
+# ---------------------------------------------------------------------------
+
+def run_threads(fns, timeout: float = FLEET_JOIN_S) -> list:
+    """Run each callable on its own thread; -> their results.  A thread
+    still alive after its join's timeout, or any error, fails."""
+    out = [None] * len(fns)
+    errors = []
+
+    def one(i):
+        try:
+            out[i] = fns[i]()
+        except BaseException as exc:     # raised below, on this thread
+            errors.append(exc)
+
+    threads = [threading.Thread(target=one, args=(i,), daemon=True)
+               for i in range(len(fns))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError(f"a stream did not finish in {timeout} s")
+    if errors:
+        raise errors[0]
+    return out
+
+
+def counters_agree(got, want, label: str) -> None:
+    """A stream's run against its solo run: the same counters."""
+    for k in ("frames_processed", "detector_windows", "full_frames",
+              "skipped_frames"):
+        if getattr(got, k) != getattr(want, k):
+            raise AssertionError(f"{label}: RunResult.{k} "
+                                 f"{getattr(got, k)} against "
+                                 f"{getattr(want, k)}")
+
+
+def tracks_agree(got, want, exact: bool, label: str) -> None:
+    """A stream's run against its solo run: the same counters, and the
+    same tracks bit for bit (``exact``) or with the same frames and ids
+    and boxes within ``BOX_RTOL`` / ``BOX_ATOL``."""
+    counters_agree(got, want, label)
+    if len(got.tracks) != len(want.tracks):
+        raise AssertionError(f"{label}: {len(got.tracks)} tracks against "
+                             f"{len(want.tracks)}")
+    for t, (x, y) in enumerate(zip(got.tracks, want.tracks)):
+        if exact:
+            if not np.array_equal(x, y):
+                raise AssertionError(f"{label}: track {t} differs in its "
+                                     "bits")
+        elif x.shape != y.shape or not np.array_equal(x[:, [0, 5]],
+                                                      y[:, [0, 5]]):
+            raise AssertionError(f"{label}: track {t} has other frames "
+                                 f"or ids ({x.shape} against {y.shape})")
+        elif not np.allclose(x, y, rtol=BOX_RTOL, atol=BOX_ATOL):
+            raise AssertionError(f"{label}: track {t}'s boxes differ by "
+                                 f"{float(np.abs(x - y).max())!r}")
+
+
+class ScoreLog:
+    """The decisions of each stream's run, by stream, in the order the
+    stream made them: every detector row's objectness scores (a solo
+    run's ``detect_batch`` calls, or a brokered stream's requests: the
+    flushing thread splits each consolidated batch back to its requests
+    before any is marked done), and every host-tracker assignment (its
+    cost matrix and pairs).  A stream thread names itself in
+    ``tl.stream``."""
+
+    def __init__(self):
+        self.tl = threading.local()
+        self.rows: Dict[int, list] = {}
+        self.of_request: Dict[int, np.ndarray] = {}
+        self.assigns: Dict[int, list] = {}
+
+    def scores(self, fn):                      # detector.detect_scores
+        def wrapper(net, frames):
+            s, b = fn(net, frames)
+            self.tl.last = s
+            return s, b
+        return wrapper
+
+    def detect_batch(self, fn):                # Detector.detect_batch
+        def wrapper(det, *args, **kwargs):
+            out = fn(det, *args, **kwargs)
+            rows = self.tl.last[:len(out)].cpu().numpy()
+            reqs = getattr(self.tl, "reqs", None)
+            if reqs is None:
+                self.rows.setdefault(self.tl.stream, []).append(rows)
+            else:
+                ofs = 0
+                for r in reqs:
+                    self.of_request[id(r)] = rows[ofs:ofs + r.n]
+                    ofs += r.n
+            return out
+        return wrapper
+
+    def dispatch(self, fn):                    # BatchBroker._dispatch
+        def wrapper(broker, reqs):
+            self.tl.reqs = reqs
+            try:
+                return fn(broker, reqs)
+            finally:
+                self.tl.reqs = None
+        return wrapper
+
+    def submit(self, fn):                      # BatchBroker._submit
+        def wrapper(broker, req):
+            out = fn(broker, req)
+            self.rows.setdefault(self.tl.stream, []).append(
+                self.of_request.pop(id(req)))
+            return out
+        return wrapper
+
+    def assign(self, fn):                      # tracker.hungarian_device_np
+        def wrapper(cost):
+            pairs = fn(cost)
+            self.assigns.setdefault(self.tl.stream, []).append(
+                (np.array(cost, np.float32), {(int(t), int(d))
+                                              for t, d in pairs}))
+            return pairs
+        return wrapper
+
+    @contextlib.contextmanager
+    def recording(self):
+        from repro_torch.core import detector as det_mod
+        with wrapped(det_mod, "detect_scores", self.scores), \
+                wrapped(Detector, "detect_batch", self.detect_batch), \
+                wrapped(BatchBroker, "_dispatch", self.dispatch), \
+                wrapped(BatchBroker, "_submit", self.submit), \
+                wrapped(trk_mod, "hungarian_device_np", self.assign):
+            yield self
+
+
+def decision(row: np.ndarray, conf: float) -> tuple:
+    """The cells ``decode_detections`` keeps from one window's scores,
+    in the order it takes them (score above ``conf``, by falling
+    score)."""
+    s = row.ravel()
+    idx = np.flatnonzero(s > conf)
+    return tuple(idx[np.argsort(-s[idx])][:256].tolist())
+
+
+def score_flips(got: list, want: list, conf: float, label: str):
+    """One stream's detector rows against its solo run's, row by row ->
+    (max |Δ| of the scores, the rows whose decision differs: (call, row,
+    the cells that crossed ``conf`` as (solo, brokered) scores, or the
+    cells whose order changed))."""
+    if len(got) != len(want) or any(g.shape != w.shape
+                                    for g, w in zip(got, want)):
+        raise AssertionError(f"{label}: detector rows "
+                             f"{[g.shape for g in got]} against the solo "
+                             f"run's {[w.shape for w in want]}")
+    worst, flips = 0.0, []
+    for k, (g, w) in enumerate(zip(got, want)):
+        if g.size:
+            worst = max(worst, float(np.abs(g - w).max()))
+        for b in range(len(g)):
+            dg, dw = decision(g[b], conf), decision(w[b], conf)
+            if dg == dw:
+                continue
+            crossed = np.flatnonzero((g[b].ravel() > conf)
+                                     != (w[b].ravel() > conf))
+            flips.append((k, b, [(float(w[b].ravel()[c]),
+                                  float(g[b].ravel()[c]))
+                                 for c in crossed] or "order"))
+    return worst, flips
+
+
+def assignment_flip(got: list, want: list, thr: float, label: str):
+    """One stream's host-tracker assignments against its solo run's ->
+    None where every one has the same pairs, else the first that
+    differs: ("tie", call, A(q) - A(p), its limit), where A is the solo
+    run's costs, p its pairs and q the stream's, and the limit is the
+    sum of |A - B| over the pairs of both (an exact solver of B cannot
+    pick q unless the two assignments are tied within it); or ("gate",
+    call, offsets) where an entry is gated on one side only, with each
+    such entry's match probability off the threshold.  Raises where the
+    costs before it moved by more than ``FLEET_COST_ATOL``, or where the
+    flip is neither."""
+    for k, ((B, q), (A, p)) in enumerate(zip(got, want)):
+        if A.shape != B.shape:
+            raise AssertionError(f"{label}: assignment {k} over "
+                                 f"{B.shape} against the solo run's "
+                                 f"{A.shape}, with no window flip")
+        both = (A < BIG / 2) & (B < BIG / 2)
+        drift = float(np.abs(A - B)[both].max()) if both.any() else 0.0
+        if drift > FLEET_COST_ATOL:
+            raise AssertionError(f"{label}: assignment {k}'s costs moved "
+                                 f"by {drift!r}")
+        if p == q:
+            continue
+        gate = (A < BIG / 2) != (B < BIG / 2)
+        if gate.any():
+            off = np.abs(1.0 - np.where(A < BIG / 2, A, B)[gate] - thr)
+            if off.max() > FLEET_COST_ATOL:
+                raise AssertionError(f"{label}: assignment {k} gated "
+                                     f"entries {off.max()!r} from the "
+                                     "threshold")
+            return ("gate", k, off.tolist())
+        gap = sum(float(A[t, d]) for t, d in q) - \
+            sum(float(A[t, d]) for t, d in p)
+        limit = sum(abs(float(A[t, d]) - float(B[t, d])) for t, d in p | q)
+        if gap > limit:
+            raise AssertionError(f"{label}: assignment {k} took other "
+                                 f"pairs {sorted(q - p)} for "
+                                 f"{sorted(p - q)}, {gap!r} dearer at the "
+                                 f"solo costs (limit {limit!r})")
+        return ("tie", k, gap, limit)
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} assignments against "
+                             f"{len(want)}")
+    return None
+
+
+def stage_sums(results) -> dict:
+    """Stage wall and thread-CPU seconds summed over the runs."""
+    out = {}
+    for r in results:
+        for k, v in r.stage_seconds.items():
+            w, p = out.get(k, (0.0, 0.0))
+            out[k] = (round(w + v["wall"], 3), round(p + v["process"], 3))
+    return out
+
+
+def detector_buckets(bank, params, frames, shapes) -> dict:
+    """``batch_drift`` of the detector at every pow2 bucket up to each
+    crop shape's largest: (h, w) -> {bucket: max |Δ|}.  Rows are crops
+    of the fleet's frames (full frames repeated to fill a bucket)."""
+    net = bank.detectors[params.det_arch].net
+    out = {}
+    for (h, w), top in sorted(shapes.items()):
+        rows = [frames[i % len(frames), (i * 16) % (frames.shape[1] - h + 1):
+                       (i * 16) % (frames.shape[1] - h + 1) + h,
+                       (i * 32) % (frames.shape[2] - w + 1):
+                       (i * 32) % (frames.shape[2] - w + 1) + w]
+                for i in range(top)]
+        x = torch.from_numpy(np.ascontiguousarray(np.stack(rows))
+                             ).to(DEVICE)
+        buckets = [1 << k for k in range(top.bit_length())
+                   if 1 << k <= top]
+        out[(h, w)] = batch_drift(net, x, buckets)
+        del x
+    return out
+
+
+def on_clock(meet: threading.Barrier) -> dict:
+    """Stages that put a fleet's streams on one chunk clock, as cameras
+    that hand over each chunk together: after each chunk's PROXY a stream
+    registers with its ``BatchBroker`` and waits for every other stream,
+    so their DETECT requests meet in the broker.  Free-running streams
+    drift apart by whole TRACK stages (a 64-track clip's host tracker
+    takes seconds, a sparse one's tenths), far beyond the broker's
+    10 ms linger, and a stream that reaches DETECT first flushes alone
+    while its peers have not registered; so their requests rarely meet.
+    The wait counts in the PROXY stage's wall."""
+    def proxy_then_meet(ctx, task):
+        task = stage_proxy(ctx, task)
+        ctx.broker()
+        meet.wait(FLEET_JOIN_S)
+        return task
+    return {"proxy": proxy_then_meet}
+
+
+def run_fleet(bank, params) -> dict:
+    """The executor's multi-stream half at full width, at the video
+    cell's θ: solo runs of the fleet's clips (the oracle), ``BatchBroker``
+    at 1, 4 and 16 streams on one chunk clock (host tracker), the
+    detector's batch drift at every bucket the broker formed,
+    ``TrackBroker`` with ``device_assign`` at 4 and 16, and ``run_clips``
+    over the clips on fresh frames with the shared ``DecodePool`` at each
+    ``FLEET_POOLS`` size.
+
+    A brokered window rides another batch than in its solo run, so its
+    scores may move by the detector's batch drift.  Every stream's
+    detector rows are logged beside its solo run's (``ScoreLog``): each
+    must lie within twice the largest drift read against batch 1 (both
+    runs' batches are within it of batch 1), and a window whose kept
+    cells differ (a score crossing det_conf, or two scores trading
+    places) is counted as a decision flip.  A stream with no flip holds
+    its tracks to the solo run's, bit for bit where the drift read 0.0
+    everywhere and at 1 stream, else within the tolerances; unless its
+    host tracker's first assignment that differs from the solo run's is
+    tied with it within the drift (``assignment_flip``), a decision flip
+    too.  A stream with a flip holds its counters only.  Launch counts
+    are set to 0 just before each run and read just after every thread
+    joined.
+    -> the launches of each path."""
+    t_phase = time.perf_counter()
+    smi = nvidia_smi()
+    conf = params.det_conf
+    pl.clear_render_cache()
+    clips = [make_clip("caldot1", "test", SEED + i, n_frames=FLEET_FRAMES)
+             for i in range(FLEET_CLIPS)]
+
+    # the solo runs: once on fresh frames (decode paid), then the oracle
+    # on cached frames with its detector rows logged
+    fresh_wall = 0.0
+    fresh = []
+    for c in clips:
+        r, _, wall = counted(lambda: ClipExecutor(bank, params).run(c))
+        fresh.append(r)
+        fresh_wall += wall
+    solo_log = ScoreLog()
+    solo, solo_wall = [], []
+    with solo_log.recording():
+        for i, c in enumerate(clips):
+            solo_log.tl.stream = i
+            r, _, wall = counted(lambda: ClipExecutor(bank, params).run(c))
+            solo.append(r)
+            solo_wall.append(wall)
+    for i, r in enumerate(solo):
+        check_result(r, FLEET_FRAMES)
+        tracks_agree(r, fresh[i], True, f"solo run of clip {i}, cached "
+                     "against fresh frames")
+
+    def sequential_fps(n):
+        """fps of the same n streams' runs one after another (solo walls,
+        frames cached)."""
+        return n * FLEET_FRAMES / sum(solo_wall[i % len(clips)]
+                                      for i in range(n))
+
+    log(f"fleet: caldot1 test clips 0-{len(clips) - 1}, {FLEET_FRAMES} "
+        f"frames each, the video cell's det_conf {conf!r}; solo runs: "
+        f"tracks {[len(r.tracks) for r in solo]}, detector dispatches "
+        f"{[r.dispatches['detect'] for r in solo]}, walls {solo_wall} s "
+        f"(frames cached; fresh: {fresh_wall:.3f} s for the three); "
+        f"stage (wall, thread CPU) s summed {stage_sums(solo)}")
+
+    def fleet_run(n, opts, score_log=None, clock=False):
+        """n concurrent streams, clips round-robin, one executor each;
+        with ``clock``, the streams on one chunk clock (``on_clock``);
+        -> (results, launches, wall)."""
+        meet = threading.Barrier(n)
+        stages = on_clock(meet) if clock else None
+
+        def stream(i):
+            if score_log is not None:
+                score_log.tl.stream = i
+            try:
+                return ClipExecutor(bank, params, opts, stages=stages).run(
+                    clips[i % len(clips)])
+            except BaseException:
+                meet.abort()             # no peer waits out the clock
+                raise
+        return counted(lambda: run_threads([
+            lambda i=i: stream(i) for i in range(n)]))
+
+    # BatchBroker: record each detector batch's rows per crop shape
+    formed = {}
+
+    def recording(fn):
+        def wrapper(self, frames, *args, **kwargs):
+            shape = tuple(frames.shape[1:3])
+            formed[shape] = max(formed.get(shape, 1), int(frames.shape[0]))
+            return fn(self, frames, *args, **kwargs)
+        return wrapper
+
+    brokered, fleet_launches = {}, {}
+    for n in FLEET_STREAMS:
+        broker = BatchBroker()
+        score_log = ScoreLog()
+        with score_log.recording(), \
+                wrapped(Detector, "detect_batch", recording):
+            res, launches, wall = fleet_run(
+                n, ExecutorOptions(batch_broker=broker), score_log,
+                clock=True)
+        broker.close()
+        for name in ("proxy_plan", "window_gather_batch"):
+            if launches[name] <= 0:
+                raise AssertionError(f"{name} was not launched by "
+                                     f"{n} brokered streams")
+        solo_disp = sum(solo[i % len(clips)].dispatches["detect"]
+                        for i in range(n))
+        if n > 1 and broker.dispatches >= solo_disp:
+            raise AssertionError(
+                f"BatchBroker at {n} streams: {broker.dispatches} "
+                f"dispatches, the solo runs {solo_disp}")
+        if broker.windows_in != sum(r.detector_windows for r in res):
+            raise AssertionError("BatchBroker lost windows")
+        brokered[n] = (res, score_log)
+        fleet_launches[f"batch_broker_{n}"] = launches
+        log(f"fleet BatchBroker, {n} streams x {FLEET_FRAMES} frames "
+            f"(host tracker, one chunk clock; its waits count in proxy): "
+            f"{n * FLEET_FRAMES} frames in {wall:.3f} s"
+            f" wall = {n * FLEET_FRAMES / wall:.2f} fps aggregate (the "
+            f"same runs one after another: {sequential_fps(n):.2f}); "
+            f"detector dispatches {broker.dispatches} (solo runs "
+            f"{solo_disp}), windows {broker.windows_in}, mean "
+            f"batch_fill {float(np.mean(broker.batch_fill)):.4f}; "
+            f"stage (wall, thread CPU) s summed over streams "
+            f"{stage_sums(res)}; launches {launches}; card {smi}")
+
+    frames = np.stack([pl.render_frame(c, f, *params.det_res)[0]
+                       for c in clips for f in range(FLEET_FRAMES)])
+    full = (params.det_res[1], params.det_res[0])
+    shapes = {shape: max(64, next_bucket(rows))
+              for shape, rows in formed.items()}
+    shapes.setdefault(full, 64)
+    drift = detector_buckets(bank, params, frames, shapes)
+    del frames
+    worst = max(d for per in drift.values() for d in per.values())
+    exact = worst == 0.0
+    bound = 2 * worst
+    log("fleet: detector batch drift (max |d| of detect_scores against "
+        "batch 1) at each bucket of each crop shape: "
+        + "; ".join(f"{w}x{h}: " + ", ".join(f"{b} {d!r}"
+                                              for b, d in per.items())
+                    for (h, w), per in drift.items())
+        + f"; largest batch formed per shape {formed}")
+    thr = bank.cfg.tracker.match_threshold
+
+    def described(i, kind, flip):
+        """One stream's first decision flip, for the log."""
+        head = f"; stream {i} (clip {i % len(clips)}): "
+        if kind == "assignment":
+            how, k = flip[:2]
+            return head + (f"assignment {k} swapped pairs tied within the "
+                           f"drift (dearer by {flip[2]!r} at the solo "
+                           f"costs, limit {flip[3]!r})" if how == "tie"
+                           else f"assignment {k} gated entries "
+                           f"{flip[2]} off the match threshold")
+        return head + ", ".join(
+            f"window call {k} row {b} "
+            + ("cells reordered" if cells == "order" else
+               "crossed " + " ".join(
+                   f"{w!r}->{g!r} ({w - conf:+.3e} from det_conf)"
+                   for w, g in cells))
+            for k, b, cells in flip)
+
+    for n, (res, score_log) in brokered.items():
+        # one stream's lone requests run what its solo run does
+        rule = exact or n == 1
+        limit = 0.0 if rule else bound
+        moved, flipped = 0.0, {}
+        for i, r in enumerate(res):
+            label = f"BatchBroker, {n} streams, stream {i}"
+            c = i % len(clips)
+            d, flips = score_flips(score_log.rows.get(i, []),
+                                   solo_log.rows.get(c, []), conf, label)
+            moved = max(moved, d)
+            if d > limit:
+                raise AssertionError(
+                    f"{label}: detector scores {d!r} from the solo run's, "
+                    f"beyond {limit!r}")
+            for k, b, cells in flips:
+                if cells != "order" and any(abs(w - conf) > bound
+                                            for w, _ in cells):
+                    raise AssertionError(f"{label}: call {k} row {b} "
+                                         f"flipped at {cells}")
+            if flips:
+                flipped[i] = ("window", flips)
+            else:
+                # the same detections within the drift: the host
+                # tracker's own decisions may still meet a tie
+                af = assignment_flip(score_log.assigns.get(i, []),
+                                     solo_log.assigns.get(c, []), thr,
+                                     label)
+                if af is not None:
+                    flipped[i] = ("assignment", af)
+            if flipped.get(i) and rule:
+                raise AssertionError(f"{label}: a decision flipped with "
+                                     "no drift")
+            if flipped.get(i):
+                counters_agree(r, solo[c], label)
+                check_result(r, FLEET_FRAMES)
+            else:
+                tracks_agree(r, solo[c], rule, label)
+        kinds = [kind for kind, _ in flipped.values()]
+        log(f"fleet BatchBroker, {n} streams: detector scores within "
+            f"{moved!r} of the solo runs' (limit {limit!r}"
+            + (")" if rule else ", twice the largest drift)")
+            + f"; streams whose decisions flipped: {len(flipped)} of {n} "
+            f"({kinds.count('window')} in a detector window, "
+            f"{kinds.count('assignment')} in a host-tracker assignment)"
+            + "".join(described(i, kind, fl)
+                      for i, (kind, fl) in flipped.items())
+            + "; every stream without a flip has its solo run's tracks "
+            + ("bit for bit" if rule else
+               f"within rtol {BOX_RTOL} / atol {BOX_ATOL} (same frames, "
+               "ids and counters)"))
+
+    # TrackBroker: every stream's device steps ride shared launches
+    for n in FLEET_TRACK_STREAMS:
+        broker = TrackBroker()
+        res, launches, wall = fleet_run(n, ExecutorOptions(
+            device_assign=True, track_broker=broker))
+        broker.close()
+        for i, r in enumerate(res):
+            tracks_agree(r, solo[i % len(clips)], True,
+                         f"TrackBroker, {n} streams, stream {i}")
+        if launches["track_step"] != broker.dispatches:
+            raise AssertionError(
+                f"TrackBroker at {n} streams: {launches['track_step']} "
+                f"track_step launches, {broker.dispatches} dispatches")
+        if broker.dispatches <= 0 or \
+                sum(broker.stream_fill) != broker.steps_in:
+            raise AssertionError("TrackBroker's ledger does not add up")
+        fleet_launches[f"track_broker_{n}"] = launches
+        log(f"fleet TrackBroker (device_assign), {n} streams x "
+            f"{FLEET_FRAMES} frames: {n * FLEET_FRAMES} frames in "
+            f"{wall:.3f} s wall = {n * FLEET_FRAMES / wall:.2f} fps "
+            f"aggregate (the host tracker's solo runs one after another: "
+            f"{sequential_fps(n):.2f}); track_step launches "
+            f"{launches['track_step']} = dispatches, steps "
+            f"{broker.steps_in}, K mean "
+            f"{float(np.mean(broker.stream_fill)):.3f} max "
+            f"{max(broker.stream_fill)}; stage (wall, thread CPU) s summed "
+            f"over streams {stage_sums(res)}; tracks equal the solo host "
+            f"runs' bit for bit; card {smi}")
+
+    # run_clips on fresh frames with the shared decode pool
+    for w in FLEET_POOLS:
+        pl.clear_render_cache()
+        (res, _), launches, wall = counted(lambda: run_clips(
+            bank, params, clips, ExecutorOptions(decode_workers=w)))
+        for i, (r, want) in enumerate(zip(res, solo)):
+            tracks_agree(r, want, True, f"run_clips, clip {i}")
+        fleet_launches[f"run_clips_{w}"] = launches
+        log(f"fleet run_clips, decode_workers {w} (pool of {max(2, w)}), "
+            f"{len(clips)} fresh clips x {FLEET_FRAMES} frames: "
+            f"{len(clips) * FLEET_FRAMES} frames in {wall:.3f} s wall = "
+            f"{len(clips) * FLEET_FRAMES / wall:.2f} fps (the solo runs "
+            f"on fresh frames one after another: "
+            f"{len(clips) * FLEET_FRAMES / fresh_wall:.2f}); decode "
+            f"{stage_sums(res)['decode']} s (wall, thread CPU) summed over "
+            f"the clips; stage sums {stage_sums(res)}; tracks equal the "
+            f"per-clip runs' bit for bit; launches {launches}; card {smi}")
+    log(f"fleet phase: {time.perf_counter() - t_phase:.1f} s wall")
+    return fleet_launches
+
+
+VIDEO_COUNTERS = (proxy_plan, window_gather_batch, track_step,
+                  assign_batch, proxy_score, window_gather)
+# the kernels the fleet's paths launch
+FLEET_KERNELS = ("proxy_plan", "window_gather_batch", "track_step")
+
+
+def counted(run):
+    """Run ``run`` with every video kernel's launch count set to 0 just
+    before it; -> (result, launches, wall seconds)."""
+    for k in VIDEO_COUNTERS:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    return out, {k.__name__: k.launches for k in VIDEO_COUNTERS}, \
+        time.perf_counter() - t0
+
+
+def run_video() -> tuple:
+    """The video paths: every check and run above but the fleet; -> (their
+    six kernels' records, the bank, θ)."""
     bank = make_bank(DEVICE)
     clip = make_clip("caldot1", "test", SEED, n_frames=N_FRAMES)
     params, frames, feat, first_plan = set_up(bank, clip)
@@ -1080,21 +1679,6 @@ def run_video() -> list:
     # on the device, both flavours, on run 1's clip: the tracks must be
     # the host tracker's, array for array.
     clip2 = make_clip("caldot1", "test", SEED + 1, n_frames=N_FRAMES)
-    counters = (proxy_plan, window_gather_batch, track_step, assign_batch,
-                proxy_score, window_gather)
-
-    def counted(run):
-        """Run ``run`` with every launch count set to 0 just before it;
-        -> (result, launches, wall seconds)."""
-        for k in counters:
-            k.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = run()
-        torch.cuda.synchronize()
-        return out, {k.__name__: k.launches for k in counters}, \
-            time.perf_counter() - t0
-
     runs = {}
     for label, c, opts in (
             ("cold", clip, None), ("warm", clip2, None),
@@ -1256,7 +1840,8 @@ def run_video() -> list:
                     "memory (ordinary loads where unaligned), head 4 "
                     "threads a cell, spans as bitmasks, grid by AND/OR, "
                     "plan stats; f32 cuda-core",
-             launches=launches["proxy_plan"], max_abs_err=pp["max_abs_err"],
+             launches=launches["proxy_plan"],
+             max_abs_err=pp["max_abs_err"],
              ms=pp["ms"], plain_ms=pp["plain_ms"], bound_ms=pp["bound_ms"],
              bound_by=pp["bound_by"], library_ms=None,
              device_ms=pp["device_ms"], host_us=pp["host_us"],
@@ -1343,7 +1928,7 @@ def run_video() -> list:
                                           "ns_per_step")}
                     for k, r in asg.items()}),
     ]
-    return kernels
+    return kernels, bank, params
 
 
 # ---------------------------------------------------------------------------
@@ -2126,7 +2711,16 @@ def main() -> int:
     log(f"card: {smi}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, nvcc: {nvcc}")
     build_kernels()
-    kernels = run_video() + run_lm() + run_ssm()
+    video, bank, params = run_video()
+    kernels = video + run_lm() + run_ssm()
+    # the fleet last: after its stream threads, the profiler's traces
+    # held no device kernel for the rest of the process (twice), and
+    # every phase before it reads the profiler
+    fleet = run_fleet(bank, params)
+    for k in kernels:
+        if k["name"] in FLEET_KERNELS:
+            k["launches_fleet"] = {path: n[k["name"]]
+                                   for path, n in fleet.items()}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -105,6 +105,25 @@ def detect_scores(net: DetectorNet, frames: torch.Tensor
     return torch.sigmoid(out[..., 0]), out[..., 1:]
 
 
+def batch_drift(net: DetectorNet, frames: torch.Tensor,
+                batches: Sequence[int]) -> Dict[int, float]:
+    """How far ``detect_scores`` of a row moves with the batch it rides
+    in: for each b in ``batches``, max |Δ| over scores and box outputs
+    of the first b rows run as one batch against each row run alone.
+    The brokers change a window's batch, so this is what decides whether
+    a brokered stream's tracks can equal its solo run's bit for bit."""
+    with torch.inference_mode():
+        alone = [detect_scores(net, frames[i:i + 1])
+                 for i in range(max(batches))]
+        out = {}
+        for b in batches:
+            s, bx = detect_scores(net, frames[:b])
+            out[b] = max(
+                float((s - torch.cat([a[0] for a in alone[:b]])).abs().max()),
+                float((bx - torch.cat([a[1] for a in alone[:b]])).abs().max()))
+    return out
+
+
 def decode_detections(scores: np.ndarray, boxes: np.ndarray,
                       conf: float, origin: Tuple[float, float] = (0.0, 0.0),
                       scale: Tuple[float, float] = (1.0, 1.0),

@@ -52,8 +52,10 @@ _RENDER_LOCK = threading.Lock()
 
 def render_frame(clip: Clip, f: int, W: int, H: int
                  ) -> Tuple[np.ndarray, float]:
-    """-> (frame, charged decode seconds)."""
-    key = (clip.profile.name, clip.split, clip.clip_id, f, W, H)
+    """-> (frame, charged decode seconds).  The key holds the clip's
+    length: a clip's objects (and so their colours) depend on it."""
+    key = (clip.profile.name, clip.split, clip.clip_id, clip.n_frames, f,
+           W, H)
     with _RENDER_LOCK:
         hit = _RENDER_CACHE.get(key)
         if hit is not None:
@@ -67,6 +69,12 @@ def render_frame(clip: Clip, f: int, W: int, H: int
         if len(_RENDER_CACHE) > _RENDER_CACHE_MAX:
             _RENDER_CACHE.popitem(last=False)
     return frame, cost
+
+
+def clear_render_cache() -> None:
+    """Drop every cached frame, so that the next runs decode afresh."""
+    with _RENDER_LOCK:
+        _RENDER_CACHE.clear()
 
 
 @dataclass(frozen=True)
@@ -323,7 +331,7 @@ def run_clip(bank: ModelBank, params: PipelineParams, clip: Clip,
       * "streaming" (default) — the stage-graph executor with async
         decode prefetch and double-buffered device uploads;
       * "chunked"             — the same stage graph on the sequential
-        scheduler;
+        scheduler (``engine.run_clip_chunked``);
       * "frame"               — the strictly per-frame path
         (``run_clip_frames``).
 
@@ -331,17 +339,16 @@ def run_clip(bank: ModelBank, params: PipelineParams, clip: Clip,
     path plans the same windows but runs its conv nets at other batch
     sizes, so it matches them only as far as those nets are
     batch-invariant (in the reference as in the port)."""
-    from repro_torch.core.executor import ClipExecutor, ExecutorOptions
     if engine == "streaming":
-        opts = ExecutorOptions()
-    elif engine == "chunked":
-        opts = ExecutorOptions(prefetch=False, double_buffer=False)
-    elif engine == "frame":
+        from repro_torch.core.executor import run_clip_streamed
+        return run_clip_streamed(bank, params, clip)
+    if engine == "chunked":
+        from repro_torch.core.engine import run_clip_chunked
+        return run_clip_chunked(bank, params, clip)
+    if engine == "frame":
         return run_clip_frames(bank, params, clip)
-    else:
-        raise ValueError(f"unknown engine {engine!r} (expected "
-                         "'streaming', 'chunked' or 'frame')")
-    return ClipExecutor(bank, params, opts).run(clip)
+    raise ValueError(f"unknown engine {engine!r} (expected "
+                     "'streaming', 'chunked' or 'frame')")
 
 
 def run_clip_frames(bank: ModelBank, params: PipelineParams, clip: Clip

@@ -21,11 +21,13 @@ replays its outputs onto the host track objects; ``DeviceTracker`` keeps
 the track state in slot buffers on the device for a whole chunk (one
 launch per frame, the slot bookkeeping in PyTorch ops on the device) and
 replays the chunk's events on the host once.  Both run on the device of
-the crop CNN's weights.
+the crop CNN's weights.  With a cross-stream ``executor.TrackBroker``
+handle attached (``_track_handle``), a device step is submitted to the
+broker, which launches ``track_step`` once for the steps of K streams.
 
 Parameters are a dict: ``"crop_cnn"`` -> ``CropCNN`` and the reference's
 ``"det_proj"``, ``"gru"`` and ``"match"`` dicts of numpy arrays.
-Training and the cross-stream track broker are not ported yet.
+Training is not ported yet.
 """
 from __future__ import annotations
 
@@ -183,6 +185,10 @@ class RecurrentTracker:
         # device-step operands, moved to the device once (lazily: a host
         # tracker never needs them)
         self._packed = None
+        # the threshold on the host: a broker groups steps by its value
+        self._thr_host = np.full((1, 1), cfg.match_threshold, np.float32)
+        # cross-stream TrackBroker handle, attached by the executor
+        self._track_handle = None
         # device dispatches issued by this tracker (per-frame crop CNN,
         # track-step launches; one per chunk for DeviceTracker's scan)
         self.dispatches = 0
@@ -364,7 +370,8 @@ class RecurrentTracker:
         Returns (pairs, h_upd rows per track row, h_new rows per
         detection column) on the host.  The kernel restricts its JV
         solve to the ``assoc_side`` square the host solves, so any Q
-        gives the host tracker's result."""
+        gives the host tracker's result, and so does a ``TrackBroker``
+        launch that pads the step into a batch of streams."""
         T, n = len(self.active), len(boxes)
         e, H = self.cfg.embed_dim, self.cfg.rnn_dim
         Q = next_bucket(max(T, n, 1), min_bucket=8)
@@ -386,11 +393,17 @@ class RecurrentTracker:
         dvalid[:n] = 1.0
         params, table, thr = self._device_operands()
         self.dispatches += 1
-        ops = [torch.from_numpy(a[None]).to(self.device)
+        ops = [torch.from_numpy(a).to(self.device)
                for a in (h_r, tbox_r, alive_r, te_gap_r, te_match, x_p,
                          dbox, dvalid)]
-        matched, h_upd, h_new = (o[0].cpu().numpy() for o in
-                                 track_step(*ops, thr, params, table))
+        if self._track_handle is not None:
+            matched, h_upd, h_new = self._track_handle.step(
+                *ops, self._thr_host, params, table,
+                params_key=id(self.params))
+        else:
+            matched, h_upd, h_new = (
+                o[0].cpu().numpy() for o in
+                track_step(*(o[None] for o in ops), thr, params, table))
         pairs = [(ti, int(matched[ti])) for ti in range(T)
                  if matched[ti] >= 0]
         return pairs, h_upd, h_new
@@ -543,8 +556,14 @@ class DeviceTracker(RecurrentTracker):
     padded slot buffers on the device, with one ``track_step`` launch per
     frame (``_device_chunk_scan``), and the host materialises track
     objects once per chunk by replaying the scan's (matched, new-slot, h)
-    events.  Same tracks, bit for bit, as ``RecurrentTracker``; a chunk
-    counts as one dispatch, as the JAX package's one scan dispatch."""
+    events.  Same tracks, bit for bit, as ``RecurrentTracker``.
+
+    ``dispatches`` counts a chunk as one dispatch, as the JAX package's
+    one scan dispatch, although the chunk launches ``track_step`` once a
+    frame: a readout of launches reads ``track_step.launches``.  With a
+    cross-stream ``TrackBroker`` handle attached the chunk takes the
+    per-frame path instead (the broker batches steps ACROSS streams,
+    which a per-stream chunk loop cannot)."""
 
     def __init__(self, cfg: TrackerConfig, params, max_misses: int = 2,
                  min_hits: int = 2):
@@ -558,6 +577,9 @@ class DeviceTracker(RecurrentTracker):
                    ) -> None:
         B = len(frame_ids)
         if B == 0:
+            return
+        if self._track_handle is not None:
+            super().step_chunk(frame_ids, dets_per_frame, frames, embeds)
             return
         cfg = self.cfg
         if embeds is None:

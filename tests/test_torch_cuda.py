@@ -22,7 +22,12 @@ padding and large-matrix cases included), and non-finite costs must
 raise in ``assign`` as in its plain version; ``proxy_plan`` within the
 8-ulp threshold band of float64 arithmetic, its stats equal wherever no
 flip touched the frame, and ``window_gather_batch`` bit for bit, each
-on the branch of its shape (bulk copies where aligned).
+on the branch of its shape (bulk copies where aligned).  Two cases hold
+what the cross-stream brokers rely on: the detector's scores at batch 1
+against batches 4, 16 and 64 (both architectures, a window and a full
+frame at full width), within ``BATCH_DRIFT_ATOL``; and one
+``TrackBroker`` launch over 4 streams of mixed Q, each stream's outputs
+equal to the plain version's on the CPU bit for bit.
 """
 import pytest
 
@@ -41,6 +46,11 @@ from repro_torch.kernels.window_gather import (  # noqa: E402
     check as gather_check)
 
 pytestmark = pytest.mark.cuda
+
+# how far a row's detector outputs may move with its batch on the card:
+# about 10x the largest drift chip_smoke.run_fleet reads there (1.71e-7
+# for ssd-deep on caldot1 frames at full width, H100)
+BATCH_DRIFT_ATOL = 2e-6
 
 
 @pytest.fixture
@@ -184,3 +194,49 @@ def test_window_gather_batch_takes_the_branch_of_its_rows(dev, case):
     assert len(got) == 1, got
     scalar = gather_check.SCALAR_KERNEL in got.pop()
     assert scalar == (case[3] == "unaligned")
+
+
+@pytest.mark.parametrize("hw", [(144, 240), (544, 960)],
+                         ids=["window 240x144", "frame 960x544"])
+@pytest.mark.parametrize("arch", ["ssd-lite", "ssd-deep"])
+def test_detector_batch_drift_on_the_card(dev, arch, hw):
+    # a window's detections must not depend on the batch a broker puts
+    # it in, beyond the stated conv drift
+    from repro_torch.core.detector import Detector, batch_drift
+    det = Detector(arch, seed=0, device=dev)
+    gen = torch.Generator().manual_seed(1)
+    frames = torch.rand((64,) + hw + (3,), generator=gen).to(dev)
+    drift = batch_drift(det.net, frames, (1, 4, 16, 64))
+    assert drift[1] == 0.0
+    assert max(drift.values()) <= BATCH_DRIFT_ATOL, drift
+
+
+def test_track_broker_launch_matches_plain_version(dev):
+    # one flush of 4 streams (Q 64, 128, 32, 128): padded to Q 128 and
+    # K 4 on the card, one launch, each stream's bits as its own plain
+    # step on the CPU
+    import numpy as np
+    from repro_torch.core.executor import TrackBroker, _TrackRequest
+    from repro_torch.kernels.track_step import (LOG1P_TABLE_2D,
+                                                track_step,
+                                                track_step_ref)
+    heads_cpu = track_check.heads(torch.device("cpu"))
+    heads_dev = [p.to(dev) for p in heads_cpu]
+    table_cpu = torch.from_numpy(LOG1P_TABLE_2D)
+    thr = np.full((1, 1), track_check.TRACKER.match_threshold, np.float32)
+    rng = np.random.default_rng(4)
+    streams = [track_check.operands(rng, 1, q, heads_cpu,
+                                    live=(min(q, 40), min(q, 30)))
+               for q in (64, 128, 32, 128)]
+    reqs = [_TrackRequest(None, [t[0].to(dev) for t in ops], thr,
+                          heads_dev, table_cpu.to(dev), None)
+            for ops in streams]
+    before = track_step.launches
+    assert TrackBroker()._dispatch(reqs) == 4
+    assert track_step.launches == before + 1
+    for ops, r in zip(streams, reqs):
+        want = track_step_ref(*ops, torch.from_numpy(thr), heads_cpu,
+                              table_cpu)
+        for got, w in zip(r.result, want):
+            assert track_check.bits_equal(torch.from_numpy(got), w[0])
+    assert any((r.result[0] >= 0).any() for r in reqs)
