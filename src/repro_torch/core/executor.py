@@ -51,9 +51,19 @@ Threads and the card: stream threads and decode workers all enqueue on
 the device's current (default) stream, so their launches serialise in
 the order they are issued.
 
+Live ingestion: ``start(clip, frame_ids=, tracker=)`` runs one appended
+segment of an open clip, an explicit slice of θ's gap progression fed
+to the stream's carried tracker; ``repro_torch.stream.ingest``'s
+``SegmentIngestor`` calls it once per append, and
+``repro_torch.query.store.TrackStore.ingest`` runs whole clips through
+``run_clips``.  While drift monitoring is on (``obs.enable_drift``) a
+run collects each frame's proxy positive-cell fraction into
+``RunResult.proxy_fracs``, the ingestor's ``DriftMonitor`` input.
+
 Not ported: the ``devices`` and ``mesh`` options (the port runs on the
 bank's one card), and the tracing spans and metrics-registry mirrors of
-the runs and brokers (the brokers keep their public stats attributes).
+the runs and brokers (the brokers keep their public stats attributes;
+the live path's spans and metrics are in ``repro_torch.obs``).
 """
 from __future__ import annotations
 
@@ -80,7 +90,7 @@ from repro_torch.core.windows import (ChunkPlan, full_frame_plan,
 from repro_torch.data.video_synth import Clip
 from repro_torch.kernels.track_step import track_step
 from repro_torch.kernels.window_gather import window_gather_batch
-from repro_torch.obs.metrics import RunProfile
+from repro_torch.obs.metrics import RunProfile, drift_enabled
 
 DEFAULT_CHUNK = 16     # frames per chunk (B) when θ does not say
 
@@ -658,6 +668,10 @@ class _RunContext:
         self.skipped = 0
         self.profile = RunProfile(STAGES)
         self._disp_track0 = int(getattr(self.tracker, "dispatches", 0))
+        # per-frame proxy positive-cell fractions (drift monitoring
+        # only; appended by PROXY, which runs on the draining thread)
+        self.proxy_fracs: Optional[List[float]] = \
+            [] if drift_enabled() else None
 
     def broker(self) -> Optional[_BrokerHandle]:
         """The run's batch-broker handle, registered lazily on the first
@@ -735,6 +749,13 @@ def stage_proxy(ctx: _RunContext, task: ChunkTask) -> ChunkTask:
             task.plan = plan_chunk(grids, ctx.sizeset,
                                    ctx.cfg.windows.max_windows,
                                    chunk_size=ctx.chunk)
+        if ctx.proxy_fracs is not None:
+            # drift signal: positive-cell fraction per REAL frame (an
+            # observer of grids the plan already computed; rows past
+            # the chunk's frame count are padding)
+            g = np.asarray(grids)[:len(task.frame_ids)]
+            fracs = (g > 0).mean(axis=tuple(range(1, g.ndim)))
+            ctx.proxy_fracs.extend(float(v) for v in fracs)
     else:
         task.plan = full_frame_plan(len(task.frame_ids), ctx.sizeset)
     return task
@@ -1157,15 +1178,13 @@ class ClipExecutor:
         return [ChunkTask(i, ids[c0:c0 + ctx.chunk])
                 for i, c0 in enumerate(range(0, len(ids), ctx.chunk))]
 
-    def start(self, clip: Clip, device_offset: int = 0, *,
+    def start(self, clip: Clip, *,
               frame_ids: Optional[Sequence[int]] = None,
               tracker: Optional[object] = None) -> _ActiveRun:
         """Start a run.  ``frame_ids``/``tracker`` are the resume hooks
-        of live ingestion: run only an explicit frame slice, feeding an
-        existing tracker whose state carries across segment runs.
-        ``device_offset`` keeps the reference's signature (its chunks
-        round-robin over devices from it); the port runs on the bank's
-        one device, does not read it and passes none itself."""
+        of live ingestion (``stream.ingest.SegmentIngestor``): run only
+        an explicit frame slice, feeding an existing tracker whose state
+        carries across segment runs."""
         ctx = _RunContext(self.bank, self.params, clip, self.options,
                           frame_ids=frame_ids, tracker=tracker)
         try:
@@ -1204,7 +1223,8 @@ class ClipExecutor:
         return RunResult(tracks, seconds, len(ctx.frame_ids),
                          ctx.n_windows, ctx.full_frames, ctx.skipped,
                          stage_seconds=ctx.profile.stage_seconds(),
-                         dispatches=dispatches)
+                         dispatches=dispatches,
+                         proxy_fracs=ctx.proxy_fracs)
 
     def run(self, clip: Clip) -> RunResult:
         return self.finish(self.start(clip))

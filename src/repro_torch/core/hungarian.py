@@ -7,7 +7,9 @@ C solver when present, else the pure-numpy Jonker-Volgenant
 through ``hungarian_device_np``.  Rectangular matrices are padded with a
 large cost; pairs matched to padding are reported as unmatched.  Used by
 the recurrent tracker and the SORT tracker.  ``hungarian_batch`` solves
-many problems in one launch of the ``assign`` kernel.
+many problems in one launch of the ``assign`` kernel.  ``optimality_gap``
+measures how far an f32 twin's assignment lies from the exact optimum of
+its padded square.
 """
 from __future__ import annotations
 
@@ -30,6 +32,12 @@ BIG = 1e9
 # <= 64 * 2 << 2^13), small enough that f32 potential updates keep real
 # cost differences resolvable
 FORBIDDEN_DEVICE = 2.0 ** 13
+# the f32 solver is not exact: its potentials carry sentinel-scale
+# values, where f32 resolves costs only to its spacing at
+# FORBIDDEN_DEVICE (2^-10), so its assignment can be dearer than the
+# optimum by about that spacing (tools/jv_gap.py measures it); a check
+# that holds one run's assignments to another's allows four spacings
+DEVICE_JV_GAP = 4 * FORBIDDEN_DEVICE * 2.0 ** -23
 
 
 def hungarian(cost: np.ndarray) -> List[Tuple[int, int]]:
@@ -196,6 +204,27 @@ def hungarian_device_np(cost: np.ndarray) -> List[Tuple[int, int]]:
     cols = solve_device_np(sq)
     return [(r, int(cols[r])) for r in range(n)
             if cols[r] < m and cost[r, cols[r]] < BIG / 2]
+
+
+def optimality_gap(cost: np.ndarray, pairs) -> float:
+    """How much dearer ``pairs`` (``hungarian_device_np``'s answer for
+    ``cost``, or any set of real pairs) is than the exact optimum of the
+    padded square that solver solves: both totals in float64, every row
+    left out of ``pairs`` at ``FORBIDDEN_DEVICE``, the optimum by scipy's
+    exact solver.  0 for an optimal assignment; at least about
+    ``FORBIDDEN_DEVICE`` less the real costs for one with fewer real
+    pairs than the most it could have."""
+    if _lsa is None:                     # pragma: no cover
+        raise RuntimeError("optimality_gap needs scipy")
+    n, m = cost.shape
+    side = assoc_side(n, m)
+    sq = np.full((side, side), FORBIDDEN_DEVICE, np.float64)
+    sq[:n, :m] = np.minimum(np.asarray(cost, np.float64), FORBIDDEN_DEVICE)
+    rows, cols = _lsa(sq)
+    pairs = list(pairs)
+    total = sum(float(sq[t, d]) for t, d in pairs) + \
+        (side - len(pairs)) * FORBIDDEN_DEVICE
+    return total - float(sq[rows, cols].sum())
 
 
 def hungarian_batch(costs: Sequence[np.ndarray], device: Device = "cuda"

@@ -267,6 +267,10 @@ class RunResult:
     # one per device step, one per chunk for the device tracker); None
     # on the per-frame path, as in the reference
     dispatches: Optional[Dict[str, int]] = None
+    # per-frame proxy positive-cell fractions, collected by the executor
+    # only while drift monitoring is on (``obs.enable_drift``); the
+    # ingestor's per-stream ``DriftMonitor`` reads them
+    proxy_fracs: Optional[List[float]] = None
 
 
 def detect_with_windows(bank: ModelBank, params: PipelineParams,

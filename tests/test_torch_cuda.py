@@ -240,3 +240,136 @@ def test_track_broker_launch_matches_plain_version(dev):
         for got, w in zip(r.result, want):
             assert track_check.bits_equal(torch.from_numpy(got), w[0])
     assert any((r.result[0] >= 0).any() for r in reqs)
+
+
+# ---------------------------------------------------------------------------
+# Live ingest on the card: the store, segment appends and checkpoints
+# ---------------------------------------------------------------------------
+
+LIVE_FRAMES = 32
+LIVE_SEG = 16            # one chunk: every chunk as in a batch ingest
+
+
+def _live_setup(dev):
+    """The reduced configuration on the card with seeded weights, one
+    32-frame clip, θ with the proxy threshold and det_conf at quantiles
+    of the clip's own scores (refine off, as live ingest requires)."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs.multiscope import MULTISCOPE_PIPELINE
+    from repro_torch.core import pipeline as pl
+    from repro_torch.core.detector import Detector
+    from repro_torch.core.proxy import ProxyModel
+    from repro_torch.core.tracker import init_tracker
+    from repro_torch.data.video_synth import make_clip
+    cfg = MULTISCOPE_PIPELINE.reduced()
+    det_res, pres = cfg.detector.resolutions[-1], cfg.proxy.resolutions[-1]
+    grid = pl.det_grid(det_res)
+    sizes = [grid, (3, 2), (5, 3)]
+    bank = pl.ModelBank(
+        cfg, {"ssd-lite": Detector("ssd-lite", seed=5, device=dev)},
+        {pres: ProxyModel(cfg.proxy.cell, cfg.proxy.base_channels, pres,
+                          seed=5, device=dev)},
+        tracker_params=init_tracker(cfg.tracker, seed=5, device=dev),
+        sizes_cells=sizes, ref_grid=grid,
+        win_times={("ssd-lite", s): t
+                   for s, t in zip(sizes, (1.0, 0.2, 0.45))},
+        device=dev)
+    clip = make_clip("caldot1", "test", 0, n_frames=LIVE_FRAMES)
+    frames = np.stack([pl.render_frame(clip, f, *det_res)[0]
+                       for f in range(LIVE_FRAMES)])
+    proxy, det = bank.proxies[pres], bank.detectors["ssd-lite"]
+    with torch.inference_mode():
+        sig = torch.sigmoid(proxy.features(pl.downsample_chunk(
+            frames, pres)) @ proxy.encoder.head_w + proxy.encoder.head_b)
+        thr = float(torch.quantile(sig.flatten().float(), 0.85))
+        scores = torch.sigmoid(det.net(torch.from_numpy(frames).to(dev))
+                               [..., 0])
+        conf = float(torch.quantile(scores.flatten().float(), 0.8))
+    params = pl.PipelineParams("ssd-lite", det_res, conf, gap=1,
+                               proxy_res=pres, proxy_threshold=thr,
+                               tracker="recurrent", refine=False)
+    return bank, dataclasses.replace(params, chunk_size=LIVE_SEG), clip
+
+
+def _numpy_only(packed):
+    """No torch tensor in any field of a packed clip or its summary."""
+    import dataclasses
+
+    import numpy as np
+    for k in ("rows", "offsets", "hist", "track_bbox"):
+        assert type(getattr(packed, k)) is np.ndarray, k
+    assert packed.rows.dtype == np.float32 and packed.rows.shape[1] == 6
+    assert all(type(c) is int for c in packed.counters)
+    assert type(packed.seconds) is float
+    for f in dataclasses.fields(packed):
+        assert not isinstance(getattr(packed, f.name), torch.Tensor), f.name
+    for v in dataclasses.astuple(packed.summary):
+        assert not isinstance(v, torch.Tensor)
+
+
+def _packed_equal(a, b):
+    import numpy as np
+    for k in ("rows", "offsets", "hist", "track_bbox"):
+        assert np.array_equal(getattr(a, k), getattr(b, k)), k
+    assert a.summary == b.summary and a.counters == b.counters
+    assert a.n_frames == b.n_frames and a.watermark == b.watermark
+
+
+def test_segment_ingest_on_the_card_equals_batch_ingest(dev, tmp_path):
+    # one-chunk segments leave every detector batch as it was: the
+    # sealed clip is the batch ingest's bit for bit, and neither holds a
+    # torch tensor
+    from repro_torch.query import TrackStore
+    from repro_torch.stream import SegmentIngestor
+    bank, params, clip = _live_setup(dev)
+    batch = TrackStore(str(tmp_path / "batch"), bank, params)
+    batch.ingest([clip])
+    want = batch.get(clip)
+    assert len(want.rows) > 0
+    st = TrackStore(str(tmp_path / "live"), bank, params)
+    ing = SegmentIngestor(st)
+    ing.open(clip)
+    reports = [ing.append(clip, LIVE_SEG) for _ in range(2)]
+    assert [r.watermark for r in reports] == [LIVE_SEG, LIVE_FRAMES]
+    assert reports[-1].sealed
+    _packed_equal(st.get(clip), want)
+    _numpy_only(st.get(clip))
+    _numpy_only(want)
+    _packed_equal(TrackStore(str(tmp_path / "live"), None,
+                             params).get(clip), want)
+
+
+def test_device_assign_checkpoint_resumes_under_device_tracker(dev,
+                                                               tmp_path):
+    # a checkpoint taken from a device_assign stream holds host numpy
+    # only, and resumes under the device tracker to the host batch clip
+    import numpy as np
+    from repro_torch.core.executor import ExecutorOptions
+    from repro_torch.kernels.track_step import track_step
+    from repro_torch.query import TrackStore
+    from repro_torch.stream import SegmentIngestor, TrackerCheckpoint
+    from repro_torch.stream.ingest import CKPT_SUFFIX
+    bank, params, clip = _live_setup(dev)
+    batch = TrackStore(str(tmp_path / "batch"), bank, params)
+    batch.ingest([clip])
+    root = str(tmp_path / "live")
+    first = SegmentIngestor(TrackStore(root, bank, params),
+                            options=ExecutorOptions(device_assign=True))
+    first.open(clip)
+    before = track_step.launches
+    first.append(clip, LIVE_SEG)
+    assert track_step.launches > before
+    st = TrackStore(root, bank, params)
+    ckpt = TrackerCheckpoint.load(st.sidecar_path(clip, CKPT_SUFFIX))
+    assert all(type(v) is np.ndarray for v in ckpt.to_arrays().values())
+    assert all(type(t.h) is np.ndarray for t in ckpt.active)
+    second = SegmentIngestor(st, options=ExecutorOptions(
+        device_tracker=True))
+    assert second.open(clip) == LIVE_SEG
+    before = track_step.launches
+    sealed = second.seal(clip)
+    assert track_step.launches > before
+    _packed_equal(sealed, batch.get(clip))
+    _numpy_only(sealed)
