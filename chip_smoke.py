@@ -10,10 +10,11 @@ per source, started together), holds each kernel against its plain
 PyTorch version on the card at the main path's shapes and times both
 (``assign`` and ``track_step`` bit for bit over their ``check`` modules'
 cases, with the JV's steps counted on the host and ns a step;
-``proxy_plan`` within the 8-ulp threshold band and ``window_gather_batch``
-bit for bit over theirs, beside two yardsticks: the card's launch floor,
-``zero_()`` on a one-element tensor, and a ``copy_`` of each gather's
-bytes), then runs the main path —
+``proxy_plan`` and ``proxy_score`` within the 8-ulp threshold band and
+``window_gather_batch`` and the single-frame ``window_gather`` bit for
+bit over theirs, beside two yardsticks: the card's launch floor,
+``zero_()`` on a one-element tensor, and a ``copy_`` of each batch
+gather's bytes), then runs the main path —
 one 64-frame clip through the streaming ``ClipExecutor`` at the
 full-width MultiScope configuration (detector ssd-deep at 960x544, proxy
 416x256, recurrent tracker, chunks of 16) with untrained weights drawn
@@ -130,11 +131,14 @@ from repro_torch.kernels.track_step import (  # noqa: E402
 from repro_torch.kernels.track_step import (  # noqa: E402
     check as track_check)
 from repro_torch.kernels.proxy_plan import (  # noqa: E402
-    plan_to_host, proxy_plan, proxy_plan_ref)
+    proxy_plan, proxy_plan_ref)
 from repro_torch.kernels.proxy_plan.ops import (FLIP_ULPS,  # noqa: E402
                                                 _spans_on, check_plan)
+from repro_torch.kernels import views_to_host  # noqa: E402
 from repro_torch.kernels.proxy_score import (  # noqa: E402
     check_scores, proxy_score, proxy_score_ref)
+from repro_torch.kernels.proxy_score import (  # noqa: E402
+    check as score_check)
 from repro_torch.kernels.proxy_plan import check as plan_check  # noqa: E402
 from repro_torch.kernels.window_gather import (  # noqa: E402
     window_gather, window_gather_batch, window_gather_batch_ref,
@@ -592,7 +596,7 @@ def check_proxy_plan(feat, w, b, thr, grid_hw):
         # it: one copy of the buffer that grid and stats share, against
         # a copy of each
         grid, stats = kern()
-        row.update(copy_back_us=host_us(lambda: plan_to_host(grid, stats)),
+        row.update(copy_back_us=host_us(lambda: views_to_host(grid, stats)),
                    copy_back_two_us=host_us(lambda: (grid.cpu().numpy(),
                                                      stats.cpu().numpy())))
     log(f"proxy_plan {tuple(feat.shape)} -> {(B, hc, wc)}: kernel "
@@ -618,87 +622,91 @@ def host_us(fn, reps: int = 200) -> float:
 
 
 def check_window_gather_single(frame):
-    """The single-frame gather against its plain version, exactly, on
-    one 960x544 frame: for each sub-frame size, a table of 8 rows (6
-    seeded windows, one at the far edge, one zero padding row)."""
-    CELL_PX = pl.CELL_PX
+    """The single-frame gather against its plain version over
+    ``window_gather.check.SINGLE_CASES`` (the card-only tests' own), bit
+    for bit, every zero row cropping cell (0, 0): 8 rows of each
+    sub-frame size on the set-up chunk's first frame (6 seeded, the far
+    edge, one zero row) with the table on the host, as the per-frame
+    engine passes it (the launch carries its rows), and on the card; a
+    host table of 20 rows (a device table); unaligned rows with either
+    table (the scalar kernel).  The 8-row cases are timed: ms a call,
+    device ms at a cold L2 over ``SINGLE_KERNEL_NAMES``, the host's
+    enqueue, the plain version, and the bound over the distinct frame
+    pixels the table touches plus the bytes written (beside the
+    earlier bound, twice the bytes written).  -> {case: record}."""
     dev_frame = torch.from_numpy(np.ascontiguousarray(frame)).to(DEVICE)
-    H, W, _ = frame.shape
-    rng = np.random.default_rng(SEED)
-    rows = []
-    for size in SIZES_CELLS[1:]:
-        tbl = np.zeros((8, 2), np.int32)
-        tbl[:6] = np.stack([rng.integers(0, H // CELL_PX - size[1] + 1, 6),
-                            rng.integers(0, W // CELL_PX - size[0] + 1, 6)],
-                           1)
-        tbl[6] = (H // CELL_PX - size[1], W // CELL_PX - size[0])
-        win_h, win_w = size[1] * CELL_PX, size[0] * CELL_PX
-        t_dev = torch.from_numpy(tbl).to(DEVICE)
+    rows = {}
+    for case in gather_check.SINGLE_CASES:
+        name, shape, size, kind, where = case
+        fr = dev_frame if shape == tuple(frame.shape) else None
+        rec = gather_check.check_single_case(case, DEVICE, frame=fr)
+        src, tbl, win_h, win_w = rec["operands"]
+        row = dict(case=name, size=size, n=rec["n"], table=where,
+                   max_abs_err=rec["max_abs_err"])
+        rows[name] = row
+        if kind != "padded":
+            log(f"window_gather {name}: {rec['n']} rows of {size} cells, "
+                "exact")
+            continue
 
         def kern():
-            return window_gather(dev_frame, t_dev, win_h=win_h, win_w=win_w,
-                                 cell=CELL_PX)
+            return window_gather(src, tbl, win_h=win_h, win_w=win_w,
+                                 cell=pl.CELL_PX)
 
         def plain():
-            return window_gather_ref(dev_frame, t_dev, win_h=win_h,
-                                     win_w=win_w, cell=CELL_PX)
-        got, want = kern(), plain()
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(f"window_gather {size}: kernel != plain "
-                                 "version")
-        if not torch.equal(got[7], dev_frame[:win_h, :win_w]):
-            raise AssertionError(f"window_gather {size}: the padding row "
-                                 "is not cell (0, 0)")
-        err = float((got - want).abs().max())
-        out_bytes = tbl.shape[0] * win_h * win_w * 3 * 4
-        b_ms, b_by = bound(2 * out_bytes + tbl.nbytes, 0)
-        row = dict(size=size, n=tbl.shape[0], max_abs_err=err,
-                   ms=event_ms(kern), plain_ms=event_ms(plain),
-                   device_ms=device_ms(kern, "window_gather_kernel"),
-                   bound_ms=b_ms, bound_by=b_by)
-        log(f"window_gather {size} cells, 8 rows (6 seeded, far edge, "
-            f"padding) from one {H}x{W} frame: exact; kernel "
-            f"{row['ms']:.4f} ms/call (device, cold L2 {row['device_ms']}), "
-            f"plain {row['plain_ms']:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
-        rows.append(row)
-    # the scalar-copy branch (rows not 16-byte aligned)
-    small = torch.randn((64, 48, 1), device=DEVICE)
-    tbl = torch.tensor([[1, 0], [0, 1]], dtype=torch.int32, device=DEVICE)
-    if not torch.equal(
-            window_gather(small, tbl, win_h=32, win_w=16, cell=16),
-            window_gather_ref(small, tbl, win_h=32, win_w=16, cell=16)):
-        raise AssertionError("window_gather scalar branch differs")
+            return window_gather_ref(src, torch.as_tensor(tbl).to(DEVICE),
+                                     win_h=win_h, win_w=win_w,
+                                     cell=pl.CELL_PX)
+        b_ms, b_by = bound(rec["bound_bytes"], 0)
+        row.update(ms=event_ms(kern), plain_ms=event_ms(plain),
+                   host_us=host_us(kern),
+                   device_ms=traced_ms(kern, gather_check.SINGLE_KERNEL_NAMES,
+                                       f"window_gather {name}"),
+                   bound_ms=b_ms, bound_by=b_by,
+                   bound_ms_written_twice=bound(2 * rec["out_bytes"], 0)[0])
+        log(f"window_gather {name}: {rec['n']} rows of {size} cells (6 "
+            f"seeded, far edge, padding) from one {shape[0]}x{shape[1]} "
+            f"frame: exact; kernel {row['ms']:.4f} ms/call (device, cold L2 "
+            f"{row['device_ms']!r}; host enqueue {row['host_us']:.2f} us a "
+            f"call), plain {row['plain_ms']:.4f} ms, bound {b_ms:.6f} ms "
+            f"({b_by}: {rec['bound_bytes']} bytes, each touched pixel once; "
+            f"twice the output {row['bound_ms_written_twice']:.6f} ms)")
     return rows
 
 
 def check_proxy_score(feat, w, b, thr):
-    """The score-map head against its plain version on the encoder's
-    real features of the set-up chunk, at the per-frame path's (1, 8,
-    13, 64) and a chunk's (16, 8, 13, 64): scores to 1e-6, both held to
-    float64 by ``check_scores`` (flips only in the 8-ulp band), at the
-    main path's threshold and at one ON a cell's score."""
+    """The score-map head against its plain version over
+    ``proxy_score.check.CASES`` (the card-only tests' own): the
+    per-frame path's (1, 8, 13, 64) and a chunk's (16, 8, 13, 64) on the
+    encoder's real features of the set-up chunk at the main path's
+    threshold, the chunk again at a threshold ON a cell's score, and
+    seeded C 40 and odd C; scores to 1e-6, both held to float64 by
+    ``check_scores`` (flips only in the 8-ulp band).  The first two are
+    timed (device ms over ``KERNEL_NAMES``, the host's enqueue), with
+    the outputs' way back to the host as ``ProxyModel.scores`` takes it,
+    one copy of the buffer both share, against a copy of each.
+    -> {B: record}."""
     rows = {}
-    for B in (1, feat.shape[0]):
-        f = feat[:B].contiguous()
-        with torch.inference_mode():
-            on_cell = float(torch.sigmoid(
-                f[B // 2, f.shape[1] // 2, f.shape[2] // 2] @ w + b))
-        err = 0.0
-        flips = band = 0
-        for t in (thr, on_cell):
-            with torch.inference_mode():
-                sk, pk = proxy_score(f, w, b, t)
-                sp, pp = proxy_score_ref(f, w, b, t)
-            torch.cuda.synchronize()
-            band += check_scores(f, w, b, t, sk, pk)
-            check_scores(f, w, b, t, sp, pp)
-            d = float((sk - sp).abs().max())
-            if d > 1e-6:
-                raise AssertionError(f"proxy_score B={B}: |d score| {d!r} "
-                                     "> 1e-6")
-            err = max(err, d)
-            flips += int((pk != pp).sum())
+    for case in score_check.CASES:
+        name, shape, kind = case
+        ops = None
+        if shape[1:] == tuple(feat.shape[1:]) and shape[0] <= feat.shape[0]:
+            f = feat[:shape[0]].contiguous()
+            t = thr
+            if kind == "on_a_cell":
+                with torch.inference_mode():
+                    t = float(torch.sigmoid(
+                        f[shape[0] // 2, shape[1] // 2, shape[2] // 2] @ w
+                        + b))
+            ops = (f, w, b, t)
+        rec = score_check.check_case(case, DEVICE, operands=ops)
+        log(f"proxy_score {name} {shape}: max |d score| "
+            f"{rec['max_abs_err']!r}, {rec['flips']} flipped cells, all "
+            f"within {FLIP_ULPS} ulp ({rec['band']} cells in the band, "
+            f"threshold {rec['operands'][3]!r})")
+        if kind != "quantile" or ops is None:
+            continue
+        f = ops[0]
 
         def kern():
             return proxy_score(f, w, b, thr)
@@ -710,17 +718,24 @@ def check_proxy_score(feat, w, b, thr):
         n_bytes = (f.numel() + w.numel() + 1) * 4 + n_rows * (4 + 1)
         b_ms, b_by = bound(n_bytes, n_rows * (2 * C + 4))
         with torch.inference_mode():
-            row = dict(shape=tuple(f.shape), max_abs_err=err, flips=flips,
-                       band=band, ms=event_ms(kern),
-                       plain_ms=event_ms(plain),
-                       device_ms=device_ms(kern, "proxy_score_kernel"),
+            row = dict(shape=tuple(f.shape), max_abs_err=rec["max_abs_err"],
+                       flips=rec["flips"], band=rec["band"],
+                       ms=event_ms(kern), plain_ms=event_ms(plain),
+                       host_us=host_us(kern),
+                       device_ms=traced_ms(kern, score_check.KERNEL_NAMES,
+                                           f"proxy_score {name}"),
                        bound_ms=b_ms, bound_by=b_by)
-        log(f"proxy_score {tuple(f.shape)}: max |d score| {err!r}, {flips} "
-            f"flipped cells, all within {FLIP_ULPS} ulp ({band} cells in "
-            f"the band, thresholds {thr!r} and {on_cell!r}); kernel "
-            f"{row['ms']:.4f} ms/call (device, cold L2 {row['device_ms']}), "
-            f"plain {row['plain_ms']:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
-        rows[B] = row
+            s, p = kern()
+            row.update(copy_back_us=host_us(lambda: views_to_host(s, p)),
+                       copy_back_two_us=host_us(lambda: (s.cpu().numpy(),
+                                                         p.cpu().numpy())))
+        log(f"proxy_score {tuple(f.shape)}: kernel {row['ms']:.4f} ms/call "
+            f"(device, cold L2 {row['device_ms']!r}; host enqueue "
+            f"{row['host_us']:.2f} us a call), plain {row['plain_ms']:.4f} "
+            f"ms, bound {b_ms:.7f} ms ({b_by}); scores and positives to the "
+            f"host in one copy {row['copy_back_us']:.2f} us, in two "
+            f"{row['copy_back_two_us']:.2f} us")
+        rows[shape[0]] = row
     return rows
 
 
@@ -959,14 +974,15 @@ def wrapped(owner, name: str, wrap):
         setattr(owner, name, fn)
 
 
-def frame_breakdown(bank, params, clip) -> None:
+def frame_breakdown(bank, params, clip) -> dict:
     """Where one per-frame run's wall time goes: host clocks around the
     decode (``render_frame``), the proxy (``ProxyModel.scores``: encoder,
     ``proxy_score`` and the copy back), the detector
     (``Detector.detect_batch``, which synchronises on its outputs) and
     the tracker step (its crop CNN synchronises too), wrapped in place
     for this one measured run and restored after it.  The rest is host
-    planning, the frame upload, ``window_gather`` and NMS."""
+    planning, the frame upload, ``window_gather`` and NMS.  -> seconds
+    by phase, "other" and "wall" included."""
     spent = {"decode": 0.0, "proxy": 0.0, "detect": 0.0, "track": 0.0}
 
     def timed(phase):
@@ -996,6 +1012,7 @@ def frame_breakdown(bank, params, clip) -> None:
         + ", ".join(f"{k} {v:.3f} s" for k, v in spent.items())
         + f", other (planning, frame upload, window_gather, NMS) "
         f"{rest:.3f} s")
+    return dict(spent, other=rest, wall=wall)
 
 
 def engine_drift(bank, params, clip) -> None:
@@ -2158,6 +2175,7 @@ def run_video() -> tuple:
     floor_ms = launch_floor_ms()
     wg, wg_rows = check_window_gather(frames, first_plan)
     wg1 = check_window_gather_single(frames[0])
+    wg1_main = wg1[gather_check.SINGLE_CASES[0][0]]  # (15, 9), host table
     with torch.inference_mode():
         pp = check_proxy_plan(feat, enc.head_w, enc.head_b,
                               params.proxy_threshold, grid_hw)
@@ -2240,14 +2258,14 @@ def run_video() -> tuple:
         for name in ("proxy_plan", "window_gather_batch", "track_step"):
             if flaunch[name]:
                 raise AssertionError(f"the per-frame path launched {name}")
-        frame_runs.append((fres, flaunch))
+        frame_runs.append((fres, flaunch, N_FRAMES / fwall))
         log(f"per-frame engine (run {i + 1}, clip {clip.clip_id}, frames "
             f"cached): {N_FRAMES} frames in {fwall:.3f} s wall = "
             f"{N_FRAMES / fwall:.2f} fps; windows {fres.detector_windows}, "
             f"full frames {fres.full_frames}, skipped "
             f"{fres.skipped_frames}, tracks {len(fres.tracks)}; launches "
             f"{flaunch}; stage_seconds {fres.stage_seconds}")
-    fres, flaunch = frame_runs[0]
+    fres, flaunch, _ = frame_runs[0]
     if flaunch != frame_runs[1][1] or not same_tracks(fres, frame_runs[1][0]):
         raise AssertionError("two per-frame runs differ")
     log(f"per-frame engine: both runs give the same {len(fres.tracks)} "
@@ -2323,7 +2341,13 @@ def run_video() -> tuple:
     # the per-frame engine on clip 0, where its fps runs were taken
     device_busy(bank, params, clip, label="per-frame engine, frames cached",
                 engine="frame")
-    frame_breakdown(bank, params, clip)
+    phases = frame_breakdown(bank, params, clip)
+    per_frame = dict(fps=[r[2] for r in frame_runs],
+                     **{k: phases[k] for k in ("wall", "proxy", "other")})
+    log(f"per-frame readout (clip {clip.clip_id}, frames cached): fps "
+        f"{per_frame['fps'][0]:.2f}, {per_frame['fps'][1]:.2f}; by phase "
+        f"{per_frame['wall']:.3f} s wall, proxy {per_frame['proxy']:.3f} s, "
+        f"other {per_frame['other']:.3f} s")
 
     src = "src/repro_torch/csrc/"
     dev_launches = runs["device_tracker"][1]
@@ -2383,29 +2407,44 @@ def run_video() -> tuple:
                     for k, r in ts.items()}),
         dict(name="proxy_score", route="cuda", source=src + "proxy_score.cu",
              replaces="src/repro/kernels/proxy_score/kernel.py:40",
-             design="one warp per cell row, f32 cuda-core",
+             design="one warp per cell row, every load issued first on "
+                    "the read-only path (b, then float2 of feat and w), "
+                    "shuffle tree, the block's scores and positives "
+                    "stored as two runs into one buffer (one copy back); "
+                    "f32 cuda-core",
              launches=flaunch["proxy_score"],
              launches_unfused=ulaunch["proxy_score"],
              max_abs_err=ps[1]["max_abs_err"], ms=ps[1]["ms"],
              plain_ms=ps[1]["plain_ms"], bound_ms=ps[1]["bound_ms"],
              bound_by=ps[1]["bound_by"], library_ms=None,
-             device_ms=ps[1]["device_ms"], flips=ps[1]["flips"],
-             shape=str(ps[1]["shape"]),
+             device_ms=ps[1]["device_ms"], host_us=ps[1]["host_us"],
+             copy_back_us=ps[1]["copy_back_us"],
+             copy_back_two_us=ps[1]["copy_back_two_us"],
+             flips=ps[1]["flips"], shape=str(ps[1]["shape"]),
              chunk={k: ps[16][k] for k in ("shape", "max_abs_err", "flips",
-                                           "ms", "device_ms", "plain_ms",
-                                           "bound_ms")}),
+                                           "ms", "device_ms", "host_us",
+                                           "plain_ms", "bound_ms")},
+             per_frame=per_frame),
         dict(name="window_gather", route="cuda",
              source=src + "window_gather.cu",
              replaces="src/repro/kernels/window_gather/kernel.py:40",
-             design="one block per (window, window row), 16-byte copies",
+             design="the batch gather's body over a (cy, cx) table: one "
+                    "block per (window, band of rows), every 16-byte load "
+                    "of the band before the first store; a host table's "
+                    "rows carried by the launch (scalar copies where "
+                    "unaligned)",
              launches=flaunch["window_gather"],
-             max_abs_err=wg1[0]["max_abs_err"], ms=wg1[0]["ms"],
-             plain_ms=wg1[0]["plain_ms"], bound_ms=wg1[0]["bound_ms"],
-             bound_by=wg1[0]["bound_by"], library_ms=None,
-             device_ms=wg1[0]["device_ms"],
-             shape=f"{wg1[0]['n']} windows of {wg1[0]['size']} cells",
-             large={k: wg1[1][k] for k in ("size", "n", "ms", "device_ms",
-                                           "plain_ms", "bound_ms")}),
+             max_abs_err=max(r["max_abs_err"] for r in wg1.values()),
+             ms=wg1_main["ms"], plain_ms=wg1_main["plain_ms"],
+             bound_ms=wg1_main["bound_ms"], bound_by=wg1_main["bound_by"],
+             library_ms=None, device_ms=wg1_main["device_ms"],
+             host_us=wg1_main["host_us"],
+             shape=f"{wg1_main['n']} windows of {wg1_main['size']} cells, "
+                   "host table",
+             cases={k: {f: r[f] for f in ("n", "ms", "device_ms", "host_us",
+                                          "plain_ms", "bound_ms",
+                                          "bound_ms_written_twice")}
+                    for k, r in wg1.items() if "ms" in r}),
         dict(name="assign_batch", route="cuda", source=src + "assign.cu",
              replaces="src/repro/kernels/assign/kernel.py:118",
              design="JV, one warp per matrix, state in registers (shared "

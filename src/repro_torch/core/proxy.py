@@ -21,7 +21,8 @@ from torch import nn
 
 from repro_torch import Device, resolve_device
 from repro_torch.core.detector import SameConv2d, pad_to_bucket, to_device
-from repro_torch.kernels.proxy_plan import plan_to_host, proxy_plan
+from repro_torch.kernels import views_to_host
+from repro_torch.kernels.proxy_plan import proxy_plan
 from repro_torch.kernels.proxy_score import proxy_score
 
 
@@ -164,7 +165,8 @@ class ProxyModel:
         with torch.inference_mode():
             s, p = proxy_score(feat, self.encoder.head_w,
                                self.encoder.head_b, threshold)
-            return s.cpu().numpy(), p.cpu().numpy()
+            # one copy back: on the card both are views of one buffer
+            return views_to_host(s, p)
 
     def scores(self, frame: np.ndarray, threshold: float = 0.5
                ) -> Tuple[np.ndarray, np.ndarray]:
@@ -207,4 +209,4 @@ class ProxyModel:
             grids, stats = proxy_plan(feat, self.encoder.head_w,
                                       self.encoder.head_b, threshold,
                                       grid_hw=(hc, wc))
-            return plan_to_host(grids[:n], stats[:n])
+            return views_to_host(grids[:n], stats[:n])

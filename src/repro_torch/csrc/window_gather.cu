@@ -8,35 +8,36 @@
 //   src/repro/kernels/window_gather/kernel.py::window_gather_pallas
 //   (body _gather_kernel, the per-frame path's single-frame crop).
 //
-// Bound on an H100: a pure copy, so it is bound by bytes — each window
-// pixel is read once and written once (2 * n * win_h * win_w * C * 4
-// bytes) at 3.35 TB/s; at the main path's shapes (4 to 8 windows of
-// 240x144 or 480x272 px, C = 3) that is 3.3-25 MB, 1-7.5 us at the
-// memory line, so small calls are bound by latency: the round trips to
-// device memory that a block waits for in turn.
+// Bound on an H100: a pure copy, so it is bound by bytes: each distinct
+// frame pixel the windows cover is read once (windows of one call may
+// overlap) and each window pixel written once, at 3.35 TB/s; at the main
+// path's shapes (4 to 8 windows of 240x144 or 480x272 px, C = 3) that is
+// at most 3.3-25 MB, 1-7.5 us at the memory line, so small calls are bound by
+// latency: the round trips to device memory that a block waits for in
+// turn.
 //
-// The batch kernel: one block per (window, band of rows).  Its table
-// row comes either from device memory or, for a table that lies on the
-// host (the executor's) with at most kMaxRows rows, as a kernel parameter
-// (``window_gather_batch_rows_launch``): the launch itself carries the
-// rows to the card, as the TPU kernel's scalar prefetch did, so a block's
-// first load from device memory is its frame rows, not its table row.
-// Each block clamps its row as the reference oracle does; padding rows
-// of the table are zeros and crop frame 0 at cell (0, 0), exactly as the
-// reference does.  Where every window row starts and ends on 16 bytes
-// (always at C = 3 with 16-px cells), each thread issues all of its
-// kVecs 16-byte loads of the band before its first store, stepping from
-// float4 to float4 without a division, so a block waits for one round
-// trip to device memory, not one a row.  The band is as many rows as
-// kThreads * kVecs = 2048 float4s hold (2 rows of a (15, 9) window: 288
-// blocks at the main path's smallest call, 4 windows; 1 row of a (30,
-// 17) one: 2176 blocks at 8 windows), and a longer band repeats the
-// wave.
-// Unaligned rows take window_gather_batch_kernel_scalar: a block a row,
-// a thread a float, the single-frame kernel's row copy.
-//
-// The single-frame kernel keeps one block per (window, window row), its
-// threads copying the row with 16-byte loads and stores when aligned.
+// One kernel body serves both ops: one block per (window, band of
+// rows).  A table type yields each window's origin: the batch op's (n,
+// 3) (frame, cy, cx) rows, or the single-frame op's (n, 2) (cy, cx) rows
+// at frame 0.  Its rows come either from device memory or, for a table
+// that lies on the host (the executor's and the per-frame engine's) with
+// at most kMaxRows rows, as a kernel parameter (the ``*_rows_launch``
+// launchers): the launch itself carries the rows to the card, as the
+// TPU kernel's scalar prefetch did, so a block's first load from device
+// memory is its frame rows, not its table row, and the caller makes no
+// host-to-device copy of the table.  Each block clamps its origin as the
+// reference oracle does (``dynamic_slice``); padding rows of the table
+// are zeros and crop frame 0 at cell (0, 0), exactly as the reference
+// does.  Where every window row starts and ends on 16 bytes (always at
+// C = 3 with 16-px cells), each thread issues all of its kVecs 16-byte
+// loads of the band before its first store, stepping from float4 to
+// float4 without a division, so a block waits for one round trip to
+// device memory, not one a row.  The band is as many rows as kThreads *
+// kVecs = 2048 float4s hold (11 rows of a (15, 9) window of 180 float4s
+// a row: 14 bands; 5 rows of a (30, 17) one: 55 bands), and a longer
+// band repeats the wave.
+// Unaligned rows take window_gather_batch_kernel_scalar: a block a
+// window row, a thread a float.
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
@@ -47,39 +48,41 @@ constexpr int kThreads = 128;
 constexpr int kVecs = 16;  // 16-byte loads a thread holds in flight
 constexpr int kMaxRows = 16;  // table rows a launch can carry
 
-// the (n, 3) table of (frame, cy, cx) rows: in device memory, or a host
-// table's rows passed by value
+// a window's table row as (frame, cy, cx) in cell units
+struct Row {
+  int b, cy, cx;
+};
+
+// the batch op's (n, 3) table of (frame, cy, cx) rows: in device
+// memory, or a host table's rows passed by value
 struct DeviceTable {
   const int32_t* p;
-  __device__ const int32_t* row(int w) const { return p + 3 * w; }
+  __device__ Row row(int w) const { return {p[3 * w], p[3 * w + 1],
+                                            p[3 * w + 2]}; }
 };
 struct HostRows {
   int32_t v[kMaxRows][3];
-  __device__ const int32_t* row(int w) const { return v[w]; }
+  __device__ Row row(int w) const { return {v[w][0], v[w][1], v[w][2]}; }
 };
-
-// copy one window row: n floats from src to dst
-template <bool kVec4>
-__device__ __forceinline__ void copy_row(const float* __restrict__ src,
-                                         float* __restrict__ dst, int n) {
-  if (kVec4) {
-    const float4* s4 = reinterpret_cast<const float4*>(src);
-    float4* d4 = reinterpret_cast<float4*>(dst);
-    for (int i = threadIdx.x; i < n / 4; i += blockDim.x) d4[i] = s4[i];
-  } else {
-    for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
-  }
-}
+// the single-frame op's (n, 2) table of (cy, cx) rows, always frame 0
+struct FrameTable {
+  const int32_t* p;
+  __device__ Row row(int w) const { return {0, p[2 * w], p[2 * w + 1]}; }
+};
+struct FrameRows {
+  int32_t v[kMaxRows][2];
+  __device__ Row row(int w) const { return {0, v[w][0], v[w][1]}; }
+};
 
 // the window's origin in the chunk, clamped as the reference does
 struct Origin {
   int b, y, x;
 };
-__device__ __forceinline__ Origin clamp_origin(const int32_t* row, int B,
-                                               int H, int W, int win_h,
-                                               int win_w, int cell) {
-  return {min(max(row[0], 0), B - 1), min(max(row[1] * cell, 0), H - win_h),
-          min(max(row[2] * cell, 0), W - win_w)};
+__device__ __forceinline__ Origin clamp_origin(Row r, int B, int H, int W,
+                                               int win_h, int win_w,
+                                               int cell) {
+  return {min(max(r.b, 0), B - 1), min(max(r.cy * cell, 0), H - win_h),
+          min(max(r.cx * cell, 0), W - win_w)};
 }
 
 // rows 16-byte aligned: blockIdx.x = band of rows [band * rows_per, ...),
@@ -138,30 +141,14 @@ __global__ void window_gather_batch_kernel_scalar(
   const int win = blockIdx.y;
   const int r = blockIdx.x;
   const Origin o = clamp_origin(table.row(win), B, H, W, win_h, win_w, cell);
-  copy_row<false>(frames + (((size_t)o.b * H + o.y + r) * W + o.x) * C,
-                  out + ((size_t)win * win_h + r) * (size_t)win_w * C,
-                  win_w * C);
+  const float* src = frames + (((size_t)o.b * H + o.y + r) * W + o.x) * C;
+  float* dst = out + ((size_t)win * win_h + r) * (size_t)win_w * C;
+  for (int i = threadIdx.x; i < win_w * C; i += blockDim.x) dst[i] = src[i];
 }
 
-template <bool kVec4>
-__global__ void window_gather_kernel(
-    const float* __restrict__ frame,      // (H, W, C)
-    const int32_t* __restrict__ origins,  // (n, 2) cy, cx
-    float* __restrict__ out,              // (n, win_h, win_w, C)
-    int H, int W, int C, int win_h, int win_w, int cell) {
-  const int win = blockIdx.y;
-  const int r = blockIdx.x;
-  const int32_t* row = origins + 2 * win;
-  const int y = min(max(row[0] * cell, 0), H - win_h);
-  const int x = min(max(row[1] * cell, 0), W - win_w);
-  copy_row<kVec4>(frame + ((size_t)(y + r) * W + x) * C,
-                  out + ((size_t)win * win_h + r) * (size_t)win_w * C,
-                  win_w * C);
-}
-
-int row_threads(int win_w, int C, int vec4) {
-  const int per_row = vec4 ? (win_w * C) / 4 : win_w * C;
-  const int threads = ((per_row + 31) / 32) * 32;
+// threads of a scalar block: a window row's floats, in whole warps
+int row_threads(int win_w, int C) {
+  const int threads = ((win_w * C + 31) / 32) * 32;
   return threads < 32 ? 32 : (threads > 256 ? 256 : threads);
 }
 
@@ -179,7 +166,7 @@ int launch_batch(const float* frames, const Table& table, float* out, int n,
         frames, table, out, B, H, W, C, win_h, win_w, cell, rows_per);
   } else {
     window_gather_batch_kernel_scalar<Table>
-        <<<dim3(win_h, n), row_threads(win_w, C, 0), 0, s>>>(
+        <<<dim3(win_h, n), row_threads(win_w, C), 0, s>>>(
             frames, table, out, B, H, W, C, win_h, win_w, cell);
   }
   return (int)cudaGetLastError();
@@ -212,21 +199,29 @@ extern "C" int window_gather_batch_rows_launch(const float* frames,
                       vec4, stream);
 }
 
+// the single-frame op: frame (H, W, C), origins (n, 2) int32 (cy, cx)
+// on the device
 extern "C" int window_gather_launch(const float* frame,
                                     const int32_t* origins, float* out,
                                     int n, int H, int W, int C, int win_h,
                                     int win_w, int cell, int vec4,
                                     void* stream) {
-  const int threads = row_threads(win_w, C, vec4);
-  const dim3 grid(win_h, n);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (vec4)
-    window_gather_kernel<true><<<grid, threads, 0, s>>>(
-        frame, origins, out, H, W, C, win_h, win_w, cell);
-  else
-    window_gather_kernel<false><<<grid, threads, 0, s>>>(
-        frame, origins, out, H, W, C, win_h, win_w, cell);
-  return (int)cudaGetLastError();
+  return launch_batch(frame, FrameTable{origins}, out, n, 1, H, W, C, win_h,
+                      win_w, cell, vec4, stream);
+}
+
+// origins: (n, 2) int32 in host memory, n <= kMaxRows; read before
+// return
+extern "C" int window_gather_rows_launch(const float* frame,
+                                         const int32_t* origins, float* out,
+                                         int n, int H, int W, int C,
+                                         int win_h, int win_w, int cell,
+                                         int vec4, void* stream) {
+  if (n > kMaxRows) return (int)cudaErrorInvalidValue;
+  FrameRows rows;
+  memcpy(rows.v, origins, (size_t)n * sizeof(rows.v[0]));
+  return launch_batch(frame, rows, out, n, 1, H, W, C, win_h, win_w, cell,
+                      vec4, stream);
 }
 
 extern "C" const char* kernel_error_string(int err) {

@@ -20,14 +20,16 @@ Kernels (sources in ``repro_torch/csrc/``, built by ``_build``):
                   bitmasks mapped with AND/OR (replaces the JAX package's
                   ``kernels/proxy_plan`` Pallas kernel).
   proxy_score   — proxy head + sigmoid + strict threshold into a score
-                  map and a positive grid, one warp per cell (replaces
-                  ``kernels/proxy_score``'s ``proxy_score_pallas``).
+                  map and a positive grid, one warp per cell, every load
+                  issued first (float2 where C is even), both outputs in
+                  one buffer (replaces ``kernels/proxy_score``'s
+                  ``proxy_score_pallas``).
   window_gather — crop one size class of windows out of a chunk of
-                  frames by a (frame, cy, cx) table (a block per window
-                  and band of rows, every 16-byte load of the band before
-                  the first store; a host table's rows carried by the
-                  launch), or out of one frame by a (cy, cx) table (a
-                  block per window row) (replace ``kernels/window_gather``'s
+                  frames by a (frame, cy, cx) table, or out of one frame
+                  by a (cy, cx) table, with one kernel body: a block per
+                  window and band of rows, every 16-byte load of the band
+                  before the first store; a host table's rows carried by
+                  the launch (replace ``kernels/window_gather``'s
                   ``window_gather_batch_pallas`` and
                   ``window_gather_pallas``).
   assign        — batched Jonker-Volgenant assignment, one warp per
@@ -62,8 +64,9 @@ and rounding); ``csrc/hopper.cuh`` holds the PTX of TMA, mbarriers, 1-D
 bulk copies and wgmma (bf16 and tf32) and the host's cached TMA tensor
 maps (flash_attention, ssd_scan and proxy_plan's bulk copies use it).
 ``ssd_scan.check``, ``flash_attention.check``, ``decode_attention.check``,
-``assign.check``, ``track_step.check``, ``proxy_plan.check`` and
-``window_gather.check`` hold those kernels against their plain versions
+``assign.check``, ``track_step.check``, ``proxy_plan.check``,
+``proxy_score.check`` and ``window_gather.check`` (both gathers) hold
+those kernels against their plain versions
 on the card (``chip_smoke.py`` and ``tests/test_torch_cuda.py`` share
 them).
 
@@ -76,6 +79,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 
+import numpy as np
 import torch
 
 
@@ -123,6 +127,39 @@ def bf16_steps(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
         bits = t.contiguous().view(torch.int16).int()
         return torch.where(bits < 0, -(bits & 0x7FFF), bits)
     return (key(got) - key(want)).abs()
+
+
+def views_to_host(*views: torch.Tensor) -> tuple:
+    """Contiguous tensors as host numpy arrays: one device-to-host copy
+    of the bytes that spans them all when they view one storage (as
+    ``proxy_plan`` and ``proxy_score`` return their outputs on the card),
+    one copy each otherwise.  Each array views the copied bytes at its
+    tensor's offset, shape and dtype.  The host's time here is mostly
+    the copy's, so the split is plain numpy."""
+    store = views[0].untyped_storage().data_ptr()
+    spans = []
+    for v in views:
+        if not v.is_contiguous() or v.untyped_storage().data_ptr() != store:
+            return tuple(t.cpu().numpy() for t in views)
+        size = v.element_size()
+        spans.append((v.storage_offset() * size, v.numel() * size))
+    lo = min(a for a, _ in spans)
+    hi = max(a + n for a, n in spans)
+    raw = views[0].view(torch.uint8).as_strided((hi - lo,), (1,), lo) \
+        .cpu().numpy()
+    return tuple(raw[a - lo:a - lo + n].view(_numpy_dtype(v.dtype))
+                 .reshape(v.shape) for v, (a, n) in zip(views, spans))
+
+
+def _numpy_dtype(dtype: torch.dtype) -> np.dtype:
+    dt = _NUMPY_DTYPES.get(dtype)
+    return dt if dt is not None else torch.empty(0, dtype=dtype).numpy().dtype
+
+
+_NUMPY_DTYPES = {torch.float32: np.dtype(np.float32),
+                 torch.int32: np.dtype(np.int32),
+                 torch.int8: np.dtype(np.int8),
+                 torch.uint8: np.dtype(np.uint8)}
 
 
 def check_launch(err: int, lib: ctypes.CDLL, name: str) -> None:

@@ -9,7 +9,7 @@ leave the op.  An empty frame's row is [0, hc, -1, wc, -1, 0, 0, 0].
 
 On a CUDA tensor it launches ``csrc/proxy_plan.cu``, and the grid and
 stats it returns are views of one device buffer, which
-``plan_to_host`` brings to the host in one copy; on a CPU tensor it
+``kernels.views_to_host`` brings to the host in one copy; on a CPU tensor it
 runs ``proxy_plan_ref``, the plain PyTorch version (a copy of the JAX
 package's ``kernels/proxy_plan/ref.py``).
 """
@@ -212,20 +212,3 @@ def proxy_plan(feat: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 proxy_plan.launches = 0
-
-
-def plan_to_host(grid: torch.Tensor, stats: torch.Tensor
-                 ) -> Tuple[np.ndarray, np.ndarray]:
-    """(grid, stats) as host arrays: one device-to-host copy of the
-    buffer that both are views of, as ``proxy_plan`` returns them on the
-    card (slices along the batch included); two copies otherwise."""
-    store = grid.untyped_storage()
-    if not grid.is_contiguous() or not stats.is_contiguous() \
-            or stats.untyped_storage().data_ptr() != store.data_ptr():
-        return grid.cpu().numpy(), stats.cpu().numpy()
-    raw = torch.empty(0, dtype=torch.uint8).set_(store.cpu()).numpy()
-    g0 = grid.storage_offset()
-    s0 = stats.storage_offset() * stats.element_size()
-    return (raw[g0:g0 + grid.numel()].view(np.int8).reshape(grid.shape),
-            raw[s0:s0 + stats.numel() * 4].view(np.int32)
-            .reshape(stats.shape))

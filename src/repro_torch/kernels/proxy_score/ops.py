@@ -6,9 +6,11 @@ Wc) f32, pos (B, Hc, Wc) int8), where pos is ``score > threshold``,
 strictly, with the threshold taken as an f32.  The unfused proxy path
 (``ProxyModel.scores`` / ``scores_batch``) brings both back to the host.
 
-On a CUDA tensor it launches ``csrc/proxy_score.cu``; on a CPU tensor it
-runs ``proxy_score_ref``, the plain PyTorch version (a copy of the JAX
-package's ``kernels/proxy_score/ref.py``).
+On a CUDA tensor it launches ``csrc/proxy_score.cu`` into one buffer
+(``out_buffer``: the f32 scores, then the int8 positives) and returns
+two views of it, which ``views_to_host`` brings to the host in one
+copy; on a CPU tensor it runs ``proxy_score_ref``, the plain PyTorch
+version (a copy of the JAX package's ``kernels/proxy_score/ref.py``).
 """
 from __future__ import annotations
 
@@ -88,6 +90,20 @@ def check_scores(feat, w, b, threshold: float, scores, pos,
     return int(near.sum())
 
 
+def out_buffer(B: int, Hc: int, Wc: int, device
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(scores (B, Hc, Wc) f32, pos (B, Hc, Wc) int8) as views of one
+    buffer on ``device``: rows * 4 bytes of scores, then rows bytes of
+    positives (the buffer is f32, rounded up to whole words).  Four
+    tensor ops, since each costs host time on every per-frame call."""
+    rows = B * Hc * Wc
+    buf = torch.empty(rows + (rows + 3) // 4, dtype=torch.float32,
+                      device=device)
+    strides = (Hc * Wc, Wc, 1)
+    return (buf.as_strided((B, Hc, Wc), strides),
+            buf.view(torch.int8).as_strided((B, Hc, Wc), strides, rows * 4))
+
+
 @functools.lru_cache(maxsize=None)
 def _launcher():
     lib = library("proxy_score")
@@ -103,7 +119,7 @@ def proxy_score(feat: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     weights on the same device; threshold: a host float.
 
     Returns (scores (B, Hc, Wc) f32, pos (B, Hc, Wc) int8) on feat's
-    device."""
+    device; on the card both are views of one buffer (``out_buffer``)."""
     B, Hc, Wc, C = feat.shape
     if not on_cuda(feat):
         return proxy_score_ref(feat, w, b, threshold)
@@ -115,9 +131,7 @@ def proxy_score(feat: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                              f"f32 tensor of shape {shape} on "
                              f"{feat.device}, got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
-    scores = torch.empty((B, Hc, Wc), dtype=torch.float32,
-                         device=feat.device)
-    pos = torch.empty((B, Hc, Wc), dtype=torch.int8, device=feat.device)
+    scores, pos = out_buffer(B, Hc, Wc, feat.device)
     rows = B * Hc * Wc
     if rows == 0:
         return scores, pos

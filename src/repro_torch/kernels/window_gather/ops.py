@@ -13,11 +13,13 @@ int32 table of (cy, cx) rows, clamped the same way (``dynamic_slice``
 semantics), so ``detect_with_windows``' zero padding rows crop cell
 (0, 0).
 
-On a CUDA tensor each launches its kernel in ``csrc/window_gather.cu``
-(``window_gather_batch_launch``, or ``window_gather_batch_rows_launch``
+On a CUDA tensor each launches the one kernel body of
+``csrc/window_gather.cu`` (``window_gather_batch_launch`` and
+``window_gather_launch`` for a table on the card;
+``window_gather_batch_rows_launch`` and ``window_gather_rows_launch``
 for a table of at most ``MAX_PARAM_ROWS`` rows on the host, whose rows
-the launch carries as a kernel parameter; ``window_gather_launch``); on
-a CPU tensor it runs its plain PyTorch version
+the launch carries as a kernel parameter, so no copy of the table goes
+to the card); on a CPU tensor it runs its plain PyTorch version
 (``window_gather_batch_ref``, ``window_gather_ref``: indexing).  All
 are pure copies, so they agree exactly.
 """
@@ -40,8 +42,8 @@ MAX_PARAM_ROWS = 16         # kMaxRows: a host table the launch carries
 #     table, out, n, B, H, W, C, win_h, win_w, cell, vec4, stream)
 LAUNCH_ARGTYPES = ((ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 9
                    + (ctypes.c_void_p,))
-# window_gather_launch(frame, origins, out, n, H, W, C, win_h, win_w,
-#                      cell, vec4, stream)
+# window_gather_launch and window_gather_rows_launch(frame, origins, out,
+#     n, H, W, C, win_h, win_w, cell, vec4, stream)
 LAUNCH_ARGTYPES_SINGLE = ((ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 8
                           + (ctypes.c_void_p,))
 
@@ -153,7 +155,9 @@ def window_gather(frame: torch.Tensor,
                   win_h: int, win_w: int, cell: int) -> torch.Tensor:
     """frame: (H, W, C) f32 with H, W multiples of ``cell``;
     cell_origins: (n, 2) int32 (cy, cx) rows in cell units, host or
-    device.  Returns (n, win_h, win_w, C) on frame's device."""
+    device (a host table of at most ``MAX_PARAM_ROWS`` rows goes to the
+    card inside the launch).  Returns (n, win_h, win_w, C) on frame's
+    device."""
     H, W, C = frame.shape
     _check_window("window_gather", H, W, win_h, win_w, cell)
     origins = torch.as_tensor(cell_origins, dtype=torch.int32)
@@ -170,13 +174,18 @@ def window_gather(frame: torch.Tensor,
     if n > _MAX_WINDOWS:
         raise ValueError(f"window_gather: {n} windows > {_MAX_WINDOWS} "
                          "per call")
-    origins = origins.to(frame.device).contiguous()
+    if origins.is_cuda or n > MAX_PARAM_ROWS:
+        origins = origins.to(frame.device).contiguous()
+        symbol = "window_gather_launch"
+    else:
+        origins = origins.contiguous()
+        symbol = "window_gather_rows_launch"
     out = torch.empty((n, win_h, win_w, C), dtype=frame.dtype,
                       device=frame.device)
     if n == 0:
         return out
     vec4 = _vec4(frame, out, W, C, win_w, cell)
-    lib, fn = _launcher("window_gather_launch", LAUNCH_ARGTYPES_SINGLE)
+    lib, fn = _launcher(symbol, LAUNCH_ARGTYPES_SINGLE)
     with device_guard(frame):
         err = fn(ptr(frame), ptr(origins), ptr(out), n, H, W, C, win_h,
                  win_w, cell, vec4, stream_of(frame))

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain versions, on the card:
 ``ssd_scan``, ``flash_attention``, ``decode_attention``, ``assign``,
-``track_step``, ``proxy_plan`` and ``window_gather_batch``.  Marked
+``track_step``, ``proxy_plan``, ``window_gather_batch``,
+``proxy_score`` and the single-frame ``window_gather``.  Marked
 ``cuda``: each test skips without a CUDA device (a kernel has no CPU
 mode; the CPU tests hold the plain versions to the JAX package).  This
 file imports torch only, so that it runs on a machine with a card and no
@@ -22,7 +23,14 @@ padding and large-matrix cases included), and non-finite costs must
 raise in ``assign`` as in its plain version; ``proxy_plan`` within the
 8-ulp threshold band of float64 arithmetic, its stats equal wherever no
 flip touched the frame, and ``window_gather_batch`` bit for bit, each
-on the branch of its shape (bulk copies where aligned).  Two cases hold
+on the branch of its shape (bulk copies where aligned); ``proxy_score``
+within 1e-6 of its plain version and the 8-ulp band, float2 loads where
+C is even; the single-frame ``window_gather`` bit for bit, each case on
+the instance its rows and table imply (float4 or scalar; a host table
+of at most 16 rows carried by the launch, with no host-to-device copy,
+else a device table), the per-frame engine's own gathers on the
+carried-rows instance, and ``ProxyModel.scores`` with one
+device-to-host copy a call.  Two cases hold
 what the cross-stream brokers rely on: the detector's scores at batch 1
 against batches 4, 16 and 64 (both architectures, a window and a full
 frame at full width), within ``BATCH_DRIFT_ATOL``; and one
@@ -39,6 +47,8 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     check as flash_check)
 from repro_torch.kernels.proxy_plan import check as plan_check  # noqa: E402
+from repro_torch.kernels.proxy_score import (  # noqa: E402
+    check as score_check)
 from repro_torch.kernels.ssd_scan import check  # noqa: E402
 from repro_torch.kernels.track_step import (  # noqa: E402
     check as track_check)
@@ -194,6 +204,93 @@ def test_window_gather_batch_takes_the_branch_of_its_rows(dev, case):
     assert len(got) == 1, got
     scalar = gather_check.SCALAR_KERNEL in got.pop()
     assert scalar == (case[3] == "unaligned")
+
+
+@pytest.mark.parametrize("case", score_check.CASES,
+                         ids=[c[0] for c in score_check.CASES])
+def test_proxy_score_kernel_matches_plain_version(dev, case):
+    score_check.check_case(case, dev)
+
+
+@pytest.mark.parametrize("case", score_check.CASES,
+                         ids=[c[0] for c in score_check.CASES])
+def test_proxy_score_takes_the_branch_of_its_shape(dev, case):
+    rec = score_check.check_case(case, dev)
+    got = score_check.kernels_launched(rec["operands"])
+    assert len(got) == 1, got
+    vec2 = score_check.VEC2_KERNEL in got.pop()
+    assert vec2 == score_check.takes_vec2_branch(case)
+
+
+@pytest.mark.parametrize("case", gather_check.SINGLE_CASES,
+                         ids=[c[0] for c in gather_check.SINGLE_CASES])
+def test_window_gather_kernel_matches_plain_version(dev, case):
+    gather_check.check_single_case(case, dev)
+
+
+@pytest.mark.parametrize("case", gather_check.SINGLE_CASES,
+                         ids=[c[0] for c in gather_check.SINGLE_CASES])
+def test_window_gather_takes_the_branch_of_its_rows_and_table(dev, case):
+    rec = gather_check.check_single_case(case, dev)
+    got = gather_check.single_kernels_launched(rec["operands"])
+    scalar, rows = gather_check.single_branch(case)
+    # only a host table too long for the launch goes to the card first
+    copies = {k for k in got if "Memcpy" in k}
+    assert bool(copies) == (case[4] == "host" and not rows), got
+    got -= copies
+    assert len(got) == 1, got
+    name = got.pop()
+    assert (gather_check.SCALAR_KERNEL in name) == scalar, name
+    assert (gather_check.ROWS_TABLE if rows
+            else gather_check.DEVICE_TABLE) in name, name
+
+
+def test_per_frame_engine_gathers_take_the_rows_launcher(dev, monkeypatch):
+    """The per-frame engine's own gathers (reduced configuration on the
+    card): every table is a host array of at most 16 rows, and a replay
+    of each call launches the carried-rows instance with no
+    host-to-device copy."""
+    import numpy as np
+    from repro_torch.core import pipeline as pl
+    bank, params, clip = _live_setup(dev)
+    calls = []
+    real = pl.window_gather
+
+    def spy(frame, table, **kw):
+        calls.append((frame, table, kw["win_h"], kw["win_w"]))
+        return real(frame, table, **kw)
+    monkeypatch.setattr(pl, "window_gather", spy)
+    pl.run_clip(bank, params, clip, engine="frame")
+    assert calls, "the per-frame run gathered no window"
+    for frame, table, win_h, win_w in calls[:8]:
+        assert isinstance(table, np.ndarray), type(table)
+        assert len(table) <= gather_check.MAX_PARAM_ROWS
+        got = gather_check.single_kernels_launched(
+            (frame, table, win_h, win_w))
+        assert not any("Memcpy" in k for k in got), got
+        assert len(got) == 1 and gather_check.ROWS_TABLE in got.pop()
+
+
+def test_proxy_scores_copy_back_once(dev):
+    """``ProxyModel.scores`` brings scores and positives back in one
+    device-to-host copy a call."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.proxy import ProxyModel
+    proxy = ProxyModel(8, 4, (32, 24), seed=5, device=dev)
+    frame = np.random.default_rng(0).random((24, 32, 3), np.float32)
+    proxy.scores(frame, 0.5)
+    torch.cuda.synchronize()
+    calls = 20
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            s, p = proxy.scores(frame, 0.5)
+        torch.cuda.synchronize()
+    copies = sum(ev.count for ev in prof.key_averages()
+                 if "Memcpy DtoH" in ev.key)
+    assert copies == calls, copies
+    assert s.dtype == np.float32 and p.dtype == np.int8
 
 
 @pytest.mark.parametrize("hw", [(144, 240), (544, 960)],

@@ -355,6 +355,8 @@ LAUNCHERS = [
      "repro_torch.kernels.window_gather.ops", "LAUNCH_ARGTYPES"),
     ("window_gather.cu", "window_gather_launch",
      "repro_torch.kernels.window_gather.ops", "LAUNCH_ARGTYPES_SINGLE"),
+    ("window_gather.cu", "window_gather_rows_launch",
+     "repro_torch.kernels.window_gather.ops", "LAUNCH_ARGTYPES_SINGLE"),
     ("proxy_score.cu", "proxy_score_launch",
      "repro_torch.kernels.proxy_score.ops", "LAUNCH_ARGTYPES"),
     ("assign.cu", "assign_launch", "repro_torch.kernels.assign.ops",
