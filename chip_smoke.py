@@ -60,7 +60,7 @@ rows absorb the right padding into their state by the reference's
 design), with three planted faults (decode without the state's decay,
 decode with a zeroed conv tail, a prefill scan that drops the state
 between chunks).  Last the fleet (``run_fleet``, after every phase that
-reads the profiler, at the video cell's θ): caldot1 test clips 0-2 at 32
+reads the profiler, at the video cell's θ): caldot1 test clips 0-2 at 16
 frames, round-robin over concurrent streams, each stream's tracks held
 to its solo run: through one ``BatchBroker`` at 1, 4 and 16 streams on one
 chunk clock (``on_clock``; fewer detector dispatches than the solo runs
@@ -73,6 +73,14 @@ each stream without one held to the same decisions and boxes within
 streams (bit for bit; ``track_step`` launches equal the broker's
 dispatches), and ``run_clips`` over the three clips on fresh frames with
 the shared ``DecodePool`` at ``decode_workers`` 1 and 3 (bit for bit).
+After live ingest (``run_live``), training and tuning (``run_tuning``):
+the three trainers' steps on the card against the CPU
+(``core.train_check``), ``tuner.setup`` at full width (both detector
+archs, all 8 detector and 5 proxy resolutions, the full tracker) on
+caldot1 clips, the trained ssd-deep's F1 against the untrained one's,
+``tuner.tune`` with 3 iterations (``proxy_score`` launched), a proxy
+proposal's evaluation (``proxy_plan`` and ``window_gather_batch``
+launched), and the tuned θ twice on the main path (equal tracks).
 Every phase runs uncaught: any failure exits non-zero before the result
 line.
 
@@ -115,13 +123,16 @@ from repro_torch.core.executor import (BatchBroker,  # noqa: E402
                                        stage_proxy)
 from repro_torch.core.metrics import clip_count_accuracy, mota  # noqa: E402
 from repro_torch.core.refine import TrackRefiner  # noqa: E402
+from repro_torch.core import train_check  # noqa: E402
+from repro_torch.core import tuner as tuner_mod  # noqa: E402
+from repro_torch.core.train_models import detector_f1  # noqa: E402
 from repro_torch.core import tracker as trk_mod  # noqa: E402
 from repro_torch.core.hungarian import (  # noqa: E402
     BIG, DEVICE_JV_GAP, optimality_gap)
 from repro_torch.core.tracker import (RecurrentTracker,  # noqa: E402
                                       init_tracker)
 from repro_torch.core.windows import plan_chunk, plan_from_mapped  # noqa: E402
-from repro_torch.data.video_synth import make_clip  # noqa: E402
+from repro_torch.data.video_synth import make_clip, make_split  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.assign import (assign_batch,  # noqa: E402
                                         assign_batch_ref)
@@ -177,12 +188,13 @@ SIZES_CELLS = [(60, 34), (15, 9), (30, 17)]   # full frame + two windows
 PROXY_QUANTILE = 0.85
 DET_QUANTILE = 0.995
 CONV_ATOL = 1e-4                # card vs CPU conv nets (TF32 off)
-# the fleet phase: caldot1 test clips 0-2 at 32 frames (two chunks) a
+# the fleet phase: caldot1 test clips 0-2 at 16 frames (one chunk; cut
+# from 32 so that the call, the tuning phase included, fits) a
 # stream, round-robin over the streams; tracks of a brokered stream
 # against its solo run: bit for bit, or (where the detector moved with
 # the batch and no decision flipped) the same frames and ids and boxes
 # within the slice's tolerances
-FLEET_FRAMES = 32
+FLEET_FRAMES = 16
 FLEET_CLIPS = 3
 FLEET_STREAMS = (1, 4, 16)
 FLEET_TRACK_STREAMS = (4, 16)
@@ -2464,7 +2476,285 @@ def run_video() -> tuple:
                                           "ns_per_step")}
                     for k, r in asg.items()}),
     ]
-    return kernels, bank, params
+    return kernels, bank, params, quality["streaming"]
+
+
+# ---------------------------------------------------------------------------
+# Training and tuning: setup and tune at full width on the card
+# ---------------------------------------------------------------------------
+
+TUNE_CLIPS = 2                  # caldot1 train and val clips each
+TUNE_FRAMES = 32
+# the reference's defaults are 400, 120 and 1500: the tracker is cut
+TUNE_STEPS = dict(detector_steps=400, proxy_steps=120, tracker_steps=300)
+TUNE_MAX_ITERS = 3              # of TunerConfig's 12
+# the kernels the tuning path launches
+TUNING_KERNELS = ("proxy_score", "proxy_plan", "window_gather_batch")
+
+
+def synchronised_split(records: list):
+    """``pipeline.run_split`` that appends (θ, seconds, synchronised wall,
+    count accuracy) of each call to ``records``."""
+    def wrap(fn):
+        def run(bank, params, clips, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(bank, params, clips, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            records.append((params, out[1], wall, float(np.mean(
+                [clip_count_accuracy(r.tracks, c)
+                 for r, c in zip(out[0], clips)]))))
+            return out
+        return run
+    return wrap
+
+
+def wall_of(records: list, params) -> float:
+    """The synchronised wall of the last recorded evaluation of θ."""
+    return [r[2] for r in records if r[0] == params][-1]
+
+
+def run_tuning(untrained: dict) -> dict:
+    """Training and tuning on the card at full MultiScope width (both
+    detector archs, all 8 detector and 5 proxy resolutions, the full
+    tracker), on ``caldot1`` with ``TUNE_CLIPS`` train and val clips of
+    ``TUNE_FRAMES`` frames:
+
+    1. each trainer's 3 steps of ``_fit`` on the card against the CPU
+       (``core.train_check``: each step's loss and the first step's
+       gradients within 1e-4, the final parameters' loss on a fresh
+       batch within 1e-3; the parameters' gaps reported), the card side
+       twice;
+    2. ``tuner.setup`` with the steps cut to ``TUNE_STEPS``; the trained
+       ssd-deep's F1 at 960x544 must beat the untrained one's;
+    3. ``tuner.tune`` with ``max_iters`` cut to ``TUNE_MAX_ITERS``: every
+       point with its ``seconds`` beside the synchronised wall of its
+       ``run_split``; ``proxy_score`` must be launched over setup and
+       tune; then ``ProxyCache.propose(θ_best, S)`` through
+       ``_evaluate``, which must launch ``proxy_plan`` and
+       ``window_gather_batch``;
+    4. the curve's most accurate θ twice through ``ClipExecutor`` on test
+       clip 0 (equal tracks), its count accuracy and MOTA beside the
+       untrained main path's (``untrained``).
+
+    -> the launches of setup + tune and of the proposal's evaluation."""
+    t_phase = time.perf_counter()
+    smi = nvidia_smi()
+    walls = {}
+
+    # 1. card against CPU training parity
+    t0 = time.perf_counter()
+    parity = {}
+    for name in train_check.TRAINERS:
+        r = train_check.check_trainer(name, DEVICE)
+        parity[name] = r
+        log(f"training parity ({name}, batch {r['batch']}, "
+            f"{r['steps']} steps of _fit, seeded init on both devices): "
+            f"losses card {r['losses_card']} CPU {r['losses_cpu']}, "
+            f"largest rel {r['loss_rel']!r} (tol {train_check.LOSS_RTOL}); "
+            f"first-step gradients {r['grad_rel']!r} of max |CPU| "
+            f"({r['grad_worst']}, tol {train_check.GRAD_RTOL}); final "
+            f"parameters' loss on a fresh batch card {r['fresh_card']!r} "
+            f"CPU {r['fresh_cpu']!r}, rel {r['fresh_rel']!r} (tol "
+            f"{train_check.FRESH_RTOL}); parameters: largest gap "
+            f"{r['param_rel']!r} of max |CPU| ({r['param_worst']}), "
+            f"{r['param_within']:.4f} of them within "
+            f"{train_check.PARAM_RTOL}; card run against card run: loss "
+            f"{r['card_to_card_loss']!r}, parameter "
+            f"{r['card_to_card_param']!r}")
+    walls["parity"] = time.perf_counter() - t0
+
+    # 2. setup at full width
+    cfg = dataclasses.replace(CFG, tuner=dataclasses.replace(
+        CFG.tuner, max_iters=TUNE_MAX_ITERS))
+    train = make_split("caldot1", "train", TUNE_CLIPS, TUNE_FRAMES)
+    val = make_split("caldot1", "val", TUNE_CLIPS, TUNE_FRAMES)
+    log(f"tuning cell: caldot1, {TUNE_CLIPS} train and {TUNE_CLIPS} val "
+        f"clips of {TUNE_FRAMES} frames; cuts: detector_steps "
+        f"{TUNE_STEPS['detector_steps']} (of 400), proxy_steps "
+        f"{TUNE_STEPS['proxy_steps']} (of 120), tracker_steps "
+        f"{TUNE_STEPS['tracker_steps']} (of 1500), max_iters "
+        f"{TUNE_MAX_ITERS} (of {CFG.tuner.max_iters})")
+    records: list = []
+    caches: list = []
+    det_timing: dict = {}
+
+    def timed_trainer(fn):
+        def train(*a, **k):
+            t = {}
+            out = fn(*a, timing=t, **k)
+            det_timing[a[0]] = t
+            return out
+        return train
+
+    def kept_caches(fn):
+        def build(*a, **k):
+            caches.append(fn(*a, **k))
+            return caches[-1]
+        return build
+
+    for k in VIDEO_COUNTERS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    with wrapped(pl, "run_split", synchronised_split(records)), \
+            wrapped(tuner_mod, "train_detector", timed_trainer), \
+            wrapped(tuner_mod, "build_caches", kept_caches):
+        sys_ = tuner_mod.setup(cfg, train, val, log=log, device=DEVICE,
+                               **TUNE_STEPS)
+        walls["setup"] = time.perf_counter() - t0
+        n_setup = len(records)
+        t0 = time.perf_counter()
+        curve = tuner_mod.tune(sys_, val, log=log)
+        torch.cuda.synchronize()
+        walls["tune"] = time.perf_counter() - t0
+    launches = {"setup+tune": {k.__name__: k.launches
+                               for k in VIDEO_COUNTERS}}
+    bank = sys_.bank
+    log(f"setup: {walls['setup']:.1f} s wall; setup_seconds (stage clock: "
+        f"wall closed by a synchronise) "
+        f"{ {k: round(v, 3) for k, v in sys_.setup_seconds.items()} }; "
+        f"θ_best {sys_.theta_best.describe()}; window sizes "
+        f"{bank.sizes_cells}; {len(bank.proxies)} proxies")
+    for arch, t in det_timing.items():
+        log(f"  detector {arch}: {t['steps']} steps, drawing batches "
+            f"(host rendering) {t['batch_s']:.3f} s, steps {t['step_s']:.3f}"
+            f" s")
+    log("  proxy seconds a frame (batch "
+        f"{pl.TIMING_BATCH}): " + ", ".join(
+            f"{r[0]}x{r[1]} {tuner_mod._time_proxy(p) * 1e3:.4f} ms"
+            for r, p in bank.proxies.items()))
+    log("  detector seconds a frame (batch "
+        f"{pl.TIMING_BATCH}): " + ", ".join(
+            f"{a}@{r[0]}x{r[1]} {v * 1e3:.4f} ms"
+            for (a, r), v in bank.det_times.items()))
+    log("  window seconds a window (batch "
+        f"{pl.TIMING_BATCH}): " + ", ".join(
+            f"{a} {s} {v * 1e3:.4f} ms" for (a, s), v in
+            bank.win_times.items()))
+    for params, secs, wall, acc in records[:n_setup]:
+        log(f"  setup evaluation {params.describe()}: accuracy {acc:.4f}, "
+            f"seconds {secs:.3f} (RunResult), synchronised wall {wall:.3f}")
+    for params, secs, wall, acc in records[n_setup:]:
+        log(f"  tune evaluation {params.describe()} refine={params.refine}"
+            f": accuracy {acc:.4f}, seconds {secs:.3f}, synchronised wall "
+            f"{wall:.3f}")
+    zero = np.zeros((1,) + tuple(CFG.detector.resolutions[0][::-1]) + (3,),
+                    np.float32)
+    log("  detections on a zero frame at conf 0.5 (what the reference's "
+        "timer decodes): " + ", ".join(
+            f"{a} {len(d.detect_batch(zero, 0.5)[0])}"
+            for a, d in bank.detectors.items()))
+    det_res = CFG.detector.resolutions[0]
+    f1 = detector_f1(bank.detectors["ssd-deep"], val, det_res)
+    f1_0 = detector_f1(Detector("ssd-deep", seed=SEED, device=DEVICE), val,
+                       det_res)
+    log(f"detector_f1 at {det_res[0]}x{det_res[1]} (conf 0.4, 40 val "
+        f"frames): trained ssd-deep {f1!r}, untrained (seed {SEED}) "
+        f"{f1_0!r}")
+    if not f1 > f1_0:
+        raise AssertionError("the trained detector is no better than the "
+                             "untrained one")
+
+    # 3. the curve
+    log(f"tune: {walls['tune']:.1f} s wall, {len(records) - n_setup} "
+        f"evaluations, {len(curve)} points; launches over setup and tune "
+        f"{launches['setup+tune']}")
+    for pt in curve:
+        log(f"  point {pt.module}: {pt.params.describe()} refine="
+            f"{pt.params.refine}; val accuracy {pt.val_accuracy!r}, seconds "
+            f"{pt.val_seconds!r}, synchronised wall "
+            f"{wall_of(records, pt.params)!r}")
+    if launches["setup+tune"]["proxy_score"] <= 0:
+        raise AssertionError("proxy_score was not launched by setup and tune")
+    det_cache, proxy_cache = caches[-1]
+    for res in bank.proxies:
+        log(f"  proxy cache {res[0]}x{res[1]} (est. s a frame, recall): "
+            + ", ".join(f"{th!r}: ({e[0] * 1e3:.4f} ms, {e[1]:.3f})"
+                        for (r, th), e in proxy_cache.entries.items()
+                        if r == res))
+    S = cfg.tuner.speedup_per_iter
+    launches["proposal"] = {k.__name__: 0 for k in VIDEO_COUNTERS}
+
+    def evaluate(cand, label: str) -> dict:
+        for k in VIDEO_COUNTERS:
+            k.launches = 0
+        with wrapped(pl, "run_split", synchronised_split(records)):
+            acc, secs = tuner_mod._evaluate(bank, cand, val)
+        torch.cuda.synchronize()
+        got = {k.__name__: k.launches for k in VIDEO_COUNTERS}
+        for name, n in got.items():
+            launches["proposal"][name] += n
+        log(f"{label}: {cand.describe()} (est. "
+            f"{proxy_cache.entries[(cand.proxy_res, cand.proxy_threshold)]}"
+            f", full frame {proxy_cache.t_frame_full!r} s); val accuracy "
+            f"{acc!r}, seconds {secs!r}, synchronised wall "
+            f"{records[-1][2]!r}; launches {got}")
+        return got
+
+    cand = proxy_cache.propose(sys_.theta_best, S)
+    if cand is None:
+        raise AssertionError("the proxy cache proposed nothing for θ_best")
+    if not evaluate(cand, f"proxy proposal for θ_best at S {S}"
+                    )["window_gather_batch"]:
+        # its plans hold no sub-frame window (on the card the proxy and a
+        # window cost most of a full frame, so the cheapest entry may be
+        # a threshold that skips every frame): the sparsest proxy θ that
+        # still finds objects, with the measured window times, and if
+        # they leave no sub-frame window either, with window times
+        # proportional to area, as ``set_up`` seeds the main path's
+        _, res, th = max((th, res, th) for (res, th), (_, recall)
+                         in proxy_cache.entries.items()
+                         if 0.0 < recall and th < 1.0)
+        sparse = dataclasses.replace(sys_.theta_best, proxy_res=res,
+                                     proxy_threshold=th)
+        if not evaluate(sparse, "the sparsest proxy θ with recall, "
+                        "measured window times")["window_gather_batch"]:
+            saved = dict(bank.win_times)
+            sizeset = pl.make_sizeset(bank, sparse)
+            full = sizeset.full
+            for size in sizeset.sizes:
+                bank.win_times[(sparse.det_arch, size)] = \
+                    sizeset.times[full] * size[0] * size[1] \
+                    / (full[0] * full[1])
+            try:
+                evaluate(sparse, "the same, window times proportional to "
+                         f"area from the full frame's {sizeset.times[full]!r}"
+                         " s")
+            finally:
+                bank.win_times.clear()
+                bank.win_times.update(saved)
+    for name in ("proxy_plan", "window_gather_batch"):
+        if launches["proposal"][name] <= 0:
+            raise AssertionError(f"{name} was not launched by the proxy "
+                                 "proposals' evaluations")
+
+    # 4. the tuned bank on the main path
+    best = max(curve, key=lambda p: p.val_accuracy)
+    clip = make_clip("caldot1", "test", SEED, n_frames=N_FRAMES)
+    r1, l1, w1 = counted(lambda: ClipExecutor(bank, best.params).run(clip))
+    r2, l2, w2 = counted(lambda: ClipExecutor(bank, best.params).run(clip))
+    if not same_tracks(r1, r2) or l1 != l2:
+        raise AssertionError("two runs of the tuned θ differ")
+    if r1.frames_processed != len(range(0, N_FRAMES, best.params.gap)) \
+            or not r1.tracks or not all(
+                t.ndim == 2 and t.shape[1] == 6 and np.isfinite(t).all()
+                for t in r1.tracks):
+        raise AssertionError("the tuned θ's run is malformed")
+    m_host = mota(r1.tracks, clip, frames=range(0, N_FRAMES,
+                                                best.params.gap),
+                  assign="host")
+    acc = clip_count_accuracy(r1.tracks, clip)
+    log(f"tuned θ ({best.module}, val accuracy {best.val_accuracy!r}) "
+        f"{best.params.describe()} on test clip {clip.clip_id}, twice: "
+        f"{len(r1.tracks)} tracks, equal; {w1:.3f} / {w2:.3f} s wall; "
+        f"launches {l1}; count accuracy {acc!r}, MOTA {m_host!r} against "
+        f"the untrained main path's {untrained['count_accuracy']!r}, "
+        f"{untrained['mota_host']!r}")
+    log(f"tuning phase: {time.perf_counter() - t_phase:.1f} s wall; "
+        f"parity {walls['parity']:.1f}, setup {walls['setup']:.1f}, tune "
+        f"{walls['tune']:.1f}; card {smi}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -3247,7 +3537,7 @@ def main() -> int:
     log(f"card: {smi}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, nvcc: {nvcc}")
     build_kernels()
-    video, bank, params = run_video()
+    video, bank, params, untrained = run_video()
     kernels = video + run_lm() + run_ssm()
     # the fleet last: after its stream threads, the profiler's traces
     # held no device kernel for the rest of the process (twice), and
@@ -3255,6 +3545,8 @@ def main() -> int:
     fleet = run_fleet(bank, params)
     # live ingest after the fleet: it starts threads and reads no trace
     live = run_live(bank, params)
+    # training and tuning last: a bank of its own, trained on the card
+    tuning = run_tuning(untrained)
     for k in kernels:
         if k["name"] in FLEET_KERNELS:
             k["launches_fleet"] = {path: n[k["name"]]
@@ -3264,6 +3556,9 @@ def main() -> int:
             if not sum(k["launches_live"].values()):
                 raise AssertionError(f"{k['name']} was not launched by "
                                      "the live phase")
+        if k["name"] in TUNING_KERNELS:
+            k["launches_tuning"] = {path: n[k["name"]]
+                                    for path, n in tuning.items()}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

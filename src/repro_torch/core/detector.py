@@ -9,6 +9,9 @@ Layout: public functions take and return NHWC (frames (B, H, W, 3), head
 outputs (B, h, w, 5)), as the reference does; the modules permute to
 PyTorch's NCHW inside.  Convolutions pad as XLA's "SAME" does, which is
 not PyTorch's symmetric ``padding=1`` (see ``same_pads``).
+
+The training half (``detector_raw``, ``detector_loss``, ``make_targets``)
+is ordinary autograd over ``DetectorNet``; ``core.train_models`` fits it.
 """
 from __future__ import annotations
 
@@ -98,6 +101,57 @@ class DetectorNet(nn.Module):
         return x.permute(0, 2, 3, 1)
 
 
+def init_detector(arch: str, seed: int = 0) -> DetectorNet:
+    """The port's seeded init (the reference's shapes and scales, not its
+    numbers); ``Detector(arch, seed=)`` holds the same weights."""
+    return DetectorNet(arch, torch.Generator().manual_seed(seed))
+
+
+def detector_raw(net: DetectorNet, frames: torch.Tensor) -> torch.Tensor:
+    """frames: (B, H, W, 3) -> (B, H/S, W/S, 5) raw head outputs:
+    ``[..., 0]`` the objectness logit, ``[..., 1:]`` the box."""
+    return net(frames)
+
+
+def detector_loss(net: DetectorNet, frames: torch.Tensor,
+                  obj_target: torch.Tensor, box_target: torch.Tensor
+                  ) -> torch.Tensor:
+    """obj_target: (B, Hc, Wc) {0,1}; box_target: (B, Hc, Wc, 4)."""
+    out = detector_raw(net, frames)
+    obj_logit = out[..., 0]
+    box = out[..., 1:]
+    obj = obj_target.to(torch.float32)
+    bce = torch.clamp(obj_logit, min=0) - obj_logit * obj \
+        + torch.log1p(torch.exp(-torch.abs(obj_logit)))
+    # class-balanced normalization: positives are ~5-10% of cells, so a
+    # plain mean starves them of gradient
+    n_pos = torch.clamp(obj.sum(), min=1.0)
+    n_neg = torch.clamp((1 - obj).sum(), min=1.0)
+    bce = (bce * obj).sum() / n_pos + (bce * (1 - obj)).sum() / n_neg
+    l1 = torch.sum(torch.abs(box - box_target) * obj[..., None]) \
+        / (n_pos * 4)
+    return bce + l1
+
+
+def make_targets(boxes_list: List[np.ndarray], hc: int, wc: int
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """boxes: per-frame (n, >=4) [cx, cy, w, h] world units -> targets."""
+    B = len(boxes_list)
+    obj = np.zeros((B, hc, wc), np.float32)
+    box = np.zeros((B, hc, wc, 4), np.float32)
+    for b, boxes in enumerate(boxes_list):
+        for row in boxes:
+            cx, cy, w, h = row[:4]
+            j = min(int(cx * wc), wc - 1)
+            i = min(int(cy * hc), hc - 1)
+            obj[b, i, j] = 1.0
+            # sizes in CELL units: input-resolution invariant
+            box[b, i, j] = [cx * wc - j, cy * hc - i,
+                            np.log(max(w * wc, 1e-3)),
+                            np.log(max(h * hc, 1e-3))]
+    return obj, box
+
+
 def detect_scores(net: DetectorNet, frames: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """-> (objectness scores (B, h, w), box regressions (B, h, w, 4))."""
@@ -157,6 +211,18 @@ def nms(dets: np.ndarray, iou_thresh: float = 0.45) -> np.ndarray:
         if not keep or not (m[i, keep] > iou_thresh).any():
             keep.append(i)
     return dets[order[keep]]
+
+
+def iou(a: np.ndarray, b: np.ndarray) -> float:
+    ax0, ay0 = a[0] - a[2] / 2, a[1] - a[3] / 2
+    ax1, ay1 = a[0] + a[2] / 2, a[1] + a[3] / 2
+    bx0, by0 = b[0] - b[2] / 2, b[1] - b[3] / 2
+    bx1, by1 = b[0] + b[2] / 2, b[1] + b[3] / 2
+    ix = max(0.0, min(ax1, bx1) - max(ax0, bx0))
+    iy = max(0.0, min(ay1, by1) - max(ay0, by0))
+    inter = ix * iy
+    union = a[2] * a[3] + b[2] * b[3] - inter
+    return inter / union if union > 0 else 0.0
 
 
 def iou_matrix(a: np.ndarray, b: np.ndarray) -> np.ndarray:
@@ -219,7 +285,7 @@ class Detector:
         self.arch = arch
         self.device = resolve_device(device)
         if net is None:
-            net = DetectorNet(arch, torch.Generator().manual_seed(seed))
+            net = init_detector(arch, seed)
         self.net = net.to(self.device).eval()
         # dispatch counter: one per detect_batch call (bench and
         # RunResult bookkeeping, as the reference's)

@@ -116,6 +116,7 @@ class ModelBank:
     win_times: Dict = field(default_factory=dict)        # (arch,size)->s
     device: Device = "cuda"
     refiner: Optional[TrackRefiner] = None
+    det_times: Dict = field(default_factory=dict)        # (arch,(W,H))->s
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -188,28 +189,57 @@ def scale_sizes(sizes_cells: Sequence[Tuple[int, int]],
     return out
 
 
+TIMING_BATCH = 16     # executor.DEFAULT_CHUNK: the card's timing batch
+
+
+def seconds_per_call(fn, device: torch.device, reps: int = 3) -> float:
+    """Seconds one call of ``fn`` takes, after a warm-up call, over
+    ``reps`` calls.  On the card the launch is asynchronous, so the
+    interval is wall time closed by a synchronise; on the CPU it is
+    process time, as in the reference."""
+    fn()                                  # warm-up
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(device)
+    clock = time.perf_counter if cuda else time.process_time
+    t0 = clock()
+    for _ in range(reps):
+        fn()
+    if cuda:
+        torch.cuda.synchronize(device)
+    return (clock() - t0) / reps
+
+
+def detector_seconds(det: Detector, W: int, H: int) -> float:
+    """MEASURED detector seconds for one W x H frame or window.  On the
+    CPU: one zero frame from a host array, decoded at conf 0.5, as the
+    reference times it.  On the card: a batch of ``TIMING_BATCH`` (the
+    executor's default chunk) zero frames already on the device, the
+    scores copied back but nothing decoded, divided by the batch.  At
+    batch 1 the card is launch-bound and every size reads about the
+    same, which no chunk of the executor sees; and what a detector fires
+    on a zero frame says nothing about a real window's detections, while
+    its host decode, at the card's speed, could outweigh the forward
+    pass."""
+    if det.device.type == "cuda":
+        frames = torch.zeros((TIMING_BATCH, H, W, 3), dtype=torch.float32,
+                             device=det.device)
+        return seconds_per_call(
+            lambda: det.detect_batch(frames, 0.5, n_valid=0),
+            det.device) / TIMING_BATCH
+    frame = np.zeros((1, H, W, 3), np.float32)
+    return seconds_per_call(lambda: det.detect_batch(frame, 0.5),
+                            det.device)
+
+
 def measure_window_time(bank: ModelBank, arch: str,
                         size: Tuple[int, int]) -> float:
     """MEASURED detector seconds for one window size (cached in
-    ``bank.win_times``).  On the card the launch is asynchronous, so the
-    interval is wall time closed by a synchronise; on the CPU it is
-    process time, as in the reference."""
+    ``bank.win_times``), by ``detector_seconds``."""
     key = (arch, size)
     if key not in bank.win_times:
-        det = bank.detectors[arch]
-        frame = np.zeros((1, size[1] * CELL_PX, size[0] * CELL_PX, 3),
-                         np.float32)
-        det.detect_batch(frame, 0.5)          # warm-up
-        cuda = det.device.type == "cuda"
-        if cuda:
-            torch.cuda.synchronize(det.device)
-        clock = time.perf_counter if cuda else time.process_time
-        t0 = clock()
-        for _ in range(3):
-            det.detect_batch(frame, 0.5)
-        if cuda:
-            torch.cuda.synchronize(det.device)
-        bank.win_times[key] = (clock() - t0) / 3
+        bank.win_times[key] = detector_seconds(
+            bank.detectors[arch], size[0] * CELL_PX, size[1] * CELL_PX)
     return bank.win_times[key]
 
 
@@ -390,3 +420,17 @@ def run_clip_frames(bank: ModelBank, params: PipelineParams, clip: Clip
     seconds = time.process_time() - t0 + max(decode_charged, 0.0)
     return RunResult(tracks, seconds, processed, n_windows, full_frames,
                      skipped)
+
+
+def run_split(bank: ModelBank, params: PipelineParams,
+              clips: Sequence[Clip], engine: str = "streaming"
+              ) -> Tuple[List[RunResult], float]:
+    """Run θ over a whole split; -> (per-clip results, summed seconds).
+    The streaming engine dispatches the split through
+    ``executor.run_clips`` so clip i+1's decode overlaps clip i's
+    compute; other engines run clips back to back."""
+    if engine == "streaming":
+        from repro_torch.core.executor import run_clips
+        return run_clips(bank, params, clips)
+    results = [run_clip(bank, params, c, engine=engine) for c in clips]
+    return results, sum(r.seconds for r in results)

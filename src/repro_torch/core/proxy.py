@@ -9,6 +9,8 @@ and mapped onto the detector grid by the fused ``proxy_plan`` kernel in
 by the ``proxy_score`` kernel in ``ProxyModel.scores`` /
 ``scores_batch`` (the per-frame path and ``fused_plan=False``).  The
 threshold sweep and calibration over cached score grids are host numpy.
+``proxy_loss`` trains the encoder and its head with autograd, the head
+applied as the reference's einsum (the kernels have no backward).
 """
 from __future__ import annotations
 
@@ -133,6 +135,29 @@ class ProxyEncoder(nn.Module):
         return F.relu(self.dec0(x)).permute(0, 2, 3, 1).contiguous()
 
 
+def init_proxy(cell: int, base_channels: int, seed: int = 0
+               ) -> ProxyEncoder:
+    """The port's seeded init (``ProxyModel(..., seed=)`` holds the same
+    weights)."""
+    return ProxyEncoder(cell, base_channels,
+                        torch.Generator().manual_seed(seed))
+
+
+def proxy_loss(encoder: ProxyEncoder, frames: torch.Tensor,
+               cell_labels: torch.Tensor) -> torch.Tensor:
+    """cell_labels: (B, Hc, Wc) {0,1} from θ_best detections; the
+    class-balanced BCE of the head's logits."""
+    feat = encoder(frames)
+    logits = torch.einsum("bhwc,c->bhw", feat, encoder.head_w) \
+        + encoder.head_b[0]
+    y = cell_labels.to(torch.float32)
+    bce = torch.clamp(logits, min=0) - logits * y \
+        + torch.log1p(torch.exp(-torch.abs(logits)))
+    n_pos = torch.clamp(y.sum(), min=1.0)
+    n_neg = torch.clamp((1 - y).sum(), min=1.0)
+    return (bce * y).sum() / n_pos + (bce * (1 - y)).sum() / n_neg
+
+
 class ProxyModel:
     """One proxy at one input resolution, on one device."""
 
@@ -144,8 +169,7 @@ class ProxyModel:
         self.resolution = resolution                      # (W, H)
         self.device = resolve_device(device)
         if encoder is None:
-            encoder = ProxyEncoder(cell, base_channels,
-                                   torch.Generator().manual_seed(seed))
+            encoder = init_proxy(cell, base_channels, seed)
         self.encoder = encoder.to(self.device).eval()
 
     def grid_shape(self) -> Tuple[int, int]:

@@ -27,12 +27,20 @@ broker, which launches ``track_step`` once for the steps of K streams.
 
 Parameters are a dict: ``"crop_cnn"`` -> ``CropCNN`` and the reference's
 ``"det_proj"``, ``"gru"`` and ``"match"`` dicts of numpy arrays.
-Training is not ported yet.
+
+Training (gap-randomized, §3.4) holds every parameter in one
+``TrackerNet`` on one device and fits the reference's listwise BCE
+(``_train_loss``: embed each slot, a masked GRU over the prefix slots,
+the match MLP on each candidate) with ``train_models._fit``; the example
+sampler is the reference's numpy, draw for draw.  ``train_tracker``
+returns the dict form above, so the inference path takes trained
+weights unchanged.
 """
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -44,6 +52,7 @@ from repro_torch.configs.multiscope import TrackerConfig
 from repro_torch.core import fastmath as fm
 from repro_torch.core.detector import SameConv2d, next_bucket, to_device
 from repro_torch.core.hungarian import BIG, hungarian_device_np
+from repro_torch.core.train_models import _fit
 from repro_torch.kernels.track_step import (LOG1P_TABLE_2D, pack_params,
                                             track_step)
 from repro_torch.kernels.track_step.ops import NOT_CONVERGED
@@ -701,3 +710,261 @@ def embed_dets_chunk(params, cfg: TrackerConfig,
         out.append(x[k:k + n])
         k += n
     return out
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+HEAD_SCOPES = ("det_proj", "gru", "match")
+
+
+class TrackerNet(nn.Module):
+    """Every tracker parameter in one module on one device: the crop CNN
+    (a copy of ``params["crop_cnn"]``) and the three heads as
+    ``nn.ParameterDict``s under the reference's names."""
+
+    def __init__(self, params):
+        super().__init__()
+        self.crop_cnn = copy.deepcopy(params["crop_cnn"])
+        dev = next(self.crop_cnn.parameters()).device
+        for scope in HEAD_SCOPES:
+            setattr(self, scope, nn.ParameterDict({
+                k: nn.Parameter(torch.from_numpy(
+                    np.array(v, dtype=np.float32)).to(dev))
+                for k, v in params[scope].items()}))
+
+    def to_params(self) -> Dict[str, object]:
+        """-> the tracker-param dict: a ``CropCNN`` copy in eval mode on
+        this module's device, the heads as numpy."""
+        out: Dict[str, object] = {
+            "crop_cnn": copy.deepcopy(self.crop_cnn).eval()}
+        for scope in HEAD_SCOPES:
+            out[scope] = {k: v.detach().cpu().numpy().copy()
+                          for k, v in getattr(self, scope).items()}
+        return out
+
+
+def embed_dets(net: TrackerNet, crops: torch.Tensor, boxes: torch.Tensor,
+               t_elapsed: torch.Tensor) -> torch.Tensor:
+    """crops: (N, C, C, 3); boxes: (N, 4); t_elapsed: (N,) -> (N, e)."""
+    x = net.crop_cnn(crops)
+    te = t_elapsed.to(torch.float32)
+    extra = torch.stack([boxes[:, 0], boxes[:, 1], boxes[:, 2],
+                         boxes[:, 3], te / 8.0, torch.log1p(te)], dim=1)
+    d = torch.cat([x, extra], dim=1)
+    dp = net.det_proj
+    return torch.tanh(d @ dp["w"] + dp["b"])
+
+
+def gru_step(net: TrackerNet, h: torch.Tensor, feat: torch.Tensor
+             ) -> torch.Tensor:
+    """h: (..., H); feat: (..., e) -> new h."""
+    g = net.gru
+    hf = torch.cat([feat, h], dim=-1)
+    z = torch.sigmoid(hf @ g["wz"] + g["bz"])
+    r = torch.sigmoid(hf @ g["wr"] + g["br"])
+    hf2 = torch.cat([feat, r * h], dim=-1)
+    cand = torch.tanh(hf2 @ g["wh"] + g["bh"])
+    return (1 - z) * h + z * cand
+
+
+def _rel_features(track_boxes: torch.Tensor, det_boxes: torch.Tensor,
+                  te: torch.Tensor) -> torch.Tensor:
+    """track_boxes: (T, 4); det_boxes: (N, 4); te: (N,) -> (T, N, 6)."""
+    d = det_boxes[None, :, :] - track_boxes[:, None, :]      # (T, N, 4)
+    tesafe = torch.clamp(te, min=1.0)[None, :, None]
+    return torch.cat([d[..., :2], d[..., :2] / tesafe, d[..., 2:]],
+                     dim=-1)
+
+
+def match_logits(net: TrackerNet, track_h: torch.Tensor,
+                 track_boxes: torch.Tensor, det_feats: torch.Tensor,
+                 det_boxes: torch.Tensor, te: torch.Tensor) -> torch.Tensor:
+    """track_h: (T, H); track_boxes: (T, 4) last box per track;
+    det_feats: (N, e); det_boxes: (N, 4); te: (N,) -> (T, N) logits."""
+    m = net.match
+    T, N = track_h.shape[0], det_feats.shape[0]
+    rel = _rel_features(track_boxes, det_boxes, te)
+    pair = torch.cat([
+        track_h[:, None].expand(T, N, track_h.shape[1]),
+        det_feats[None].expand(T, N, det_feats.shape[1]),
+        rel,
+    ], dim=-1)
+    hid = torch.tanh(pair @ m["w0"] + m["b0"])
+    return (hid @ m["w1"] + m["b1"])[..., 0]
+
+
+def _train_loss(net: TrackerNet, crops, boxes, te, prefix_mask, cand_mask,
+                labels, last_box) -> torch.Tensor:
+    """One batch of listwise examples.
+
+    crops/boxes/te: (B, L + K, C, C, 3)/(B, L+K, 4)/(B, L+K) — first L
+    slots are the prefix detections (masked by prefix_mask (B, L)), the
+    remaining K are candidates (masked by cand_mask (B, K));
+    labels: (B, K) {0,1} (the true continuation has 1).  The
+    reference's prefix scan is a loop of L masked GRU steps.
+    """
+    B, LK = boxes.shape[:2]
+    feats = embed_dets(net, crops.reshape(B * LK, *crops.shape[2:]),
+                       boxes.reshape(B * LK, 4), te.reshape(B * LK))
+    feats = feats.reshape(B, LK, -1)
+    L = prefix_mask.shape[1]
+    K = cand_mask.shape[1]
+    pre, cand = feats[:, :L], feats[:, L:]
+    H = net.gru["bz"].shape[0]
+    h = torch.zeros((B, H), dtype=torch.float32, device=feats.device)
+    for slot in range(L):
+        h2 = gru_step(net, h, pre[:, slot])
+        h = torch.where(prefix_mask[:, slot, None] > 0, h2, h)
+    # score each candidate against its own example's track feature,
+    # with relative-motion features vs the prefix's LAST box
+    m = net.match
+    cboxes = boxes[:, L:]                               # (B, K, 4)
+    cte = torch.clamp(te[:, L:], min=1.0)[..., None]
+    d = cboxes - last_box[:, None, :]
+    rel = torch.cat([d[..., :2], d[..., :2] / cte, d[..., 2:]], dim=-1)
+    pair = torch.cat([h[:, None].expand(B, K, H), cand, rel], dim=-1)
+    hid = torch.tanh(pair @ m["w0"] + m["b0"])
+    logits = (hid @ m["w1"] + m["b1"])[..., 0]          # (B, K)
+    y = labels.to(torch.float32)
+    bce = torch.clamp(logits, min=0) - logits * y \
+        + torch.log1p(torch.exp(-torch.abs(logits)))
+    return (bce * cand_mask).sum() / torch.clamp(cand_mask.sum(), min=1.0)
+
+
+def extract_crop(frame: np.ndarray, box: np.ndarray, crop: int
+                 ) -> np.ndarray:
+    """Nearest-neighbor resample of the box region to (crop, crop, 3)."""
+    return extract_crops(frame, np.asarray(box)[None], crop)[0]
+
+
+@dataclass
+class TrackExample:
+    """One θ_best track on one clip, with crops pre-extracted."""
+    frames: np.ndarray           # (n,)
+    boxes: np.ndarray            # (n, 4)
+    crops: np.ndarray            # (n, C, C, 3)
+    clip_key: int = 0            # same-clip grouping for hard negatives
+
+
+def build_examples(tracks: Sequence[np.ndarray],
+                   frame_getter, crop: int,
+                   clip_key: int = 0) -> List[TrackExample]:
+    """tracks: (n, 6) [frame, cx, cy, w, h, id] arrays; frame_getter(f)
+    -> rendered frame."""
+    out = []
+    for tr in tracks:
+        if len(tr) < 3:
+            continue
+        crops = np.stack([
+            extract_crop(frame_getter(int(f)), b, crop)
+            for f, b in zip(tr[:, 0], tr[:, 1:5])])
+        out.append(TrackExample(tr[:, 0].astype(np.int64), tr[:, 1:5],
+                                crops, clip_key))
+    return out
+
+
+def tracker_batches(cfg: TrackerConfig, examples: List[TrackExample],
+                    steps: int, batch: int, rng: np.random.Generator,
+                    max_prefix: int = 6, n_cand: int = 6
+                    ) -> Iterator[Tuple[np.ndarray, ...]]:
+    """The reference's example sampler, draw for draw: ``steps`` batches
+    of (crops, boxes, te, prefix_mask, cand_mask, labels, last_box)."""
+    C = cfg.crop
+    gaps = cfg.gaps
+
+    def sample_example():
+        ex = examples[rng.integers(len(examples))]
+        g = int(gaps[rng.integers(len(gaps))])
+        # subsample at gap g: next det >= g frames after the previous
+        idx = [0]
+        for i in range(1, len(ex.frames)):
+            if ex.frames[i] - ex.frames[idx[-1]] >= g:
+                idx.append(i)
+        if len(idx) < 2:
+            return None
+        split = int(rng.integers(1, len(idx)))
+        prefix, pos = idx[:split], idx[split]
+        prefix = prefix[-max_prefix:]
+        pos_frame = int(ex.frames[pos])
+        # distractors: same-frame detections of other tracks; SAME-CLIP
+        # tracks preferred (hard negatives) with random-clip fallback
+        negs = []
+        same = [o for o in examples
+                if o is not ex and o.clip_key == ex.clip_key]
+        pools = (same, examples)
+        for pool in pools:
+            for _ in range(3 * (n_cand - 1)):
+                if len(negs) >= n_cand - 1 or not pool:
+                    break
+                other = pool[rng.integers(len(pool))]
+                if other is ex:
+                    continue
+                j = np.searchsorted(other.frames, pos_frame)
+                j = min(j, len(other.frames) - 1)
+                # same-clip negatives must actually overlap in time
+                if pool is same and abs(int(other.frames[j])
+                                        - pos_frame) > 8:
+                    continue
+                negs.append((other, j))
+            if len(negs) >= n_cand - 1:
+                break
+        return ex, prefix, pos, negs
+
+    L, K = max_prefix, n_cand
+    for _ in range(steps):
+        crops = np.zeros((batch, L + K, C, C, 3), np.float32)
+        boxes = np.zeros((batch, L + K, 4), np.float32)
+        te = np.zeros((batch, L + K), np.float32)
+        pmask = np.zeros((batch, L), np.float32)
+        cmask = np.zeros((batch, K), np.float32)
+        labels = np.zeros((batch, K), np.float32)
+        last_box = np.zeros((batch, 4), np.float32)
+        b = 0
+        while b < batch:
+            s = sample_example()
+            if s is None:
+                continue
+            ex, prefix, pos, negs = s
+            off = L - len(prefix)
+            prev_f = None
+            for slot, i in enumerate(prefix):
+                crops[b, off + slot] = ex.crops[i]
+                boxes[b, off + slot] = ex.boxes[i]
+                te[b, off + slot] = 0 if prev_f is None else \
+                    ex.frames[i] - prev_f
+                pmask[b, off + slot] = 1
+                prev_f = ex.frames[i]
+            last_box[b] = ex.boxes[prefix[-1]]
+            t_gap = float(ex.frames[pos] - ex.frames[prefix[-1]])
+            crops[b, L] = ex.crops[pos]
+            boxes[b, L] = ex.boxes[pos]
+            te[b, L] = t_gap
+            cmask[b, 0] = 1
+            labels[b, 0] = 1
+            for slot, (other, j) in enumerate(negs):
+                crops[b, L + 1 + slot] = other.crops[j]
+                boxes[b, L + 1 + slot] = other.boxes[j]
+                te[b, L + 1 + slot] = t_gap
+                cmask[b, 1 + slot] = 1
+            b += 1
+        yield crops, boxes, te, pmask, cmask, labels, last_box
+
+
+def train_tracker(cfg: TrackerConfig, examples: List[TrackExample],
+                  steps: int = 1500, batch: int = 32, seed: int = 0,
+                  lr: float = 3e-3, max_prefix: int = 6, n_cand: int = 6,
+                  device: Device = "cuda"):
+    """Fit the tracker on θ_best examples from ``init_tracker(cfg,
+    seed)``; -> (tracker-param dict, losses)."""
+    dev = resolve_device(device)
+    params = init_tracker(cfg, seed, dev)
+    if not examples:
+        return params, []
+    net = TrackerNet(params).to(dev)
+    rng = np.random.default_rng(seed)
+    net, losses = _fit(_train_loss, net,
+                       tracker_batches(cfg, examples, steps, batch, rng,
+                                       max_prefix, n_cand), lr=lr)
+    return net.to_params(), losses

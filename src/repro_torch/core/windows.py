@@ -8,7 +8,9 @@ next to the accelerator:
     density-based agglomerative merging that accepts a merge whenever the
     merged window is estimated FASTER than processing the parts separately;
   * ``plan_chunk`` / ``plan_from_mapped`` — a whole chunk's windows,
-    grouped by size class for the detector's cross-frame batches.
+    grouped by size class for the detector's cross-frame batches;
+  * ``select_window_sizes`` — the offline greedy choice of S over
+    training grids, under the analytic ``detector_time_model``.
 
 Window sizes and positions are in detector-grid CELL units, which is
 what makes the ``window_gather`` kernel a copy of whole cell rows.  The
@@ -17,7 +19,7 @@ port's copy of the JAX package's ``repro.core.windows`` planner.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -86,9 +88,25 @@ def group_cells(grid: np.ndarray, sizeset: SizeSet,
     Returns [] for an empty grid (frame fully skipped).  Falls back to one
     full-frame window when a cluster exceeds every size in S or the window
     count exceeds ``max_windows`` (static per-frame capacity)."""
-    hc, wc = grid.shape
-    full = sizeset.full
+    return _group_components(_components(grid), sizeset, max_windows)
+
+
+def _components(grid: np.ndarray):
+    """-> (the grid's shape, its connected components, each one's
+    centroid and bbox)."""
     comps = connected_components(grid)
+    return (grid.shape, comps, [c.mean(axis=0) for c in comps],
+            [_bbox(c) for c in comps])
+
+
+def _group_components(components, sizeset: SizeSet,
+                      max_windows: int) -> List[Window]:
+    """``group_cells`` from ``_components(grid)`` (the reference's
+    merging, with each cluster's centroid and bbox kept beside it
+    instead of recomputed: centroids are means of integer cells and
+    bboxes their extremes, so the numbers are the same)."""
+    (hc, wc), comps, cents, boxes = components
+    full = sizeset.full
     if not comps:
         return []
 
@@ -96,50 +114,49 @@ def group_cells(grid: np.ndarray, sizeset: SizeSet,
         s = sizeset.smallest_covering(w, h)
         return s if s is not None else full
 
-    clusters: List[np.ndarray] = comps
+    clusters: List[np.ndarray] = list(comps)
+    cents, boxes = list(cents), list(boxes)
     # agglomerative merging: keep merging while some merge reduces est time
     merged_any = True
     while merged_any and len(clusters) > 1:
         merged_any = False
         i = 0
         while i < len(clusters):
-            ci = clusters[i]
             # closest neighbor by centroid distance
-            cen = np.array([c.mean(axis=0) for c in clusters])
+            cen = np.array(cents)
             d = np.linalg.norm(cen - cen[i], axis=1)
             d[i] = np.inf
             j = int(np.argmin(d))
             if not np.isfinite(d[j]):
                 break
             prop = [i, j]
-            merged_cells = np.concatenate([clusters[i], clusters[j]])
-            x, y, w, h = _bbox(merged_cells)
+            x0, y0, w, h = _union(boxes[i], boxes[j])
             s_merged = size_or_full(w, h)
             # absorb any other cluster that fits without a larger window
             for k in range(len(clusters)):
                 if k in prop:
                     continue
-                trial = np.concatenate([merged_cells, clusters[k]])
-                tx, ty, tw, th = _bbox(trial)
+                tx, ty, tw, th = _union((x0, y0, w, h), boxes[k])
                 if size_or_full(tw, th) == s_merged \
                         and tw <= s_merged[0] and th <= s_merged[1]:
-                    merged_cells = trial
+                    x0, y0, w, h = tx, ty, tw, th
                     prop.append(k)
             t_merged = sizeset.times[s_merged]
             t_split = 0.0
             for k in prop:
-                x_, y_, w_, h_ = _bbox(clusters[k])
-                t_split += sizeset.times[size_or_full(w_, h_)]
+                t_split += sizeset.times[size_or_full(*boxes[k][2:])]
             if t_merged < t_split:
-                clusters = [c for k, c in enumerate(clusters)
-                            if k not in prop] + [merged_cells]
+                merged_cells = np.concatenate([clusters[k] for k in prop])
+                keep = [k for k in range(len(clusters)) if k not in prop]
+                clusters = [clusters[k] for k in keep] + [merged_cells]
+                cents = [cents[k] for k in keep] + [merged_cells.mean(axis=0)]
+                boxes = [boxes[k] for k in keep] + [(x0, y0, w, h)]
                 merged_any = True
             else:
                 i += 1
 
     windows: List[Window] = []
-    for cells in clusters:
-        x, y, w, h = _bbox(cells)
+    for x, y, w, h in boxes:
         s = sizeset.smallest_covering(w, h)
         if s is None:
             return [(0, 0, full)]
@@ -153,6 +170,15 @@ def group_cells(grid: np.ndarray, sizeset: SizeSet,
     if sizeset.est(windows) >= sizeset.times[full]:
         return [(0, 0, full)]
     return windows
+
+
+def _union(a: Tuple[int, int, int, int], b: Tuple[int, int, int, int]
+           ) -> Tuple[int, int, int, int]:
+    """The bbox (x, y, w, h) of two bboxes' cells together."""
+    x0, y0 = min(a[0], b[0]), min(a[1], b[1])
+    x1 = max(a[0] + a[2], b[0] + b[2])
+    y1 = max(a[1] + a[3], b[1] + b[3])
+    return x0, y0, x1 - x0, y1 - y0
 
 
 # ---------------------------------------------------------------------------
@@ -258,3 +284,57 @@ def full_frame_plan(n_frames: int, sizeset: SizeSet) -> ChunkPlan:
     wins: List[List[Window]] = [[(0, 0, full)] for _ in range(n_frames)]
     return ChunkPlan(wins, {full: [(slot, 0, 0, 0)
                                    for slot in range(n_frames)]})
+
+
+# ---------------------------------------------------------------------------
+# Offline size-set selection
+# ---------------------------------------------------------------------------
+
+def detector_time_model(full_size: Size, t_full: float,
+                        overhead_frac: float = 0.25
+                        ) -> Callable[[Size], float]:
+    """Analytic per-size time: fixed dispatch overhead + pixel-linear
+    term, calibrated so the full frame costs ``t_full``.  Used during size
+    selection (measuring every candidate would need one run per size);
+    the k CHOSEN sizes are then measured for real by the tuner cache."""
+    area_full = full_size[0] * full_size[1]
+    t0 = t_full * overhead_frac
+
+    def t(size: Size) -> float:
+        return t0 + (t_full - t0) * (size[0] * size[1]) / area_full
+    return t
+
+
+def select_window_sizes(grids: Sequence[np.ndarray], full_size: Size,
+                        k: int, time_fn: Callable[[Size], float],
+                        max_windows: int = 8) -> List[Size]:
+    """Greedy S selection over training-frame positive grids (assumed
+    perfect-proxy = cells of θ_best detections)."""
+    wc_full, hc_full = full_size
+    candidates = [(w, h)
+                  for w in range(1, wc_full + 1)
+                  for h in range(1, hc_full + 1)
+                  if (w, h) != full_size]
+    S: List[Size] = [full_size]
+
+    # each grid's components once (group_cells would find them again
+    # for every candidate)
+    comps = [_components(g) for g in grids]
+
+    def tot_time(sizes: List[Size]) -> float:
+        ss = SizeSet(sizes, {s: time_fn(s) for s in sizes})
+        return sum(ss.est(_group_components(c, ss, max_windows))
+                   for c in comps)
+
+    for _ in range(k - 1):
+        best_s, best_t = None, tot_time(S)
+        for cand in candidates:
+            if cand in S:
+                continue
+            t = tot_time(S + [cand])
+            if t < best_t - 1e-12:
+                best_t, best_s = t, cand
+        if best_s is None:
+            break
+        S.append(best_s)
+    return S

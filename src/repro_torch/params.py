@@ -14,6 +14,11 @@ the reference's shapes and scales, come from ``Detector(arch, seed=)``,
 the port runs without JAX (as ``chip_smoke.py`` does).  The two inits do
 not give the same numbers.
 
+The ``*_to_params`` functions go the other way: the port's modules
+(trained or not) -> the reference's numpy dicts (conv weights back to
+HWIO), so a bank the port trains loads into either package.  Both
+directions are copies: a round trip is bit for bit.
+
 ``lm_from_params`` does the same for the language model: it carries the
 reference's ``Model.init_params`` tree (layers stacked; the dense or the
 ssm family, through the family's ``param_specs``) over into the port's
@@ -30,9 +35,10 @@ from torch import nn
 from repro_torch import Device, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.multiscope import TrackerConfig
+from repro_torch.core.baselines.blazeit import FrameScorer
 from repro_torch.core.detector import DetectorNet, SameConv2d
 from repro_torch.core.proxy import ProxyEncoder
-from repro_torch.core.tracker import CropCNN
+from repro_torch.core.tracker import HEAD_SCOPES, CropCNN
 from repro_torch.models.transformer import TransformerLM, param_specs
 
 
@@ -90,6 +96,60 @@ def tracker_from_params(cfg: TrackerConfig, params: Mapping,
     for scope in ("det_proj", "gru", "match"):
         out[scope] = {k: np.array(v, dtype=np.float32)
                       for k, v in params[scope].items()}
+    return out
+
+
+def frame_scorer_from_params(params: Mapping, base: int = 8
+                             ) -> FrameScorer:
+    """The reference's BlazeIt ``def_frame_scorer`` dict -> FrameScorer."""
+    scorer = FrameScorer(base)
+    for i, conv in enumerate(scorer.enc):
+        _load_conv(conv, params[f"enc{i}"]["w"], params[f"enc{i}"]["b"])
+    _load_conv(scorer.head, params["head"]["w"], params["head"]["b"])
+    return scorer
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy().astype(np.float32, copy=True)
+
+
+def _conv_params(conv: SameConv2d) -> Dict[str, np.ndarray]:
+    return {"w": _np(conv.weight.permute(2, 3, 1, 0)),     # OIHW -> HWIO
+            "b": _np(conv.bias)}
+
+
+def detector_to_params(net: DetectorNet) -> Dict[str, Dict]:
+    """DetectorNet -> the reference's ``init_detector`` dict."""
+    return {name: _conv_params(conv) for name, conv in net.convs.items()}
+
+
+def proxy_to_params(enc: ProxyEncoder) -> Dict[str, Dict]:
+    """ProxyEncoder -> the reference's ``init_proxy`` dict."""
+    out = {f"enc{i}": _conv_params(conv) for i, conv in enumerate(enc.enc)}
+    out["dec0"] = _conv_params(enc.dec0)
+    out["head"] = {"w": _np(enc.head_w), "b": _np(enc.head_b)}
+    return out
+
+
+def tracker_to_params(params: Mapping) -> Dict[str, Dict]:
+    """The port's tracker params (``CropCNN`` + numpy head dicts) -> the
+    reference's ``init_tracker`` dict."""
+    cnn = params["crop_cnn"]
+    c0, c1 = _conv_params(cnn.conv0), _conv_params(cnn.conv1)
+    out: Dict[str, Dict] = {"crop_cnn": {
+        "w0": c0["w"], "b0": c0["b"], "w1": c1["w"], "b1": c1["b"],
+        "wd": _np(cnn.wd), "bd": _np(cnn.bd)}}
+    for scope in HEAD_SCOPES:
+        out[scope] = {k: np.array(v, dtype=np.float32)
+                      for k, v in params[scope].items()}
+    return out
+
+
+def frame_scorer_to_params(scorer: FrameScorer) -> Dict[str, Dict]:
+    """FrameScorer -> the reference's BlazeIt ``def_frame_scorer`` dict."""
+    out = {f"enc{i}": _conv_params(conv)
+           for i, conv in enumerate(scorer.enc)}
+    out["head"] = _conv_params(scorer.head)
     return out
 
 

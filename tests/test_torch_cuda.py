@@ -35,7 +35,11 @@ what the cross-stream brokers rely on: the detector's scores at batch 1
 against batches 4, 16 and 64 (both architectures, a window and a full
 frame at full width), within ``BATCH_DRIFT_ATOL``; and one
 ``TrackBroker`` launch over 4 streams of mixed Q, each stream's outputs
-equal to the plain version's on the CPU bit for bit.
+equal to the plain version's on the CPU bit for bit.  Two hold the
+training and tuning path: the proxy's 3 training steps on the card
+against the CPU (``repro_torch.core.train_check``), and a CUDA bank's
+window times, taken over a batch of 16 on the device, larger for a
+larger window.
 """
 import pytest
 
@@ -470,3 +474,39 @@ def test_device_assign_checkpoint_resumes_under_device_tracker(dev,
     assert track_step.launches > before
     _packed_equal(sealed, batch.get(clip))
     _numpy_only(sealed)
+
+
+def test_proxy_training_on_the_card_matches_the_cpu(dev):
+    # 3 steps of _fit from one seeded init on both devices, on identical
+    # batches at full width (core.train_check; chip_smoke runs all three
+    # trainers): each loss and the first step's gradients within 1e-4,
+    # the final parameters the same function within 1e-3, and the two
+    # card runs alike
+    from repro_torch.core import train_check
+    r = train_check.check_trainer("proxy", dev)
+    assert r["loss_rel"] <= train_check.LOSS_RTOL
+    assert r["grad_rel"] <= train_check.GRAD_RTOL
+    assert r["fresh_rel"] <= train_check.FRESH_RTOL
+    assert r["card_to_card_loss"] <= train_check.LOSS_RTOL * max(
+        r["losses_cpu"])
+
+
+def test_window_time_on_the_card_times_a_batch(dev, monkeypatch):
+    # a CUDA bank's window times come from a batch of the executor's
+    # default chunk, already on the device, and read larger for a larger
+    # window (at batch 1 the card is launch-bound and they do not)
+    from repro_torch.configs.multiscope import MULTISCOPE_PIPELINE
+    from repro_torch.core import pipeline as pl
+    from repro_torch.core.detector import Detector
+    det = Detector("ssd-deep", seed=0, device=dev)
+    shapes = []
+    real = det.detect_batch
+    monkeypatch.setattr(det, "detect_batch", lambda f, c, **k: (
+        shapes.append((tuple(f.shape), f.device.type)), real(f, c, **k))[1])
+    bank = pl.ModelBank(MULTISCOPE_PIPELINE, {"ssd-deep": det}, device=dev)
+    small = pl.measure_window_time(bank, "ssd-deep", (15, 9))
+    full = pl.measure_window_time(bank, "ssd-deep", (60, 34))
+    assert set(shapes) == {((pl.TIMING_BATCH, 144, 240, 3), "cuda"),
+                           ((pl.TIMING_BATCH, 544, 960, 3), "cuda")}
+    assert 0.0 < small < full
+    assert bank.win_times[("ssd-deep", (15, 9))] == small
