@@ -59,7 +59,19 @@ only the longest row alone and against a fresh prefill, since shorter
 rows absorb the right padding into their state by the reference's
 design), with three planted faults (decode without the state's decay,
 decode with a zeroed conv tail, a prefill scan that drops the state
-between chunks).  Last the fleet (``run_fleet``, after every phase that
+between chunks).  Then Zamba2 serving (``run_hybrid``): the attention
+kernels at head dim 112 (flash at S 500 and 512; decode at B 4, S 1024,
+32 of 32 heads) and ``ssd_scan`` at (P, N) = (64, 64) (H 112, S 500 and
+a ragged Q 100) against their plain versions, timed, then
+``ServeEngine.generate`` at full zamba2-7b width (81 layers: 13 groups
+of 5 Mamba2 layers and one of 2 shared attention blocks, 3 tail layers;
+d_model 3584, f32 masters and their bf16 copies, about 36 GiB) on the
+same 4 prompts: twice (13 ``flash_attention``, 416 ``decode_attention``
+and 68 ``ssd_scan`` launches each), timed, profiled, and the serve
+checks on the longest row in bf16 and f32 with three planted faults
+(every site using shared block 0, zeros for the embedding the shared
+blocks read, decode attending kv_len = pos).  Last the fleet
+(``run_fleet``, after every phase that
 reads the profiler, at the video cell's θ): caldot1 test clips 0-2 at 16
 frames, round-robin over concurrent streams, each stream's tracks held
 to its solo run: through one ``BatchBroker`` at 1, 4 and 16 streams on one
@@ -174,6 +186,7 @@ from repro_torch.stream import SegmentIngestor, StandingQuery  # noqa: E402
 from repro_torch.kernels.ssd_scan import check as ssd_check  # noqa: E402
 from repro_torch.models import attention as lm_attention  # noqa: E402
 from repro_torch.models import ssm as lm_ssm  # noqa: E402
+from repro_torch.models import transformer as lm_transformer  # noqa: E402
 from repro_torch.models.model import Model, build_model  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
 
@@ -204,6 +217,10 @@ FLEET_JOIN_S = 300.0
 # pause, this many times in all
 TRACE_TRIES = 8
 TRACE_PAUSE_S = 1.0
+# the calls a check of which kernel a wrapper launched traces: this many
+# seconds of them (20 scan calls, about 2 ms of the card's time, held
+# none in eight traces late in one run)
+TRACE_SECONDS = 0.25
 # how far a brokered stream's host-tracker costs may move from its solo
 # run's before their first differing assignment: the detector's drift
 # carried through the GRU (1.2e-7 read on the card); a fault moves
@@ -243,6 +260,12 @@ SSM_CFG = get_config("mamba2-370m")  # full width
 # bf16 rounding further (rounding-only gaps up to 0.23 of the RMS, the
 # smallest planted fault 0.79, PERF.md)
 SSM_LOGIT_TOL = {"bfloat16": 0.4, "float32": 1e-3}
+HYBRID_CFG = get_config("zamba2-7b")  # full width: all 81 layers
+# the Zamba2 cell's serve checks, by the same rule: f32 as the other
+# cells; bf16 about twice the rounding-only gaps its first full-width
+# run read (0.301-0.309 of the RMS over 81 layers), the smallest fault
+# held in bf16 3.02 (PERF.md)
+HYBRID_LOGIT_TOL = {"bfloat16": 0.6, "float32": 1e-3}
 
 
 def log(*args) -> None:
@@ -2784,34 +2807,37 @@ def op_device_ms(fn, op_name: str, reps: int = 20):
     return None
 
 
-def check_flash_attention():
+def check_flash_attention(heads=(flash_check.HQ, flash_check.HKV,
+                                  flash_check.D),
+                          timed=("S512 causal", "S500 causal")):
     """The prefill kernel against its plain version on the card
-    (``kernels.flash_attention.check``): the serving shape (B 4, S 512,
-    Hq 14, Hkv 2, D 64, causal) in bf16 and f32, the prefill's own S 500
-    (the ragged edge, masked in the kernel), Sq 128 < Skv 512 causal,
-    non-causal, kv_valid 500, and Sq 512 > Skv 256 causal, whose first
-    256 rows see no key (they must be 0); then the wrapper's refusals.
-    Timed at S 512 and S 500 (the main path's call), both dtypes, beside
-    SDPA (its device time: every kernel the call launches).  -> {case:
-    record}."""
-    timed = {(n, dt) for n in ("S512 causal", "S500 causal")
-             for dt in (torch.bfloat16, torch.float32)}
-    Hq = flash_check.HQ
+    (``kernels.flash_attention.check``), over the cases at ``heads``.
+    At qwen2-0.5b's (Hq 14, Hkv 2, D 64): the serving shape (B 4, S 512,
+    causal) in bf16 and f32, the prefill's own S 500 (the ragged edge,
+    masked in the kernel), Sq 128 < Skv 512 causal, non-causal, kv_valid
+    500, and Sq 512 > Skv 256 causal, whose first 256 rows see no key
+    (they must be 0); then that each dtype runs its own kernel and the
+    wrapper's refusals.  At zamba2-7b's (32, 32, 112): S 500 and 512,
+    causal.  Timed at the ``timed`` cases, both dtypes, beside SDPA (its
+    device time: every kernel the call launches).  -> {case: record}."""
     rows = {}
     for i, case in enumerate(flash_check.CASES):
-        name, dt, Sq, Skv, causal, kv_valid = case
+        name, dt, Sq, Skv, causal, kv_valid, case_heads = case
+        if case_heads != tuple(heads):
+            continue
+        Hq, Hkv, D = case_heads
         q, k, v = flash_check.case_operands(case, DEVICE, SEED + i)
         label = f"flash_attention {name} {dt}"
         err = flash_check.check_flash(q, k, v, causal, kv_valid, label)
         row = dict(case=name, dtype=str(dt).split(".")[-1],
-                   B=flash_check.B, Sq=Sq, Skv=Skv, causal=causal,
-                   kv_valid=kv_valid, max_abs_err=err)
-        if (name, dt) in timed:
+                   B=flash_check.B, Sq=Sq, Skv=Skv, Hq=Hq, Hkv=Hkv, D=D,
+                   causal=causal, kv_valid=kv_valid, max_abs_err=err)
+        if name in timed:
             n_valid = kv_valid or Skv
             qpos = np.arange(Sq) + (Skv - Sq)
             seen = np.clip(np.minimum(qpos + 1, n_valid) if causal
                            else np.full(Sq, n_valid), 0, None)
-            n_ops = q.shape[0] * Hq * 4 * flash_check.D * int(seen.sum())
+            n_ops = q.shape[0] * Hq * 4 * D * int(seen.sum())
             n_bytes = (2 * q.numel() + k.numel() + v.numel()) \
                 * q.element_size()
             b_ms, b_by, f32_ms = attn_bound(n_bytes, n_ops, dt)
@@ -2850,33 +2876,42 @@ def check_flash_attention():
         else:
             log(f"{label}: max |d| {err!r} (within tolerance)")
         rows[(name, row["dtype"])] = row
+    if tuple(heads) != (flash_check.HQ, flash_check.HKV, flash_check.D):
+        return rows
     check_kernel_of_each_dtype(
         "flash_attention", flash_check,
         lambda dt: flash_check.kernels_launched(
             next(c for c in flash_check.CASES if c[1] == dt), DEVICE,
-            reps=20))
+            seconds=TRACE_SECONDS))
     flash_check.check_refusals(DEVICE)
-    log("flash_attention: refuses head dim 32 in f32 and bf16")
+    log(f"flash_attention: refuses head dims "
+        f"{flash_check.UNBUILT_HEAD_DIMS} in f32 and bf16")
     return rows
 
 
-def check_decode_attention():
+def check_decode_attention(cases=decode_check.CASES[:-1],
+                           timed=(decode_check.CASES[0][0],)):
     """The decode kernel against its plain version on the card
-    (``kernels.decode_attention.check``): B 4, S 1024, Hq 14, Hkv 2, D 64
-    with kv_len (1, 61, S/2, S) (the serving call, timed) and (0, 64, 65,
-    S - 1), and a 16-head group, in bf16 and f32; then the wrapper's
-    refusals.  The timed case also records the thread blocks of its
-    launch as the profiler's trace holds them (``launch_blocks``).
-    -> {dtype: record of the timed case}."""
+    (``kernels.decode_attention.check``), over ``cases``, in bf16 and
+    f32.  By default: B 4, S 1024, Hq 14, Hkv 2, D 64 with kv_len (1,
+    61, S/2, S) (the serving call, timed) and (0, 64, 65, S - 1), a
+    16-head group and stablelm-1.6b's heads (MHA, 32 of 32 of 64); then
+    the wrapper's refusals and a CUDA-graph replay.  zamba2-7b's call
+    (``decode_check.HYBRID_CASE``) is the hybrid phase's.  A timed case
+    also records the thread blocks of its launch as the profiler's trace
+    holds them (``launch_blocks``).  -> {(case, dtype): record of a
+    timed case}."""
     rows = {}
     for ci, case in enumerate(decode_check.CASES):
+        if case not in cases:
+            continue
         name, b, S, Hq, Hkv, D, _ = case
         for i, dt in enumerate(decode_check.DTYPES):
             q, k, v, lens = decode_check.case_operands(
                 case, dt, DEVICE, SEED + 20 + 2 * ci + i)
             label = f"decode_attention {name} {dt}"
             err = decode_check.check_decode(q, k, v, lens, label)
-            if ci:
+            if name not in timed:
                 log(f"{label}: max |d| {err!r} (within tolerance)")
                 continue
 
@@ -2898,7 +2933,8 @@ def check_decode_attention():
             n_ops = 4 * D * Hq * keys
             b_ms, b_by, f32_ms = attn_bound(n_bytes, n_ops, dt)
             with torch.inference_mode():
-                row = dict(dtype=str(dt).split(".")[-1], B=b, S=S,
+                row = dict(case=name, dtype=str(dt).split(".")[-1], B=b,
+                           S=S, Hq=Hq, Hkv=Hkv, D=D,
                            kv_len=lens.tolist(), max_abs_err=err,
                            ms=event_ms(kern), device_ms=device_ms(
                                kern, DECODE_KERNEL_NAMES),
@@ -2912,9 +2948,12 @@ def check_decode_attention():
                 f"launch, from the trace: {row['blocks']}), plain "
                 f"{row['plain_ms']:.4f} ms, SDPA {row['library_ms']:.4f} "
                 f"ms, bound {b_ms:.6f} ms ({b_by}; {n_bytes / 1e6:.3f} MB)")
-            rows[row["dtype"]] = row
+            rows[(name, row["dtype"])] = row
+    if decode_check.CASES[0] not in cases:
+        return rows
     decode_check.check_refusals(DEVICE)
-    log("decode_attention: refuses a 17-head group and head dim 32")
+    log("decode_attention: refuses a 17-head group and head dims 32 and "
+        "96")
     err = decode_check.check_graph_replay(DEVICE, SEED + 30)
     log(f"decode_attention: captured in a CUDA graph and replayed after "
         f"kv_len changed in place, max |d| {err!r} (within tolerance)")
@@ -3088,6 +3127,23 @@ def _prefill_drops_chunk_state(fn):
     return wrapper
 
 
+def _every_site_block_0(fn):
+    def wrapper(model, *args, **kwargs):
+        block1 = model.shared[1]
+        model.shared[1] = model.shared[0]
+        try:
+            return fn(model, *args, **kwargs)
+        finally:
+            model.shared[1] = block1
+    return wrapper
+
+
+def _shared_without_embedding(fn):
+    def wrapper(self, h, h_embed, rope=None):
+        return fn(self, h, torch.zeros_like(h_embed), rope)
+    return wrapper
+
+
 # Planted faults, each run through the serve checks, which must reject
 # it: (name, owner, attribute, wrap, the check that must see it, whether
 # the bf16 check is held to see it too: a dropped key of hundreds moves
@@ -3112,6 +3168,16 @@ SSM_FAULTS = (
 )
 
 
+HYBRID_FAULTS = (
+    ("every site uses shared block 0", lm_transformer, "lm_forward",
+     _every_site_block_0, "prefill", True),
+    ("shared block sees zeros for h_embed", lm_transformer.SharedBlock,
+     "forward", _shared_without_embedding, "prefill", True),
+    ("decode attends kv_len = pos", lm_attention, "decode_attention",
+     _decode_kv_len_is_pos, "decode", False),
+)
+
+
 def dense_cell(cfg) -> ServeCell:
     return ServeCell(
         cfg, {"flash_attention": (flash_attention, cfg.n_layers),
@@ -3131,6 +3197,27 @@ def ssm_cell(cfg, prompts) -> ServeCell:
     return ServeCell(cfg, {"ssd_scan": (ssd_scan, cfg.n_layers)},
                      ((lm_ssm, "ssd_scan", ssd_scan_ref),), (longest,),
                      SSM_FAULTS, SSM_LOGIT_TOL, ssd_check.KERNEL_NAMES)
+
+
+def hybrid_cell(cfg, prompts) -> ServeCell:
+    """Zamba2: ``flash_attention`` at each of the 13 shared-block sites
+    of the prefill, ``decode_attention`` at each of them every decode
+    step, ``ssd_scan`` once a Mamba2 layer (68) in the prefill.  Its SSM
+    states absorb the right padding as the ssm cell's: only the longest
+    row is held alone and against a fresh prefill."""
+    h = cfg.hybrid
+    longest = max(range(len(prompts)), key=lambda i: len(prompts[i]))
+    n_ssm = h.n_groups * h.ssm_per_group + h.tail_ssm
+    return ServeCell(
+        cfg, {"flash_attention": (flash_attention, h.n_groups),
+              "decode_attention": (decode_attention,
+                                   h.n_groups * LM_NEW_TOKENS),
+              "ssd_scan": (ssd_scan, n_ssm)},
+        ((lm_attention, "flash_attention", flash_attention_ref),
+         (lm_attention, "decode_attention", decode_attention_ref),
+         (lm_ssm, "ssd_scan", ssd_scan_ref)),
+        (longest,), HYBRID_FAULTS, HYBRID_LOGIT_TOL,
+        FLASH_KERNEL_NAMES + DECODE_KERNEL_NAMES + ssd_check.KERNEL_NAMES)
 
 
 def serve_checks(eng, prompts, cell: ServeCell) -> dict:
@@ -3381,7 +3468,7 @@ def run_lm() -> list:
 
     src = "src/repro_torch/csrc/"
     f_main = fa[("S500 causal", "bfloat16")]
-    d_main = da["bfloat16"]
+    d_main = da[(decode_check.CASES[0][0], "bfloat16")]
     keys = ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
             "bound_f32_core_ms", "max_abs_err")
     f_keys = keys + ("library_device_ms", "bound_by")
@@ -3422,28 +3509,39 @@ def run_lm() -> list:
              bound_f32_core_ms=d_main["bound_f32_core_ms"],
              shape="B 4, S 1024, Hq 14, Hkv 2, D 64, kv_len "
                    "(1, 61, 512, 1024), bf16",
-             float32={k: da["float32"][k] for k in keys}),
+             float32={k: da[(decode_check.CASES[0][0], "float32")][k]
+                      for k in keys}),
     ]
 
 
-def check_ssd_scan():
+def check_ssd_scan(n_state=128, timed=(ssd_check.CASES[0][0],)):
     """The scan kernel against its plain version on the card
-    (``kernels.ssd_scan.check``): the prefill's call (B 4, S 500, H 32, P
-    64, N 128, Q 128), B 1 at S 61 (Q 61), 512 and 2048, Q 100 over S
-    250, and B 2 at S 130, each in bf16 and f32 (no padding copy in
-    either); then that each dtype runs its own kernel (the profiler's
-    trace) and the wrapper's refusals.  Timed at the prefill's call, both
-    dtypes.  -> {(case, dtype): record}."""
+    (``kernels.ssd_scan.check``), over the cases of state width
+    ``n_state``, each in bf16 and f32 (no padding copy in either).  At N
+    128 (mamba2-370m): the prefill's call (B 4, S 500, H 32, P 64, Q
+    128), B 1 at S 61 (Q 61), 512 and 2048, Q 100 over S 250, and B 2 at
+    S 130; then that each dtype runs its own kernel (the profiler's
+    trace) and the wrapper's refusals.  At N 64 (zamba2-7b): its
+    prefill's call (B 4, S 500, H 112) and Q 100 over S 250.  Each case
+    logs the share of the f32 bound it used (max |d| / (F32_RTOL max
+    |plain|), y and state).  Timed at the ``timed`` cases, both dtypes.
+    -> {(case, dtype): record}."""
     rows = {}
     for i, (name, b, S, h, p, n, chunk) in enumerate(ssd_check.CASES):
+        if n != n_state:
+            continue
         for dt in (torch.bfloat16, torch.float32):
             args = ssd_check.operands(b, S, h, p, n, dt, DEVICE,
                                       SEED + 40 + i)
             label = f"ssd_scan {name} {dt}"
-            err = ssd_check.check_scan(args, chunk, label)
+            err, used = ssd_check.check_scan(args, chunk, label)
             row = dict(case=name, dtype=str(dt).split(".")[-1], B=b, S=S,
-                       H=h, P=p, N=n, chunk=chunk, max_abs_err=err)
-            if i == 0:
+                       H=h, P=p, N=n, chunk=chunk, max_abs_err=err,
+                       tolerance_used=used)
+            log(f"{label}: share of the f32 bound used (max |d| / "
+                f"(F32_RTOL max |plain|)): y {used['y']!r}, state "
+                f"{used['state']!r}")
+            if name in timed:
                 Q = min(chunk, S)
                 n_chunks = -(-S // Q)
                 # only j <= t of a chunk: C B^T (head-independent with one
@@ -3484,14 +3582,17 @@ def check_ssd_scan():
             else:
                 log(f"{label}: max |d| {err!r} (within tolerance)")
             rows[(name, row["dtype"])] = row
+    if n_state != ssd_check.CASES[0][5]:
+        return rows
     name, b, S, h, p, n, chunk = ssd_check.CASES[0]
     check_kernel_of_each_dtype(
         "ssd_scan", ssd_check,
         lambda dt: ssd_check.kernels_launched(
             ssd_check.operands(b, S, h, p, n, dt, DEVICE, SEED), chunk,
-            reps=20))
+            seconds=TRACE_SECONDS))
     ssd_check.check_refusals(DEVICE)
-    log("ssd_scan: refuses an unbuilt (P, N) and a chunk over 128")
+    log("ssd_scan: refuses unbuilt (P, N) (32, 16) and (64, 32) and a "
+        "chunk over 128")
     return rows
 
 
@@ -3526,6 +3627,49 @@ def run_ssm() -> list:
         float32={k: sc[("prefill B4 S500", "float32")][k] for k in keys})]
 
 
+def run_hybrid(kernels: list) -> None:
+    """Zamba2 serving at full zamba2-7b width (81 layers: 13 groups of 5
+    Mamba2 layers and a shared block, 3 tail layers; d_model 3584, 32 of
+    32 heads of 112, d_ff 14336, 112 SSM heads of P 64, N 64): the three
+    kernels' instances at its shapes against their plain versions (head
+    dim 112; (P, N) = (64, 64)), timed, then the hybrid serving cell.
+    Each of ``kernels``' flash_attention, decode_attention and ssd_scan
+    records gains a ``hybrid`` entry (the new instance's times, bound
+    and error) and ``launches_hybrid`` (the cold generate's count)."""
+    fa = check_flash_attention(flash_check.HYBRID_HEADS,
+                               timed=("D112 S500 causal",
+                                      "D112 S512 causal"))
+    da = check_decode_attention((decode_check.HYBRID_CASE,),
+                                timed=(decode_check.HYBRID_CASE[0],))
+    sc = check_ssd_scan(64, timed=(ssd_check.HYBRID_CASE[0],))
+    served_run = run_serving(HYBRID_CFG, hybrid_cell)
+    by_name = {k["name"]: k for k in kernels}
+    keys = ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "bound_f32_core_ms", "max_abs_err")
+    for name, rows, main_case, shape in (
+            ("flash_attention", fa, "D112 S500 causal",
+             "B 4, S 500, Hq 32, Hkv 32, D 112, causal"),
+            ("decode_attention", da, decode_check.HYBRID_CASE[0],
+             "B 4, S 1024, Hq 32, Hkv 32, D 112, kv_len (1, 61, 512, "
+             "1024)"),
+            ("ssd_scan", sc, ssd_check.HYBRID_CASE[0],
+             "B 4, S 500, H 112, P 64, N 64, chunk 128")):
+        rec = by_name[name]
+        hyb = {dt: {k: rows[(main_case, dt)].get(k) for k in keys}
+               for dt in ("bfloat16", "float32")}
+        if name == "flash_attention":
+            for dt in hyb:
+                hyb[dt]["library_device_ms"] = \
+                    rows[(main_case, dt)]["library_device_ms"]
+        if name == "decode_attention":
+            hyb["bfloat16"]["blocks"] = rows[(main_case, "bfloat16")][
+                "blocks"]
+        rec["hybrid"] = dict(shape=shape, **hyb)
+        rec["launches_hybrid"] = served_run["launches"][name]
+        rec["max_abs_err"] = max(rec["max_abs_err"],
+                                 max(r["max_abs_err"] for r in rows.values()))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3539,6 +3683,7 @@ def main() -> int:
     build_kernels()
     video, bank, params, untrained = run_video()
     kernels = video + run_lm() + run_ssm()
+    run_hybrid(kernels)
     # the fleet last: after its stream threads, the profiler's traces
     # held no device kernel for the rest of the process (twice), and
     # every phase before it reads the profiler

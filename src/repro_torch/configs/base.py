@@ -5,8 +5,9 @@ Every architecture is a frozen ``ModelConfig``; ``reduced()`` gives the
 tiny same-family config the CPU tests run, and ``param_count()`` the
 analytic parameter count.  Configs are pure data.  The registry holds
 the configurations the port has copied so far (``mamba2_370m``,
-``qwen2_0_5b``); the models it serves are the ``dense`` and ``ssm``
-families (``repro_torch.models``).
+``qwen2_0_5b``, ``stablelm_1_6b``, ``zamba2_7b``); the models it serves
+are the ``dense``, ``ssm`` and ``hybrid`` families
+(``repro_torch.models``).
 """
 from __future__ import annotations
 
@@ -293,7 +294,8 @@ _REGISTRY: Dict[str, ModelConfig] = {}
 
 def _load_all() -> None:
     """Import every per-arch module once (each registers its config)."""
-    from repro_torch.configs import mamba2_370m, qwen2_0_5b  # noqa: F401
+    from repro_torch.configs import (  # noqa: F401
+        mamba2_370m, qwen2_0_5b, stablelm_1_6b, zamba2_7b)
 
 
 def register(cfg: ModelConfig) -> ModelConfig:

@@ -18,7 +18,22 @@
 // tensor-core peak, 27 us at the 67 TFLOP/s f32 CUDA-core peak.  So bf16
 // is bound by bytes on paper, and only tensor cores come near that line.
 // In f32 (3xTF32: three tf32 products at 495 TFLOP/s) the same work is
-// 11 us, against 5 us for its 16.8 MB at S 512.
+// 11 us, against 5 us for its 16.8 MB at S 512.  zamba2-7b's prefill (B
+// 4, S 500, Hq = Hkv = 32, D 112, causal, bf16) moves 57.3 MB (17.1 us)
+// for 7.2 GFLOP (7.3 us at the bf16 peak): bytes again.
+//
+// Head dims 64 and 112 are built (launch_bf16, launch_f32).  A bf16 row
+// of 112 is 224 bytes, not a whole number of the 128-byte swizzle rows
+// the tensor maps and wgmma's descriptors use, so a tile is D / 64
+// panels of 64 columns (two at D 112), each its own TMA box; the box of
+// the last panel reaches past D, and TMA fills those 16 columns with
+// zeros (counted by the barrier like any byte).  S = Q K^T takes D / 16
+// k-steps across the panels (7 at D 112); O is one m64n64 accumulator
+// per V panel, P V one product per panel, and only D columns are
+// stored.  The f32 kernel does the same with 32-float panels (four at D
+// 112, the last half zeros), computes O 64 columns at a time with V^T
+// padded to 128 rows (rows past D feed only columns that are not
+// stored), and at D 112 takes 193 KB of shared memory, one block an SM.
 //
 // Two kernels, one per dtype, both on tensor cores;
 // flash_attention_launch dispatches on bf16 and a bf16 call never runs
@@ -125,13 +140,28 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+constexpr int kPanel = kBN * 128;             // 64 rows of 64 bf16
+
+// A 64-row tile of D columns is D / 64 panels of 64 columns (128-byte
+// rows, the swizzle's width), the last one filled with zeros past D by
+// TMA: D 112 is two panels, the second holding 48 columns and 16 zeros.
 template <int D>
 struct Smem {
-  static constexpr int kTile = kBN * D * 2;   // bytes of a 64-row bf16 tile
+  static constexpr int kPanels = (D + 63) / 64;
+  static constexpr int kTile = kPanels * kPanel;  // bytes of a 64-row tile
   static constexpr int kBytes = 1024          // alignment slack
                                 + (1 + 2 * kStages) * kTile
                                 + (1 + 2 * kStages) * 8;
 };
+
+// K step kk (16 wide) of a K-major tile of 64-column panels: panel kk / 4,
+// 32 bytes (+2) a step inside it (rows of 128 bytes, 8-row atoms 1024
+// apart)
+__device__ __forceinline__ uint64_t kdesc16(const unsigned char* tile,
+                                            int kk) {
+  return hopper::desc_sw128(tile + (kk >> 2) * kPanel, 16, 1024)
+         + 2 * (kk & 3);
+}
 
 template <int D>
 __global__ void __launch_bounds__(kThreads) flash_attention_wgmma_kernel(
@@ -141,10 +171,10 @@ __global__ void __launch_bounds__(kThreads) flash_attention_wgmma_kernel(
     __nv_bfloat16* __restrict__ o,             // (B, Sq, Hq, D)
     int Sq, int Skv, int Hq, int Hkv, int n_valid, int causal,
     float scale_log2) {
-  static_assert(D % 16 == 0 && D <= 128, "wgmma takes K in steps of 16");
-  static_assert(D == 64, "one 128-byte swizzle row holds 64 bf16: other "
-                "head dims need more panels");
+  static_assert(D % 16 == 0 && D <= 128, "wgmma takes K in steps of 16, "
+                "O in at most two 64-column panels");
   constexpr int kTile = Smem<D>::kTile;
+  constexpr int kPanels = Smem<D>::kPanels;
   extern __shared__ unsigned char smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: tiles start on one
   const uint32_t pad = (1024u - (hopper::smem_u32(smem_raw) & 1023u)) & 1023u;
@@ -184,17 +214,22 @@ __global__ void __launch_bounds__(kThreads) flash_attention_wgmma_kernel(
   if (threadIdx.x >= kConsumers) {
     // producer: one lane issues every copy
     if (threadIdx.x == kConsumers) {
+      // the barriers count whole boxes, zero-filled columns included
       hopper::mbar_expect_tx(q_full, kTile);
-      hopper::tma_load_4d(sQ, &tm_q, q_full, 0, h, q0, b);
+      for (int p = 0; p < kPanels; ++p)
+        hopper::tma_load_4d(sQ + p * kPanel, &tm_q, q_full, 64 * p, h, q0,
+                            b);
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % kStages;
         if (t >= kStages)  // the consumers are done with its last use
           hopper::mbar_wait(&empty[s], ((t / kStages) - 1) & 1);
         hopper::mbar_expect_tx(&full[s], 2 * kTile);
-        hopper::tma_load_4d(sK + s * kTile, &tm_k, &full[s], 0, hk,
-                            t * kBN, b);
-        hopper::tma_load_4d(sV + s * kTile, &tm_v, &full[s], 0, hk,
-                            t * kBN, b);
+        for (int p = 0; p < kPanels; ++p) {
+          hopper::tma_load_4d(sK + s * kTile + p * kPanel, &tm_k, &full[s],
+                              64 * p, hk, t * kBN, b);
+          hopper::tma_load_4d(sV + s * kTile + p * kPanel, &tm_v, &full[s],
+                              64 * p, hk, t * kBN, b);
+        }
       }
     }
     return;
@@ -205,23 +240,24 @@ __global__ void __launch_bounds__(kThreads) flash_attention_wgmma_kernel(
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r0 = warp * 16 + (lane >> 2);
   const int c0 = 2 * (lane & 3);
-  float acc[32];
+  // O, one m64n64 accumulator a 64-column panel of V
+  float acc[kPanels][32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  for (int p = 0; p < kPanels; ++p)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[p][i] = 0.f;
   float m[2] = {attn::kNegInf, attn::kNegInf};
   float l[2] = {0.f, 0.f};   // this lane's share of each row's sum
 
-  // K-major descriptors (Q, K): rows of 128 bytes, 8-row atoms 1024
-  // apart; a 16-wide K step is 32 bytes (+2).  V is MN-major: a 16-key
-  // step is 16 rows of 128 bytes (+128); its leading offset (between
-  // 64-column atoms) is unused at N = D = 64.
-  const uint64_t dq = hopper::desc_sw128(sQ, 16, 1024);
+  // Q and K are K-major (kdesc16).  V is MN-major, one panel a product:
+  // a 16-key step is 16 rows of 128 bytes (+128); the leading offset
+  // (between 64-column atoms) is unused at N 64.
   hopper::mbar_wait(q_full, 0);
   for (int t = 0; t < n_tiles; ++t) {
     const int s = t % kStages;
     hopper::mbar_wait(&full[s], (t / kStages) & 1);
-    const uint64_t dk = hopper::desc_sw128(sK + s * kTile, 16, 1024);
-    const uint64_t dv = hopper::desc_sw128(sV + s * kTile, 1024, 1024);
+    const unsigned char* sKs = sK + s * kTile;
+    const unsigned char* sVs = sV + s * kTile;
 
     float sc[32];
 #pragma unroll
@@ -230,7 +266,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_wgmma_kernel(
     hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      hopper::wgmma_m64n64k16_ss(sc, dq + 2 * kk, dk + 2 * kk, kk);
+      hopper::wgmma_m64n64k16_ss(sc, kdesc16(sQ, kk), kdesc16(sKs, kk), kk);
     hopper::wgmma_commit();
     hopper::wgmma_wait_all();
     hopper::fence_regs(sc);
@@ -272,7 +308,8 @@ __global__ void __launch_bounds__(kThreads) flash_attention_wgmma_kernel(
       const float p = (vis >> i) & 1u ? ex2(sc[i] - m[r]) : 0.f;
       sc[i] = p;
       ps[r] += p;
-      acc[i] *= alpha[r];
+#pragma unroll
+      for (int pn = 0; pn < kPanels; ++pn) acc[pn][i] *= alpha[r];
     }
     l[0] = l[0] * alpha[0] + ps[0];
     l[1] = l[1] * alpha[1] + ps[1];
@@ -289,21 +326,27 @@ __global__ void __launch_bounds__(kThreads) flash_attention_wgmma_kernel(
       ph[i] = *reinterpret_cast<const uint32_t*>(&hi);
       pl[i] = *reinterpret_cast<const uint32_t*>(&lo);
     }
-    hopper::fence_regs(acc);
+#pragma unroll
+    for (int pn = 0; pn < kPanels; ++pn) hopper::fence_regs(acc[pn]);
     hopper::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kBN / 16; ++kk)
-      hopper::wgmma_m64n64k16_rs_tb(acc, ph[4 * kk], ph[4 * kk + 1],
-                                    ph[4 * kk + 2], ph[4 * kk + 3],
-                                    dv + 128 * kk);
+    for (int pn = 0; pn < kPanels; ++pn) {
+      const uint64_t dv = hopper::desc_sw128(sVs + pn * kPanel, 1024, 1024);
 #pragma unroll
-    for (int kk = 0; kk < kBN / 16; ++kk)
-      hopper::wgmma_m64n64k16_rs_tb(acc, pl[4 * kk], pl[4 * kk + 1],
-                                    pl[4 * kk + 2], pl[4 * kk + 3],
-                                    dv + 128 * kk);
+      for (int kk = 0; kk < kBN / 16; ++kk)
+        hopper::wgmma_m64n64k16_rs_tb(acc[pn], ph[4 * kk], ph[4 * kk + 1],
+                                      ph[4 * kk + 2], ph[4 * kk + 3],
+                                      dv + 128 * kk);
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk)
+        hopper::wgmma_m64n64k16_rs_tb(acc[pn], pl[4 * kk], pl[4 * kk + 1],
+                                      pl[4 * kk + 2], pl[4 * kk + 3],
+                                      dv + 128 * kk);
+    }
     hopper::wgmma_commit();
     hopper::wgmma_wait_all();
-    hopper::fence_regs(acc);
+#pragma unroll
+    for (int pn = 0; pn < kPanels; ++pn) hopper::fence_regs(acc[pn]);
     __syncwarp();
     if (lane == 0) hopper::mbar_arrive(&empty[s]);
   }
@@ -316,24 +359,26 @@ __global__ void __launch_bounds__(kThreads) flash_attention_wgmma_kernel(
     const int row = q0 + r0 + 8 * r;
     if (row < Sq) {
       __nv_bfloat16* op = o + (((size_t)b * Sq + row) * Hq + h) * D;
+      // the columns past D (zeros of V's last panel) are not stored
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
         *reinterpret_cast<__nv_bfloat162*>(op + 8 * j + c0) =
-            __floats2bfloat162_rn(acc[4 * j + 2 * r] * inv,
-                                  acc[4 * j + 2 * r + 1] * inv);
+            __floats2bfloat162_rn(acc[j / 8][4 * (j % 8) + 2 * r] * inv,
+                                  acc[j / 8][4 * (j % 8) + 2 * r + 1] * inv);
     }
   }
 }
 
 // a contiguous (B, S, H, D) bf16 tensor as a 4-D map (d, head, position,
-// batch), boxes of 64 positions of one head (cached, hopper.cuh)
+// batch), boxes of 64 d (one panel; past D, zeros) of 64 positions of one
+// head (cached, hopper.cuh)
 bool tensor_map(CUtensorMap* map, const void* ptr, int B, int S, int H,
                 int D) {
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
                                  (cuuint64_t)S * H * D * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)D, 1, (cuuint32_t)kBN, 1};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)kBN, 1};
   return hopper::bf16_tensor_map(map, ptr, 4, dims, strides, box);
 }
 
@@ -346,11 +391,14 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
       || !tensor_map(&tk, k, B, Skv, Hkv, D)
       || !tensor_map(&tv, v, B, Skv, Hkv, D))
     return (int)cudaErrorInvalidValue;
+  // 42 KB at D 64; 82 KB at D 112, over the 48 KB a launch gets unasked
   constexpr int smem = Smem<D>::kBytes;
-  static_assert(smem <= 48 * 1024, "more dynamic shared memory needs "
-                "cudaFuncAttributeMaxDynamicSharedMemorySize");
+  auto kern = flash_attention_wgmma_kernel<D>;
+  static const cudaError_t set = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (set != cudaSuccess) return (int)set;
   const dim3 grid(Hq, B, (Sq + kBM - 1) / kBM);
-  flash_attention_wgmma_kernel<D><<<grid, kThreads, smem, stream>>>(
+  kern<<<grid, kThreads, smem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), Sq, Skv, Hq, Hkv, n_valid,
       causal, scale * kLog2e);
   return (int)cudaGetLastError();
@@ -375,9 +423,17 @@ using tc::kThreads;
 constexpr int kStages = 1;
 constexpr int kPanel = kBN * 128;             // 64 rows of 32 f32
 
+// A 64-row tile of D columns is D / 32 panels of 32 floats, the last
+// filled with zeros past D by TMA (D 112: four panels, 3.5 of them data).
+// V^T holds D rounded up to 64 rows (kDp) in two panels of 32 keys; O is
+// computed 64 columns at a time (kDp / 64 m64n64 accumulators).
 template <int D>
 struct Smem {
-  static constexpr int kTile = (D / 32) * kPanel;   // a 64-row f32 tile
+  static constexpr int kPanels = (D + 31) / 32;
+  static constexpr int kDp = (D + 63) / 64 * 64;
+  static constexpr int kVTPanel = kDp * 128;        // 32 keys of kDp rows
+  static constexpr int kTile = kPanels * kPanel;    // a 64-row f32 tile
+  static_assert(2 * kVTPanel == kTile, "V^T fills a tile");
   static constexpr int kQ = 0;                      // Q, then Q lo
   static constexpr int kK = 2 * kTile;              // kStages tiles
   static constexpr int kV = kK + kStages * kTile;   // kStages tiles
@@ -387,24 +443,29 @@ struct Smem {
   static constexpr int kBytes = 1024 + kBars + (1 + 2 * kStages) * 8;
 };
 
-// K step kk's descriptor of a tile of this kernel's panels
+// K step kk's descriptor of a tile of this kernel's panels (``panel``
+// bytes apart)
 __device__ __forceinline__ uint64_t kdesc(const unsigned char* tile,
-                                          int kk) {
-  return hopper::desc_tf32_k(tile, kk, kPanel);
+                                          int kk, int panel = kPanel) {
+  return hopper::desc_tf32_k(tile, kk, panel);
 }
 
+// D 64: two blocks an SM (97 KB each); D 112: one (193 KB), with room
+// for O's two accumulators in registers
 template <int D>
-__global__ void __launch_bounds__(kThreads, 2) flash_attention_tf32_kernel(
+__global__ void __launch_bounds__(kThreads, D <= 64 ? 2 : 1)
+flash_attention_tf32_kernel(
     const __grid_constant__ CUtensorMap tm_q,  // (B, Sq, Hq, D) f32
     const __grid_constant__ CUtensorMap tm_k,  // (B, Skv, Hkv, D)
     const __grid_constant__ CUtensorMap tm_v,
     float* __restrict__ o,                     // (B, Sq, Hq, D)
     int Sq, int Skv, int Hq, int Hkv, int n_valid, int causal,
     float scale_log2) {
-  static_assert(D == 64, "two 32-float panels a row, two accumulators of "
-                "S over 4 k-steps each: other head dims need other tiles");
+  static_assert(D % 16 == 0 && D <= 128, "S in two accumulators of D / 16 "
+                "k-steps each, O in at most two 64-column halves");
   using L = Smem<D>;
   constexpr int kTile = L::kTile;
+  constexpr int kHalves = L::kDp / 64;
   extern __shared__ unsigned char smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: tiles start on one
   const uint32_t pad = (1024u - (hopper::smem_u32(smem_raw) & 1023u)) & 1023u;
@@ -445,10 +506,11 @@ __global__ void __launch_bounds__(kThreads, 2) flash_attention_tf32_kernel(
   __syncthreads();
 
   if (threadIdx.x >= kConsumers) {
-    // producer: one lane issues every copy, two 32-float panels a tile
+    // producer: one lane issues every copy, L::kPanels 32-float panels a
+    // tile (the barriers count whole boxes, zero-filled columns included)
     if (threadIdx.x == kConsumers) {
       hopper::mbar_expect_tx(q_full, kTile);
-      for (int k = 0; k < D / 32; ++k)
+      for (int k = 0; k < L::kPanels; ++k)
         hopper::tma_load_4d(sQ + k * kPanel, &tm_q, q_full, 32 * k, h, q0,
                             b);
       for (int t = 0; t < n_tiles; ++t) {
@@ -456,7 +518,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_attention_tf32_kernel(
         if (t >= kStages)  // the consumers are done with its last use
           hopper::mbar_wait(&empty[s], ((t / kStages) - 1) & 1);
         hopper::mbar_expect_tx(&full[s], 2 * kTile);
-        for (int k = 0; k < D / 32; ++k) {
+        for (int k = 0; k < L::kPanels; ++k) {
           hopper::tma_load_4d(sK + s * kTile + k * kPanel, &tm_k, &full[s],
                               32 * k, hk, t * kBN, b);
           hopper::tma_load_4d(sV + s * kTile + k * kPanel, &tm_v, &full[s],
@@ -473,9 +535,11 @@ __global__ void __launch_bounds__(kThreads, 2) flash_attention_tf32_kernel(
   const int warp = tid >> 5, lane = tid & 31;
   const int r0 = warp * 16 + (lane >> 2);
   const int c0 = 2 * (lane & 3);
-  float acc[32];
+  float acc[kHalves][32];                   // O, columns 64 hh + ...
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  for (int hh = 0; hh < kHalves; ++hh)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[hh][i] = 0.f;
   float m[2] = {attn::kNegInf, attn::kNegInf};
   float l[2] = {0.f, 0.f};   // this lane's share of each row's sum
 
@@ -485,7 +549,8 @@ __global__ void __launch_bounds__(kThreads, 2) flash_attention_tf32_kernel(
         hopper::tf32_lo4(reinterpret_cast<const float4*>(sQ)[i]);
   // V^T hi (the raw word) and lo: row d, key j at slot tf32_k_slot(j) of
   // its 8; a warp reads 32 keys of one 4-wide chunk of d and writes 32
-  // consecutive elements
+  // consecutive elements.  Rows D .. kDp - 1 are not written: they feed
+  // only O's columns past D, which are not stored.
   auto transpose_v = [&](const unsigned char* sVs) {
     for (int i = tid; i < kBN * D / 4; i += kConsumers) {
       const int j = i & (kBN - 1), dd = (i / kBN) * 4;
@@ -495,7 +560,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_attention_tf32_kernel(
       const int slot = hopper::tf32_k_slot(j);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int off = (slot >> 5) * kPanel
+        const int off = (slot >> 5) * L::kVTPanel
                         + hopper::sw128_f32(dd + e, slot & 31);
         *reinterpret_cast<float*>(sVT + off) = vv[e];
         *reinterpret_cast<float*>(sVTL + off) = hopper::tf32_lo(vv[e]);
@@ -512,8 +577,9 @@ __global__ void __launch_bounds__(kThreads, 2) flash_attention_tf32_kernel(
     hopper::fence_proxy_async();
     hopper::named_barrier(1, kConsumers);   // Q lo (first tile), K lo
 
-    // S = Q K^T: K-major on both sides, 8-wide K steps of d, d 0-31 and
-    // 32-63 in two accumulators added in f32 (the tensor cores' sums
+    // S = Q K^T: K-major on both sides, 8-wide K steps of d, the first
+    // and the second half of d (0-31 and 32-63 at D 64, 0-55 and 56-111
+    // at D 112) in two accumulators added in f32 (the tensor cores' sums
     // truncate: a long chain in one accumulator drifts, PERF.md)
     float sc[32], s2[32];
 #pragma unroll
@@ -584,28 +650,35 @@ __global__ void __launch_bounds__(kThreads, 2) flash_attention_tf32_kernel(
     l[1] = l[1] * alpha[1] + ps[1];
 
     // P V into its own accumulator (s2, free again), then O = alpha O +
-    // P V in f32; P's registers are the A operand of 8-key step kk, in
-    // the permuted K order that V^T's columns follow
+    // P V in f32, 64 columns of O (V^T rows 64 hh ..) at a time; P's
+    // registers are the A operand of 8-key step kk, in the permuted K
+    // order that V^T's columns follow
 #pragma unroll
-    for (int i = 0; i < 32; ++i) s2[i] = 0.f;
-    hopper::fence_regs(s2);
-    hopper::wgmma_fence();
+    for (int hh = 0; hh < kHalves; ++hh) {
+      const unsigned char* vt = sVT + hh * kPanel;
+      const unsigned char* vtl = sVTL + hh * kPanel;
 #pragma unroll
-    for (int kk = 0; kk < kBN / 8; ++kk) {
-      const uint64_t dv = kdesc(sVT, kk);
-      hopper::wgmma_m64n64k8_tf32_rs(s2, sc[4 * kk], sc[4 * kk + 2],
-                                     sc[4 * kk + 1], sc[4 * kk + 3], dv);
-      hopper::wgmma_m64n64k8_tf32_rs(s2, sc[4 * kk], sc[4 * kk + 2],
-                                     sc[4 * kk + 1], sc[4 * kk + 3],
-                                     kdesc(sVTL, kk));
-      hopper::wgmma_m64n64k8_tf32_rs(s2, pl[4 * kk], pl[4 * kk + 2],
-                                     pl[4 * kk + 1], pl[4 * kk + 3], dv);
+      for (int i = 0; i < 32; ++i) s2[i] = 0.f;
+      hopper::fence_regs(s2);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBN / 8; ++kk) {
+        const uint64_t dv = kdesc(vt, kk, L::kVTPanel);
+        hopper::wgmma_m64n64k8_tf32_rs(s2, sc[4 * kk], sc[4 * kk + 2],
+                                       sc[4 * kk + 1], sc[4 * kk + 3], dv);
+        hopper::wgmma_m64n64k8_tf32_rs(s2, sc[4 * kk], sc[4 * kk + 2],
+                                       sc[4 * kk + 1], sc[4 * kk + 3],
+                                       kdesc(vtl, kk, L::kVTPanel));
+        hopper::wgmma_m64n64k8_tf32_rs(s2, pl[4 * kk], pl[4 * kk + 2],
+                                       pl[4 * kk + 1], pl[4 * kk + 3], dv);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait_all();
+      hopper::fence_regs(s2);
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        acc[hh][i] = acc[hh][i] * alpha[(i >> 1) & 1] + s2[i];
     }
-    hopper::wgmma_commit();
-    hopper::wgmma_wait_all();
-    hopper::fence_regs(s2);
-#pragma unroll
-    for (int i = 0; i < 32; ++i) acc[i] = acc[i] * alpha[(i >> 1) & 1] + s2[i];
   }
 
 #pragma unroll
@@ -619,14 +692,15 @@ __global__ void __launch_bounds__(kThreads, 2) flash_attention_tf32_kernel(
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
         *reinterpret_cast<float2*>(op + 8 * j + c0) =
-            make_float2(acc[4 * j + 2 * r] * inv,
-                        acc[4 * j + 2 * r + 1] * inv);
+            make_float2(acc[j / 8][4 * (j % 8) + 2 * r] * inv,
+                        acc[j / 8][4 * (j % 8) + 2 * r + 1] * inv);
     }
   }
 }
 
 // a contiguous (B, S, H, D) f32 tensor as a 4-D map (d, head, position,
-// batch), boxes of 32 d of 64 positions of one head (cached, hopper.cuh)
+// batch), boxes of 32 d (past D, zeros) of 64 positions of one head
+// (cached, hopper.cuh)
 bool tensor_map(CUtensorMap* map, const void* ptr, int B, int S, int H,
                 int D) {
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
@@ -648,9 +722,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
     return (int)cudaErrorInvalidValue;
   constexpr int smem = Smem<D>::kBytes;
   auto kern = flash_attention_tf32_kernel<D>;
-  const cudaError_t err = cudaFuncSetAttribute(
+  static const cudaError_t set = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
+  if (set != cudaSuccess) return (int)set;
   const dim3 grid(Hq, B, (Sq + kBM - 1) / kBM);
   kern<<<grid, kThreads, smem, stream>>>(
       tq, tk, tv, static_cast<float*>(o), Sq, Skv, Hq, Hkv, n_valid, causal,
@@ -660,21 +734,30 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 
 }  // namespace tf
 
+// built for the head dims of the configs served on the card: 64
+// (qwen2-0.5b, stablelm-1.6b) and 112 (zamba2-7b)
 int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
                int Sq, int Skv, int Hq, int Hkv, int D, int n_valid,
                int causal, float scale, cudaStream_t stream) {
-  // built for the head dim of the configs served on the card (64)
-  if (D != 64) return (int)cudaErrorInvalidValue;
-  return tf::launch<64>(q, k, v, o, B, Sq, Skv, Hq, Hkv, n_valid, causal,
-                        scale, stream);
+  if (D == 64)
+    return tf::launch<64>(q, k, v, o, B, Sq, Skv, Hq, Hkv, n_valid, causal,
+                          scale, stream);
+  if (D == 112)
+    return tf::launch<112>(q, k, v, o, B, Sq, Skv, Hq, Hkv, n_valid, causal,
+                           scale, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
                 int Sq, int Skv, int Hq, int Hkv, int D, int n_valid,
                 int causal, float scale, cudaStream_t stream) {
-  if (D != 64) return (int)cudaErrorInvalidValue;
-  return tc::launch<64>(q, k, v, o, B, Sq, Skv, Hq, Hkv, n_valid, causal,
-                        scale, stream);
+  if (D == 64)
+    return tc::launch<64>(q, k, v, o, B, Sq, Skv, Hq, Hkv, n_valid, causal,
+                          scale, stream);
+  if (D == 112)
+    return tc::launch<112>(q, k, v, o, B, Sq, Skv, Hq, Hkv, n_valid, causal,
+                           scale, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace

@@ -128,6 +128,16 @@
 // and skipping the zero state's products read no faster (PERF.md); the
 // lever is overlapping step c + 1's G and M with step c's state update,
 // which needs the shared memory one stage already fills.
+//
+// (P, N) = (64, 128) (mamba2-370m) and (64, 64) (zamba2-7b) are built.
+// At N 64, B, C and the state are one 64-column panel (the f32 kernel:
+// two 32-float panels, the state one m64n64 accumulator, (w B)^T's
+// panels N rows deep).  In the bf16 kernel both warpgroups then hold the
+// same state panel and update it alike, so no branch surrounds the
+// products; warpgroup 0 alone writes it.  zamba2-7b's prefill (B 4, S
+// 500, H 112, Q 128) is 5.67 GFLOP (5.7 us at the bf16 peak) against
+// 66 MB of bf16 inputs and outputs (20 us): bytes; 448 blocks, one an
+// SM, about 3.4 waves.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -153,8 +163,8 @@ constexpr int kHalf = 64 * 128;         // a 64-row tile
 template <int P, int N>
 struct Smem {
   static_assert(P == 64, "one 128-byte swizzle row holds 64 bf16 of x");
-  static_assert(N == 128, "two 64-column panels of B, C and the state, "
-                "one state panel a warpgroup (m64n64)");
+  static_assert(N == 64 || N == 128, "one or two 64-column panels of B, C "
+                "and the state, one state panel a warpgroup (m64n64)");
   static constexpr int kNP = N / 64;                  // panels of B, C
   static constexpr int kX = 0;                        // in a stage
   static constexpr int kB = kPanel;
@@ -191,8 +201,8 @@ __device__ __forceinline__ void split2(float a, float b, uint32_t& hi,
 // Warpgroup R's part of a chunk before the state update: y = exp(L) (C
 // state^T) + M x into acc (rows 64 R .. 64 R + 63), and, in warpgroup 0
 // (which builds half as much of M), the x w tiles.  wtid: the thread's
-// index in its warpgroup.
-template <int R>
+// index in its warpgroup; kNP: the state's 64-column panels (N / 64).
+template <int R, int kNP>
 __device__ __forceinline__ void chunk_y(
     float (&acc)[32], const unsigned char* sx, const unsigned char* sb,
     const unsigned char* sc, const unsigned char* st_hi,
@@ -210,7 +220,7 @@ __device__ __forceinline__ void chunk_y(
   // K-major operands: rows of 128 bytes, 8-row atoms 1024 apart; a
   // 16-wide K step is 32 bytes (+2); K = N runs over the panels
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
+  for (int kk = 0; kk < 4 * kNP; ++kk) {
     const uint64_t da = hopper::desc_sw128(
         sc + (kk >> 2) * kPanel + R * kHalf, 16, 1024) + 2 * (kk & 3);
     const uint64_t db = hopper::desc_sw128(sb + (kk >> 2) * kPanel, 16,
@@ -231,7 +241,7 @@ __device__ __forceinline__ void chunk_y(
   for (int part = 0; part < 2; ++part) {
     const unsigned char* st = part ? st_lo : st_hi;
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
+    for (int kk = 0; kk < 4 * kNP; ++kk) {
       const uint64_t da = hopper::desc_sw128(
           sc + (kk >> 2) * kPanel + R * kHalf, 16, 1024) + 2 * (kk & 3);
       const uint64_t ds = hopper::desc_sw128(st + (kk >> 2) * kHalf, 16,
@@ -411,7 +421,11 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_scan_wgmma_kernel(
   }
   __syncthreads();
 
-  float st[32];                        // state[p][64 wg + n], m64n64
+  // state[p][64 pw + n], m64n64: at N 128 each warpgroup holds its own
+  // panel; at N 64 both hold the one panel and update it alike (no branch
+  // around the products), and warpgroup 0 alone writes it
+  const int pw = wg % L::kNP;
+  float st[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) st[i] = 0.f;
   for (int c = 0; c < n_chunks; ++c) {
@@ -427,11 +441,11 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_scan_wgmma_kernel(
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[i] = 0.f;
     if (wg == 0)
-      chunk_y<0>(acc, sx, sb, sc, st_hi, st_lo, xw_hi, xw_lo, Ls, dts, Q,
-                 wtid);
+      chunk_y<0, L::kNP>(acc, sx, sb, sc, st_hi, st_lo, xw_hi, xw_lo, Ls,
+                         dts, Q, wtid);
     else
-      chunk_y<1>(acc, sx, sb, sc, st_hi, st_lo, xw_hi, xw_lo, Ls, dts, Q,
-                 wtid);
+      chunk_y<1, L::kNP>(acc, sx, sb, sc, st_hi, st_lo, xw_hi, xw_lo, Ls,
+                         dts, Q, wtid);
     const float eLQ = expf(Ls[Q - 1]);
     hopper::fence_proxy_async();
     // x w written, both warpgroups done reading the state, L and
@@ -444,7 +458,7 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_scan_wgmma_kernel(
     for (int i = 0; i < 32; ++i) st[i] *= eLQ;
     hopper::fence_regs(st);
     hopper::wgmma_fence();
-    const uint64_t dbn = hopper::desc_sw128(sb + wg * kPanel, 1024, 1024);
+    const uint64_t dbn = hopper::desc_sw128(sb + pw * kPanel, 1024, 1024);
     const uint64_t dwh = hopper::desc_sw128(xw_hi, 1024, 1024);
     const uint64_t dwl = hopper::desc_sw128(xw_lo, 1024, 1024);
     const int kq = (Q + 15) / 16;      // rows past them are zero
@@ -493,17 +507,19 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_scan_wgmma_kernel(
     hopper::fence_regs(st);
     // the state's hi and lo terms for the next chunk's C state^T: row p,
     // column n of this warpgroup's panel, 128-byte swizzle
+    if (wg < L::kNP) {
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int p = 16 * warp + (lane >> 2) + 8 * r;
+      for (int r = 0; r < 2; ++r) {
+        const int p = 16 * warp + (lane >> 2) + 8 * r;
 #pragma unroll
-      for (int jb = 0; jb < 8; ++jb) {
-        const int off = wg * kHalf + p * 128 + ((jb ^ (p & 7)) << 4)
-                        + 4 * (lane & 3);
-        uint32_t hi, lo;
-        split2(st[4 * jb + 2 * r], st[4 * jb + 2 * r + 1], hi, lo);
-        *reinterpret_cast<uint32_t*>(st_hi + off) = hi;
-        *reinterpret_cast<uint32_t*>(st_lo + off) = lo;
+        for (int jb = 0; jb < 8; ++jb) {
+          const int off = pw * kHalf + p * 128 + ((jb ^ (p & 7)) << 4)
+                          + 4 * (lane & 3);
+          uint32_t hi, lo;
+          split2(st[4 * jb + 2 * r], st[4 * jb + 2 * r + 1], hi, lo);
+          *reinterpret_cast<uint32_t*>(st_hi + off) = hi;
+          *reinterpret_cast<uint32_t*>(st_lo + off) = lo;
+        }
       }
     }
     hopper::fence_proxy_async();
@@ -511,13 +527,14 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_scan_wgmma_kernel(
     __syncthreads();
   }
 
+  if (wg >= L::kNP) return;
   float* fp = fin + ((size_t)bi * H + h) * P * N;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int p = 16 * warp + (lane >> 2) + 8 * r;
 #pragma unroll
     for (int jb = 0; jb < 8; ++jb)
-      *reinterpret_cast<float2*>(fp + p * N + 64 * wg + 8 * jb
+      *reinterpret_cast<float2*>(fp + p * N + 64 * pw + 8 * jb
                                  + 2 * (lane & 3)) =
           make_float2(st[4 * jb + 2 * r], st[4 * jb + 2 * r + 1]);
   }
@@ -571,17 +588,20 @@ constexpr int kPanel = kRows * 128;     // 64 rows of 128 bytes (32 f32)
 template <int P, int N>
 struct Smem {
   static_assert(P == 64, "x: two 32-float panels, x^T one m64 operand");
-  static_assert(N == 128, "B, C: four 32-float panels; the state one "
-                "m64n128 accumulator");
+  static_assert(N == 64 || N == 128, "B, C: N / 32 32-float panels; the "
+                "state one m64nN accumulator");
+  static constexpr int kNP = N / 32;                 // panels of B, C
+  static constexpr int kWB = N * 128;                // (w B)^T: 32 j, N rows
   // the TMA tiles (rows t), used as the hi terms as they land
   static constexpr int kX = 0;                       // 2 panels
-  static constexpr int kB = kX + 2 * kPanel;         // 4 panels
-  static constexpr int kC = kB + 4 * kPanel;         // 4 panels
-  // C lo and B lo (C's and B's layout), then (w B)^T hi and lo (128 rows
-  // n, 2 panels of 64 j each)
-  static constexpr int kCL = kC + 4 * kPanel;
-  static constexpr int kBL = kCL + 4 * kPanel;
-  static constexpr int kXT = kBL + 4 * kPanel;       // x^T hi, lo (rows p)
+  static constexpr int kB = kX + 2 * kPanel;         // kNP panels
+  static constexpr int kC = kB + kNP * kPanel;       // kNP panels
+  // C lo and B lo (C's and B's layout), then (w B)^T hi and lo (N rows n,
+  // 2 panels of 32 j each)
+  static constexpr int kCL = kC + kNP * kPanel;
+  static constexpr int kBL = kCL + kNP * kPanel;
+  static_assert(2 * kWB == kNP * kPanel, "(w B)^T fills C lo's place");
+  static constexpr int kXT = kBL + kNP * kPanel;     // x^T hi, lo (rows p)
   static constexpr int kMT = kXT + 4 * kPanel;       // M hi, lo (rows t)
   static constexpr int kArr = kMT + 4 * kPanel;      // L, dt, exp(L), w
   static constexpr int kBars = kArr + 4 * kRows * 4;
@@ -643,9 +663,9 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_scan_tf32_kernel(
   };
   auto load_bc = [&](unsigned char* dst, const CUtensorMap* map,
                      uint64_t* bar, int c) {
-    hopper::mbar_expect_tx(bar, 4 * kPanel);
+    hopper::mbar_expect_tx(bar, L::kNP * kPanel);
 #pragma unroll
-    for (int k = 0; k < 4; ++k)
+    for (int k = 0; k < L::kNP; ++k)
       hopper::tma_load_3d(dst + k * kPanel, map, bar, 32 * k, c * kRows, bi);
   };
   float dtv[2];                        // warp 0: rows 2 lane + k
@@ -693,11 +713,11 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_scan_tf32_kernel(
   }
   __syncthreads();
 
-  // W1: state[p][tf32_k_slot(c)] at row p, column c of an m64n128
+  // W1: state[p][tf32_k_slot(c)] at row p, column c of an m64nN
   // accumulator (hopper.cuh)
-  float st[64];
+  float st[N / 2];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) st[i] = 0.f;
+  for (int i = 0; i < N / 2; ++i) st[i] = 0.f;
   const int r0 = 16 * warp + (lane >> 2);   // accumulator rows r0, r0 + 8
   const int c0 = 2 * (lane & 3);            // columns 8 j + c0 + {0, 1}
 
@@ -708,7 +728,7 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_scan_tf32_kernel(
     hopper::mbar_wait(&full[2], par);
 
     // C lo and B lo, in place of their tiles' layout
-    for (int i = tid; i < 4 * kPanel / 16; i += kThreads) {
+    for (int i = tid; i < L::kNP * kPanel / 16; i += kThreads) {
       reinterpret_cast<float4*>(scl)[i] =
           hopper::tf32_lo4(reinterpret_cast<const float4*>(sc)[i]);
       reinterpret_cast<float4*>(sbl)[i] =
@@ -779,9 +799,9 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_scan_tf32_kernel(
     } else {
       // y^T = state C^T: the state's registers are the A operand (hi the
       // raw words, lo written here), K order permuted (hopper.cuh)
-      float sl[64];
+      float sl[N / 2];
 #pragma unroll
-      for (int i = 0; i < 64; ++i) sl[i] = hopper::tf32_lo(st[i]);
+      for (int i = 0; i < N / 2; ++i) sl[i] = hopper::tf32_lo(st[i]);
       hopper::fence_regs(acc);
       hopper::wgmma_fence();
 #pragma unroll
@@ -843,7 +863,7 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_scan_tf32_kernel(
       const float bv[4] = {v.x * w, v.y * w, v.z * w, v.w * w};
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int off = (j >> 5) * (2 * kPanel)
+        const int off = (j >> 5) * L::kWB
                         + hopper::sw128_f32(hopper::tf32_k_col(n + e),
                                             j & 31);
         *reinterpret_cast<float*>(scl + off) = bv[e];
@@ -861,18 +881,22 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_scan_tf32_kernel(
     if (wg == 1) {
       // state = exp(L_Q) state + x^T (w B)
 #pragma unroll
-      for (int i = 0; i < 64; ++i) st[i] *= eLQ;
+      for (int i = 0; i < N / 2; ++i) st[i] *= eLQ;
       hopper::fence_regs(st);
       hopper::wgmma_fence();
+      auto prod = [&](uint64_t da, uint64_t db) {
+        if constexpr (N == 128)
+          hopper::wgmma_m64n128k8_tf32_ss(st, da, db, 1);
+        else
+          hopper::wgmma_m64n64k8_tf32_ss(st, da, db, 1);
+      };
 #pragma unroll
       for (int kk = 0; kk < kRows / 8; ++kk) {
         const uint64_t dx = kdesc(sxt, kk);
-        const uint64_t dw = kdesc(scl, kk, 2 * kPanel);
-        hopper::wgmma_m64n128k8_tf32_ss(st, dx, dw, 1);
-        hopper::wgmma_m64n128k8_tf32_ss(st, dx, kdesc(sbl, kk, 2 * kPanel),
-                                        1);
-        hopper::wgmma_m64n128k8_tf32_ss(st, kdesc(sxt + 2 * kPanel, kk), dw,
-                                        1);
+        const uint64_t dw = kdesc(scl, kk, L::kWB);
+        prod(dx, dw);
+        prod(dx, kdesc(sbl, kk, L::kWB));
+        prod(kdesc(sxt + 2 * kPanel, kk), dw);
       }
       hopper::wgmma_commit();
       // meanwhile y = y^T + D x (x^T hi is x), rows t < S: a warp's store
@@ -947,17 +971,23 @@ extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* A,
   // any S >= Q: both kernels mask the ragged end
   if (Q < 1 || Q > kMaxChunk || S < Q) return (int)cudaErrorInvalidValue;
   if (b == 0 || H == 0) return 0;
-  // built for the (P, N) a configuration runs on the card: mamba2-370m's
-  if (P != 64 || N != 128) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const float* dtf = static_cast<const float*>(dt);
   const float* Af = static_cast<const float*>(A);
   const float* Df = static_cast<const float*>(D);
   float* ff = static_cast<float*>(fin);
-  return bf16 ? tc::launch<64, 128>(x, dtf, Af, B, C, Df, y, ff, b, S, H,
-                                    Q, s)
-              : tf::launch<64, 128>(x, dtf, Af, B, C, Df, y, ff, b, S, H,
-                                    s);
+  // built for the (P, N) the configurations run on the card:
+  // mamba2-370m's (64, 128) and zamba2-7b's (64, 64)
+  if (P == 64 && N == 128)
+    return bf16 ? tc::launch<64, 128>(x, dtf, Af, B, C, Df, y, ff, b, S, H,
+                                      Q, s)
+                : tf::launch<64, 128>(x, dtf, Af, B, C, Df, y, ff, b, S, H,
+                                      s);
+  if (P == 64 && N == 64)
+    return bf16 ? tc::launch<64, 64>(x, dtf, Af, B, C, Df, y, ff, b, S, H,
+                                     Q, s)
+                : tf::launch<64, 64>(x, dtf, Af, B, C, Df, y, ff, b, S, H, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* kernel_error_string(int err) {

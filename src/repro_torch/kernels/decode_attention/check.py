@@ -15,12 +15,20 @@ from repro_torch.kernels.flash_attention.check import (kernel_agrees,
 
 # (name, B, S, Hq, Hkv, D, kv_len): the serving call at qwen2-0.5b's heads
 # and max_len 1024 with kv_len (1, 61, S/2, S); an empty row and lengths
-# on either side of a 64-key tile; and a full 16-head group (MAX_GROUP)
+# on either side of a 64-key tile; a full 16-head group (MAX_GROUP);
+# stablelm-1.6b's heads (MHA, 32 of 32 of 64: 512 clusters of 16 blocks)
+# and zamba2-7b's (MHA, 32 of 32 of 112) at the serving call's lengths
 CASES = (("B4 S1024 kv_len (1, 61, 512, 1024)", 4, 1024, 14, 2, 64,
           (1, 61, 512, 1024)),
          ("B4 S1024 kv_len (0, 64, 65, 1023)", 4, 1024, 14, 2, 64,
           (0, 64, 65, 1023)),
-         ("G16 B2 S256 kv_len (200, 256)", 2, 256, 32, 2, 64, (200, 256)))
+         ("G16 B2 S256 kv_len (200, 256)", 2, 256, 32, 2, 64, (200, 256)),
+         ("MHA32 B4 S1024 kv_len (1, 61, 512, 1024)", 4, 1024, 32, 32, 64,
+          (1, 61, 512, 1024)),
+         ("D112 MHA32 B4 S1024 kv_len (1, 61, 512, 1024)", 4, 1024, 32, 32,
+          112, (1, 61, 512, 1024)))
+# the zamba2-7b serving call, timed in chip_smoke.py beside the first
+HYBRID_CASE = CASES[-1]
 DTYPES = (torch.bfloat16, torch.float32)
 
 
@@ -61,9 +69,11 @@ def check_case(case, dtype: torch.dtype, device, seed: int) -> float:
 
 def check_refusals(device) -> None:
     """The wrapper refuses, before any launch, 17 query heads a KV head
-    (over ``MAX_GROUP``) and a head dim it has no build for (32)."""
+    (over ``MAX_GROUP``) and the head dims it has no build for (32,
+    96)."""
     for (Hq, Hkv, D), what in (((17, 1, 64), "per KV head"),
-                               ((2, 1, 32), "head dim")):
+                               ((2, 1, 32), "head dim"),
+                               ((2, 1, 96), "head dim")):
         q, k, v = operands([(1, Hq, D), (1, 64, Hkv, D), (1, 64, Hkv, D)],
                            torch.float32, device, 0)
         lens = torch.full((1,), 64, dtype=torch.int32, device=device)

@@ -10,6 +10,8 @@ applies.
 """
 from __future__ import annotations
 
+import time
+
 import torch
 
 from repro_torch.kernels import bf16_steps
@@ -20,21 +22,37 @@ ATTN_F32_ATOL = 1e-5
 B = 4
 # qwen2-0.5b's heads: 14 query heads over 2 KV heads of 64
 HQ, HKV, D = 14, 2, 64
-# (name, dtype, Sq, Skv, causal, kv_valid): the serving shape (S 512) in
-# both dtypes, the prefill's own S 500 (the ragged edge, masked in the
-# kernel), Sq 128 < Skv 512 causal (queries at the end of the keys),
-# non-causal, kv_valid 500, and Sq 512 > Skv 256 causal, whose first 256
-# rows see no key (they must be 0)
-CASES = (("S512 causal", torch.bfloat16, 512, 512, True, 0),
-         ("S512 causal", torch.float32, 512, 512, True, 0),
-         ("S500 causal", torch.bfloat16, 500, 500, True, 0),
-         ("S500 causal", torch.float32, 500, 500, True, 0),
-         ("Sq128 Skv512 causal", torch.bfloat16, 128, 512, True, 0),
-         ("S512 non-causal", torch.float32, 512, 512, False, 0),
+# zamba2-7b's shared attention block: 32 query heads over 32 KV heads of 112
+HYBRID_HEADS = (32, 32, 112)
+# (name, dtype, Sq, Skv, causal, kv_valid, (Hq, Hkv, D)): the serving
+# shape (S 512) in both dtypes, the prefill's own S 500 (the ragged edge,
+# masked in the kernel), Sq 128 < Skv 512 causal (queries at the end of
+# the keys), non-causal, kv_valid 500, and Sq 512 > Skv 256 causal, whose
+# first 256 rows see no key (they must be 0), at qwen2-0.5b's heads; then
+# zamba2-7b's prefill (S 500) and S 512 at head dim 112 (two 64-column
+# panels, the second 48 wide), both dtypes
+CASES = (("S512 causal", torch.bfloat16, 512, 512, True, 0, (HQ, HKV, D)),
+         ("S512 causal", torch.float32, 512, 512, True, 0, (HQ, HKV, D)),
+         ("S500 causal", torch.bfloat16, 500, 500, True, 0, (HQ, HKV, D)),
+         ("S500 causal", torch.float32, 500, 500, True, 0, (HQ, HKV, D)),
+         ("Sq128 Skv512 causal", torch.bfloat16, 128, 512, True, 0,
+          (HQ, HKV, D)),
+         ("S512 non-causal", torch.float32, 512, 512, False, 0,
+          (HQ, HKV, D)),
          ("S512 kv_valid 500 non-causal", torch.bfloat16, 512, 512, False,
-          500),
+          500, (HQ, HKV, D)),
          ("Sq512 Skv256 causal (no key for rows < 256)", torch.float32,
-          512, 256, True, 0))
+          512, 256, True, 0, (HQ, HKV, D)),
+         ("D112 S500 causal", torch.bfloat16, 500, 500, True, 0,
+          HYBRID_HEADS),
+         ("D112 S500 causal", torch.float32, 500, 500, True, 0,
+          HYBRID_HEADS),
+         ("D112 S512 causal", torch.bfloat16, 512, 512, True, 0,
+          HYBRID_HEADS),
+         ("D112 S512 causal", torch.float32, 512, 512, True, 0,
+          HYBRID_HEADS))
+# head dims the wrapper must refuse on a CUDA tensor: no kernel build
+UNBUILT_HEAD_DIMS = (32, 96)
 
 
 # every CUDA kernel the wrapper may launch: bf16 and f32 (3xTF32), both
@@ -57,9 +75,9 @@ def operands(shapes, dtype: torch.dtype, device, seed: int) -> list:
 
 
 def case_operands(case, device, seed: int) -> list:
-    """q (B, Sq, HQ, D), k and v (B, Skv, HKV, D) of one of ``CASES``."""
-    _, dtype, Sq, Skv, _, _ = case
-    return operands([(B, Sq, HQ, D), (B, Skv, HKV, D), (B, Skv, HKV, D)],
+    """q (B, Sq, Hq, D), k and v (B, Skv, Hkv, D) of one of ``CASES``."""
+    _, dtype, Sq, Skv, _, _, (hq, hkv, d) = case
+    return operands([(B, Sq, hq, d), (B, Skv, hkv, d), (B, Skv, hkv, d)],
                     dtype, device, seed)
 
 
@@ -107,40 +125,48 @@ def check_flash(q, k, v, causal: bool, kv_valid: int, label: str) -> float:
 
 def check_case(case, device, seed: int) -> float:
     """``check_flash`` on one of ``CASES``.  -> max |d|."""
-    name, _, _, _, causal, kv_valid = case
+    name, _, _, _, causal, kv_valid, _ = case
     q, k, v = case_operands(case, device, seed)
     return check_flash(q, k, v, causal, kv_valid,
                        f"flash_attention {case_id(case)}")
 
 
-def kernels_launched(case, device, reps: int = 5) -> set:
+def kernels_launched(case, device, seconds: float = 0.05) -> set:
     """The entries of ``KERNEL_NAMES`` whose names the profiler's trace
-    of ``reps`` calls on one of ``CASES`` holds as device kernels
-    (several calls: a trace may drop a launch)."""
+    of ``seconds`` of calls on one of ``CASES`` holds as device kernels,
+    after one untraced call (a trace late in a long process can miss the
+    launches of its first milliseconds)."""
     from torch.profiler import ProfilerActivity, profile
-    _, _, _, _, causal, kv_valid = case
+    _, _, _, _, causal, kv_valid, _ = case
     q, k, v = case_operands(case, device, 0)
-    with torch.inference_mode(), profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            flash_attention(q, k, v, causal=causal, kv_valid=kv_valid)
+    with torch.inference_mode():
+        flash_attention(q, k, v, causal=causal, kv_valid=kv_valid)
         torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            while time.perf_counter() - t0 < seconds:
+                flash_attention(q, k, v, causal=causal, kv_valid=kv_valid)
+            torch.cuda.synchronize()
     return {name for ev in prof.key_averages() for name in KERNEL_NAMES
             if name in ev.key}
 
 
 def check_refusals(device) -> None:
-    """The wrapper refuses, before any launch, a head dim it has no
-    build for (32), in both dtypes."""
-    for dtype in (torch.float32, torch.bfloat16):
-        q, k, v = operands([(1, 64, 2, 32), (1, 64, 1, 32),
-                            (1, 64, 1, 32)], dtype, device, 0)
-        before = flash_attention.launches
-        try:
-            flash_attention(q, k, v)
-        except NotImplementedError as e:
-            if "head dim" not in str(e) or flash_attention.launches != before:
-                raise AssertionError(f"flash_attention refusal: {e}") from e
-        else:
-            raise AssertionError(f"flash_attention took head dim 32 in "
-                                 f"{dtype}")
+    """The wrapper refuses, before any launch, the head dims it has no
+    build for (``UNBUILT_HEAD_DIMS``), in both dtypes."""
+    for d in UNBUILT_HEAD_DIMS:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = operands([(1, 64, 2, d), (1, 64, 1, d),
+                                (1, 64, 1, d)], dtype, device, 0)
+            before = flash_attention.launches
+            try:
+                flash_attention(q, k, v)
+            except NotImplementedError as e:
+                if "head dim" not in str(e) \
+                        or flash_attention.launches != before:
+                    raise AssertionError(
+                        f"flash_attention refusal: {e}") from e
+            else:
+                raise AssertionError(f"flash_attention took head dim {d} "
+                                     f"in {dtype}")

@@ -12,6 +12,8 @@ rounding of O(1) sums).
 """
 from __future__ import annotations
 
+import time
+
 import torch
 import torch.nn.functional as F
 
@@ -25,13 +27,19 @@ BF16_ULPS = 2
 # chunk ends inside a 64-row tile, so a 128-row tile reaches into the
 # next chunk) with a ragged tail, 16 chunks (the state carried through 15
 # updates), and a tail of 2 rows past whole chunks (the f32 kernel's last
-# 64-row step holds 2 rows)
+# 64-row step holds 2 rows); then zamba2-7b's prefill call (H 112, N 64:
+# 4 chunks, 8 of the f32 kernel's steps, the state fed back as a register
+# operand at each) and a ragged Q 100 at its shape
 CASES = (("prefill B4 S500", 4, 500, 32, 64, 128, 128),
          ("B1 S61 (Q 61)", 1, 61, 32, 64, 128, 128),
          ("B1 S512", 1, 512, 32, 64, 128, 128),
          ("B1 S250 Q100", 1, 250, 32, 64, 128, 100),
          ("B1 S2048", 1, 2048, 32, 64, 128, 128),
-         ("B2 S130 (a tail of 2)", 2, 130, 32, 64, 128, 128))
+         ("B2 S130 (a tail of 2)", 2, 130, 32, 64, 128, 128),
+         ("hybrid prefill B4 S500 H112 N64", 4, 500, 112, 64, 64, 128),
+         ("N64 B1 S250 Q100", 1, 250, 112, 64, 64, 100))
+# the zamba2-7b prefill's call, timed in chip_smoke.py beside the first
+HYBRID_CASE = CASES[6]
 # every CUDA kernel the wrapper may launch: bf16 and f32 (3xTF32), both
 # on tensor cores (profiler names contain these)
 KERNEL_NAMES = ("ssd_scan_wgmma_kernel", "ssd_scan_tf32_kernel")
@@ -68,6 +76,17 @@ def outside(y: torch.Tensor, y_plain: torch.Tensor) -> torch.Tensor:
     return bad
 
 
+def tolerance_used(y: torch.Tensor, y_plain: torch.Tensor,
+                   state: torch.Tensor, state_plain: torch.Tensor) -> dict:
+    """The share of the f32 bound a result uses: max |d| / (``F32_RTOL``
+    max |plain|), of y and of the final state (1 is at the bound; bf16's
+    y may pass above 1 within ``BF16_ULPS``)."""
+    def share(got, want):
+        return float((got.float() - want).abs().max()) / (
+            F32_RTOL * float(want.abs().max()))
+    return {"y": share(y, y_plain), "state": share(state, state_plain)}
+
+
 def within_tolerance(y: torch.Tensor, y_plain: torch.Tensor,
                      state: torch.Tensor, state_plain: torch.Tensor) -> int:
     """The tolerance of a scan against its plain version: the count of
@@ -79,10 +98,10 @@ def within_tolerance(y: torch.Tensor, y_plain: torch.Tensor,
         (~(d_state <= F32_RTOL * float(state_plain.abs().max()))).sum())
 
 
-def check_scan(args: tuple, chunk: int, label: str) -> float:
+def check_scan(args: tuple, chunk: int, label: str) -> tuple:
     """One launch of the kernel on ``args`` (CUDA tensors) against the
     plain version run in f32 on the same inputs; raises AssertionError
-    outside the tolerance.  -> max |d| of y."""
+    outside the tolerance.  -> (max |d| of y, ``tolerance_used``)."""
     x = args[0]
     before = ssd_scan.launches
     with torch.inference_mode():
@@ -103,19 +122,25 @@ def check_scan(args: tuple, chunk: int, label: str) -> float:
             f"{label}: kernel != plain version at {int(bad.sum())} "
             f"elements of y, first {at} (max |d| {float(diff.max())!r}); "
             f"state max |d| {d_state!r}")
-    return float(diff.max())
+    return float(diff.max()), tolerance_used(y, yr, fin, sr)
 
 
-def kernels_launched(args: tuple, chunk: int, reps: int = 5) -> set:
+def kernels_launched(args: tuple, chunk: int, seconds: float = 0.05) -> set:
     """The entries of ``KERNEL_NAMES`` whose names the profiler's trace
-    of ``reps`` calls on ``args`` (CUDA tensors) holds as device kernels
-    (several calls: a trace may drop a launch)."""
+    of ``seconds`` of calls on ``args`` (CUDA tensors) holds as device
+    kernels, after one untraced call (a trace late in a long process can
+    miss the launches of its first milliseconds: 20 calls, about 2 ms of
+    the card's time, once held none in eight traces)."""
     from torch.profiler import ProfilerActivity, profile
-    with torch.inference_mode(), profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            ssd_scan(*args, chunk=chunk)
+    with torch.inference_mode():
+        ssd_scan(*args, chunk=chunk)
         torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            while time.perf_counter() - t0 < seconds:
+                ssd_scan(*args, chunk=chunk)
+            torch.cuda.synchronize()
     return {name for ev in prof.key_averages() for name in KERNEL_NAMES
             if name in ev.key}
 
@@ -124,6 +149,8 @@ def check_refusals(device) -> None:
     """The wrapper refuses, before any launch, a (P, N) the kernel was
     not built for and a chunk over its shared-memory limit."""
     for (b, S, H, P, N), chunk, what in (((1, 32, 2, 32, 16), 128,
+                                          "no kernel build"),
+                                         ((1, 32, 2, 64, 32), 128,
                                           "no kernel build"),
                                          ((1, 256, 2, 64, 128), 256,
                                           "chunk")):

@@ -45,8 +45,9 @@ from repro_torch.kernels import (check_launch, device_guard, on_cuda, ptr,
 from repro_torch.kernels._build import library
 
 MAX_CHUNK = 128                  # the largest Q (the bf16 kernel's tile)
-# (P, N) the kernel is built for: mamba2-370m's, the one the card runs
-SHAPES = ((64, 128),)
+# (P, N) the kernel is built for: mamba2-370m's (64, 128) and zamba2-7b's
+# (64, 64), the ones the card runs
+SHAPES = ((64, 128), (64, 64))
 DTYPES = (torch.float32, torch.bfloat16)
 # ssd_scan_launch(x, dt, A, B, C, D, y, final, b, S, H, P, N, Q, bf16,
 #                 stream)

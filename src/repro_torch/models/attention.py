@@ -26,12 +26,14 @@ Rope = Tuple[torch.Tensor, torch.Tensor]        # cos, sin
 
 
 class Attention(nn.Module):
-    """wq, wk, wv (d_model -> q_dim / kv_dim, bias when
-    ``cfg.qkv_bias``) and wo (q_dim -> d_model), as ``def_attention``."""
+    """wq, wk, wv (d_in -> q_dim / kv_dim, bias when ``cfg.qkv_bias``)
+    and wo (q_dim -> d_model), as ``def_attention``; ``d_in`` defaults to
+    d_model (Zamba2's shared block reads 2 d_model)."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None,
+                 d_in: Optional[int] = None):
         super().__init__()
-        d = cfg.d_model
+        d = d_in or cfg.d_model
         self.cfg = cfg
         self.wq = Linear(d, cfg.q_dim, cfg.qkv_bias, device)
         self.wk = Linear(d, cfg.kv_dim, cfg.qkv_bias, device)
@@ -39,8 +41,8 @@ class Attention(nn.Module):
         self.wo = Linear(cfg.q_dim, cfg.d_model, False, device)
 
     def project(self, x: torch.Tensor):
-        """``_project_qkv``: x (B, S, d_model) -> q (B, S, Hq, D), k, v
-        (B, S, Hkv, D)."""
+        """``_project_qkv``: x (B, S, d_in) -> q (B, S, Hq, D), k, v (B,
+        S, Hkv, D)."""
         cfg = self.cfg
         B, S = x.shape[:2]
         q = self.wq(x).reshape(B, S, cfg.n_heads, cfg.head_dim)
@@ -54,7 +56,7 @@ class Attention(nn.Module):
     def forward(self, x: torch.Tensor, rope: Optional[Rope] = None):
         """``attention_full``, causal, with rope at positions 0..S-1
         (``rope``: the tables, when the caller shares them across
-        layers).  x: (B, S, d_model) -> (out (B, S, d_model), (k, v)), k
+        layers).  x: (B, S, d_in) -> (out (B, S, d_model), (k, v)), k
         and v after rope: the prefill's cache rows."""
         B, S = x.shape[:2]
         q, k, v = self.project(x)
@@ -66,7 +68,7 @@ class Attention(nn.Module):
     def decode(self, x: torch.Tensor, cache_k: torch.Tensor,
                cache_v: torch.Tensor, pos: torch.Tensor,
                rope: Optional[Rope] = None) -> torch.Tensor:
-        """``attention_decode``.  x: (B, 1, d_model); cache_k / cache_v: (B,
+        """``attention_decode``.  x: (B, 1, d_in); cache_k / cache_v: (B,
         S, Hkv, D), written in place at (row, pos[row]); pos: (B,) int32,
         the number of valid cached tokens; ``rope``: the tables at
         ``pos[:, None]``, when shared across layers.  -> (B, 1,

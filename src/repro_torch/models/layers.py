@@ -13,7 +13,7 @@ written (``TransformerLM.load_``): the bits of a cast at every use.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -127,12 +127,16 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
 
 
 class SwiGLU(CastWeights):
-    """``mlp_swiglu``: (silu(x @ w_gate) * (x @ w_up)) @ w_down."""
+    """``mlp_swiglu``: (silu(x @ w_gate) * (x @ w_up)) @ w_down, from
+    ``d_in`` (default ``d_model``: Zamba2's shared block reads 2 d_model)
+    back to ``d_model``, as ``def_mlp_swiglu``."""
 
-    def __init__(self, d_model: int, d_ff: int, device=None):
+    def __init__(self, d_model: int, d_ff: int, device=None,
+                 d_in: Optional[int] = None):
         super().__init__()
-        self.w_gate = empty_param((d_model, d_ff), device)
-        self.w_up = empty_param((d_model, d_ff), device)
+        d_in = d_in or d_model
+        self.w_gate = empty_param((d_in, d_ff), device)
+        self.w_up = empty_param((d_in, d_ff), device)
         self.w_down = empty_param((d_ff, d_model), device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,5 @@
 """The Model API (the port's counterpart of the JAX package's
-``models/model.py``), dense and ssm families.
+``models/model.py``), dense, ssm and hybrid families.
 
 ``build_model(cfg)`` returns a ``Model`` exposing:
 
@@ -90,8 +90,8 @@ class Model:
 
     def decode_step(self, params: TransformerLM, token, pos, cache):
         """token: (B, 1); pos: (B,) int32 on the params' device (not
-        read by the ssm family).  The cache is updated in place and
-        returned."""
+        read by the ssm family; the hybrid family's attention sites read
+        it).  The cache is updated in place and returned."""
         with torch.inference_mode():
             logits, cache = tf_mod.lm_decode(params, token, pos, cache)
         return logits[:, 0], cache

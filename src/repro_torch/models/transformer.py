@@ -1,23 +1,34 @@
-"""Decoder-only LM assembly, dense and ssm families (the port's
+"""Decoder-only LM assembly, dense, ssm and hybrid families (the port's
 counterpart of the JAX package's ``models/transformer.py``): parameter
 specs, the full-sequence forward with cache capture (prefill), caches,
 and the single-token decode.
 
-The reference stacks each layer's parameters on a leading ``(n_layers,)``
-axis and runs ``lax.scan`` over them; the port keeps one module per
-layer in an ``nn.ModuleList`` and loops.  The specs keep the stacked
-paths and shapes, so a stacked tensor (the reference's, or the port's
-own init) is split over the layers when it is loaded.  The caches are
-the reference's trees: for the dense family one (L, B, S, Hkv, D) K/V
-tensor pair; for the ssm family (Mamba2) ``{"ssm": (L, B, H, P, N) f32,
-"conv": (L, B, d_conv - 1, conv_dim)}``, which has no sequence axis.
+The reference stacks each layer's parameters on leading axes and runs
+``lax.scan`` over them; the port keeps one module per layer in an
+``nn.ModuleList`` and loops.  The specs keep the stacked paths and
+shapes, so a stacked tensor (the reference's, or the port's own init) is
+split over the layers when it is loaded.  The caches are the reference's
+trees: for the dense family one (L, B, S, Hkv, D) K/V tensor pair; for
+the ssm family (Mamba2) ``{"ssm": (L, B, H, P, N) f32, "conv": (L, B,
+d_conv - 1, conv_dim)}``, which has no sequence axis.
+
+The hybrid family (Zamba2) runs ``n_groups`` groups of ``ssm_per_group``
+Mamba2 layers, each group followed by one of ``n_shared_blocks`` SHARED
+attention + MLP blocks (group gi uses block gi % n_shared_blocks), whose
+projections read ``concat([h, h_embed])`` (width 2 d_model; h_embed is
+the embedding output, the same at every site), then ``tail_ssm`` more
+Mamba2 layers.  Its parameters are ``groups/ssm_layers/...`` stacked on
+two axes (n_groups, ssm_per_group), ``shared/...`` (n_shared_blocks)
+and ``tail/...`` (tail_ssm); its cache holds ``groups`` (the SSM states,
+(n_groups, ssm_per_group, B, ...)), ``shared_kv`` (one K/V pair a site,
+(n_groups, B, S, Hkv, D)) and ``tail``.
 
 The other families raise NotImplementedError naming the ``ROADMAP.md``
 item that ports them.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -31,12 +42,10 @@ from repro_torch.models.ssm import (SSMBlock, dims as ssm_dims,
                                    init_ssm_state, proj_dim)
 
 Cache = Dict[str, Any]
-PORTED = ("dense", "ssm")
+PORTED = ("dense", "ssm", "hybrid")
 
 # families still to port, and the ROADMAP.md queue 1 item that will
 NOT_PORTED = {
-    "hybrid": "queue 1 item 12c (Zamba2 hybrid: head-dim-112 attention "
-              "instances, the shared block)",
     "moe": "queue 1 item 12d (mixture of experts)",
     "vlm": "queue 1 item 12e (vision frontend)",
     "encdec": "queue 1 item 12f (encoder-decoder, cross-attention)",
@@ -57,42 +66,58 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def _ssm_layer_specs(cfg: ModelConfig) -> List[ParamSpec]:
-    """``def_rmsnorm("ln")`` + ``def_ssm_block("ssm")``, stacked."""
-    L, d = cfg.n_layers, cfg.d_model
+def _ssm_layer_specs(cfg: ModelConfig, prefix: str,
+                     lead: Tuple[int, ...]) -> List[ParamSpec]:
+    """``def_rmsnorm("ln")`` + ``def_ssm_block("ssm")`` under ``prefix``,
+    stacked on the ``lead`` axes."""
+    d = cfg.d_model
     s, d_inner, H, conv_dim = ssm_dims(cfg)
-    return [ParamSpec("layers/ln/scale", (L, d), "ones"),
-            ParamSpec("layers/ssm/in_proj/w", (L, d, proj_dim(cfg))),
-            ParamSpec("layers/ssm/conv_w", (L, s.d_conv, conv_dim)),
-            ParamSpec("layers/ssm/conv_b", (L, conv_dim), "zeros"),
-            ParamSpec("layers/ssm/A_log", (L, H), "ssm_a"),
-            ParamSpec("layers/ssm/dt_bias", (L, H), "ssm_dt"),
-            ParamSpec("layers/ssm/D", (L, H), "ones"),
-            ParamSpec("layers/ssm/norm_scale", (L, d_inner), "ones"),
-            ParamSpec("layers/ssm/out_proj/w", (L, d_inner, d))]
+    return [ParamSpec(f"{prefix}/ln/scale", lead + (d,), "ones"),
+            ParamSpec(f"{prefix}/ssm/in_proj/w", lead + (d, proj_dim(cfg))),
+            ParamSpec(f"{prefix}/ssm/conv_w", lead + (s.d_conv, conv_dim)),
+            ParamSpec(f"{prefix}/ssm/conv_b", lead + (conv_dim,), "zeros"),
+            ParamSpec(f"{prefix}/ssm/A_log", lead + (H,), "ssm_a"),
+            ParamSpec(f"{prefix}/ssm/dt_bias", lead + (H,), "ssm_dt"),
+            ParamSpec(f"{prefix}/ssm/D", lead + (H,), "ones"),
+            ParamSpec(f"{prefix}/ssm/norm_scale", lead + (d_inner,), "ones"),
+            ParamSpec(f"{prefix}/ssm/out_proj/w", lead + (d_inner, d))]
+
+
+def _attn_block_specs(cfg: ModelConfig, prefix: str, n: int,
+                      d_in: int) -> List[ParamSpec]:
+    """An attention + SwiGLU block (``_def_attn_layer``, or the hybrid's
+    shared block reading ``d_in`` = 2 d_model) under ``prefix``, stacked
+    on ``(n,)``."""
+    d, q, kv, ff = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff
+    specs = [ParamSpec(f"{prefix}/ln_attn/scale", (n, d_in), "ones")]
+    for name, d_out in (("wq", q), ("wk", kv), ("wv", kv)):
+        specs.append(ParamSpec(f"{prefix}/attn/{name}/w", (n, d_in, d_out)))
+        if cfg.qkv_bias:
+            specs.append(ParamSpec(f"{prefix}/attn/{name}/b", (n, d_out),
+                                   "zeros"))
+    return specs + [ParamSpec(f"{prefix}/attn/wo/w", (n, q, d)),
+                    ParamSpec(f"{prefix}/ln_mlp/scale", (n, d_in), "ones"),
+                    ParamSpec(f"{prefix}/mlp/w_gate", (n, d_in, ff)),
+                    ParamSpec(f"{prefix}/mlp/w_up", (n, d_in, ff)),
+                    ParamSpec(f"{prefix}/mlp/w_down", (n, ff, d))]
 
 
 def param_specs(cfg: ModelConfig) -> List[ParamSpec]:
-    """``def_lm_params`` for the dense and ssm families: paths and shapes
-    of the reference's parameter tree, layers stacked."""
+    """``def_lm_params`` for the dense, ssm and hybrid families: paths
+    and shapes of the reference's parameter tree, layers stacked."""
     check_family(cfg)
-    L, d, q, kv, ff = (cfg.n_layers, cfg.d_model, cfg.q_dim, cfg.kv_dim,
-                       cfg.d_ff)
+    L, d = cfg.n_layers, cfg.d_model
     specs = [ParamSpec("embed/table", (cfg.vocab_size, d), scale=1.0)]
     if cfg.family == "ssm":
-        specs += _ssm_layer_specs(cfg)
+        specs += _ssm_layer_specs(cfg, "layers", (L,))
+    elif cfg.family == "hybrid":
+        h = cfg.hybrid
+        specs += _ssm_layer_specs(cfg, "groups/ssm_layers",
+                                  (h.n_groups, h.ssm_per_group))
+        specs += _attn_block_specs(cfg, "shared", h.n_shared_blocks, 2 * d)
+        specs += _ssm_layer_specs(cfg, "tail", (h.tail_ssm,))
     else:
-        specs.append(ParamSpec("layers/ln_attn/scale", (L, d), "ones"))
-        for name, d_out in (("wq", q), ("wk", kv), ("wv", kv)):
-            specs.append(ParamSpec(f"layers/attn/{name}/w", (L, d, d_out)))
-            if cfg.qkv_bias:
-                specs.append(ParamSpec(f"layers/attn/{name}/b", (L, d_out),
-                                       "zeros"))
-        specs += [ParamSpec("layers/attn/wo/w", (L, q, d)),
-                  ParamSpec("layers/ln_mlp/scale", (L, d), "ones"),
-                  ParamSpec("layers/mlp/w_gate", (L, d, ff)),
-                  ParamSpec("layers/mlp/w_up", (L, d, ff)),
-                  ParamSpec("layers/mlp/w_down", (L, ff, d))]
+        specs += _attn_block_specs(cfg, "layers", L, d)
     specs.append(ParamSpec("ln_final/scale", (d,), "ones"))
     if not cfg.tie_embeddings:
         specs.append(ParamSpec("lm_head/w", (d, cfg.vocab_size)))
@@ -120,6 +145,38 @@ class Block(nn.Module):
         return h + self.mlp(self.ln_mlp(h))
 
 
+class SharedBlock(nn.Module):
+    """Zamba2's shared attention + MLP block (``_shared_block_fwd``): both
+    halves normalise ``concat([h, h_embed])`` (width 2 d_model) and add
+    their output to h."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        d2 = 2 * cfg.d_model
+        self.ln_attn = RMSNorm(d2, cfg.norm_eps, device)
+        self.attn = Attention(cfg, device=device, d_in=d2)
+        self.ln_mlp = RMSNorm(d2, cfg.norm_eps, device)
+        self.mlp = SwiGLU(cfg.d_model, cfg.d_ff, device, d_in=d2)
+
+    def _mlp(self, h: torch.Tensor, h_embed: torch.Tensor) -> torch.Tensor:
+        return h + self.mlp(self.ln_mlp(torch.cat([h, h_embed], dim=-1)))
+
+    def forward(self, h: torch.Tensor, h_embed: torch.Tensor,
+                rope: Optional[Rope] = None):
+        """Causal attention (rope at positions 0..S-1), then the MLP.  ->
+        (h, (k, v)), k and v after rope: the site's cache rows."""
+        a, kv = self.attn(self.ln_attn(torch.cat([h, h_embed], dim=-1)),
+                          rope=rope)
+        return self._mlp(h + a, h_embed), kv
+
+    def decode(self, h, h_embed, cache_k, cache_v, pos,
+               rope: Optional[Rope] = None):
+        x2 = torch.cat([h, h_embed], dim=-1)
+        h = h + self.attn.decode(self.ln_attn(x2), cache_k, cache_v, pos,
+                                 rope)
+        return self._mlp(h, h_embed)
+
+
 class SSMLayer(nn.Module):
     """One Mamba2 layer: ``_ssm_layer_fwd``, h + ssm(rmsnorm(h))."""
 
@@ -139,8 +196,10 @@ class SSMLayer(nn.Module):
 
 
 class TransformerLM(nn.Module):
-    """The LM's weights (f32 masters), one module per layer (``Block``s
-    for the dense family, ``SSMLayer``s for ssm).  Built empty;
+    """The LM's weights (f32 masters), one module per layer: ``Block``s
+    (dense) or ``SSMLayer``s (ssm) in ``layers``; for the hybrid family
+    ``groups`` (n_groups lists of ``SSMLayer``s), ``shared``
+    (``SharedBlock``s) and ``tail`` (``SSMLayer``s).  Built empty;
     ``Model.init_params`` or ``params.lm_from_params`` fill it through
     ``load_``."""
 
@@ -149,9 +208,21 @@ class TransformerLM(nn.Module):
         check_family(cfg)
         self.cfg = cfg
         self.embed = Embedding(cfg.vocab_size, cfg.d_model, device)
-        layer = SSMLayer if cfg.family == "ssm" else Block
-        self.layers = nn.ModuleList(layer(cfg, device)
-                                    for _ in range(cfg.n_layers))
+
+        def ssm_layers(n):
+            return nn.ModuleList(SSMLayer(cfg, device) for _ in range(n))
+        if cfg.family == "hybrid":
+            h = cfg.hybrid
+            self.groups = nn.ModuleList(ssm_layers(h.ssm_per_group)
+                                        for _ in range(h.n_groups))
+            self.shared = nn.ModuleList(SharedBlock(cfg, device)
+                                        for _ in range(h.n_shared_blocks))
+            self.tail = ssm_layers(h.tail_ssm)
+        elif cfg.family == "ssm":
+            self.layers = ssm_layers(cfg.n_layers)
+        else:
+            self.layers = nn.ModuleList(Block(cfg, device)
+                                        for _ in range(cfg.n_layers))
         self.ln_final = RMSNorm(cfg.d_model, cfg.norm_eps, device)
         self.lm_head = None if cfg.tie_embeddings else Linear(
             cfg.d_model, cfg.vocab_size, False, device)
@@ -160,24 +231,39 @@ class TransformerLM(nn.Module):
     def device(self) -> torch.device:
         return self.embed.table.device
 
+    def _stacks(self) -> Dict[str, tuple]:
+        """Each stacked path prefix -> (the stacked axes, the modules in
+        the order of the stack, flattened)."""
+        if self.cfg.family != "hybrid":
+            return {"layers": ((len(self.layers),), list(self.layers))}
+        return {"groups/ssm_layers": (
+                    (len(self.groups), len(self.groups[0])),
+                    [layer for group in self.groups for layer in group]),
+                "shared": ((len(self.shared),), list(self.shared)),
+                "tail": ((len(self.tail),), list(self.tail))}
+
     @torch.no_grad()
     def load_(self, path: str, value: torch.Tensor) -> None:
-        """Copy the parameter at reference path ``path`` ("layers/..."
-        stacked over the layers) from ``value``; a layer weight's copy in
-        the activation dtype is made here, once."""
-        head, _, rest = path.partition("/")
-        if head == "layers":
-            if value.shape[0] != len(self.layers):
-                raise ValueError(f"{path}: {value.shape[0]} layers, model "
-                                 f"has {len(self.layers)}")
+        """Copy the parameter at reference path ``path`` (a stacked path,
+        "layers/...", or for the hybrid family "groups/ssm_layers/...",
+        "shared/..." and "tail/...") from ``value``; a layer weight's
+        copy in the activation dtype is made here, once."""
+        for prefix, (lead, modules) in self._stacks().items():
+            if not path.startswith(prefix + "/"):
+                continue
+            if tuple(value.shape[:len(lead)]) != lead:
+                raise ValueError(f"{path}: stacked {tuple(value.shape)}, "
+                                 f"model has {lead} layers")
+            rest = path[len(prefix) + 1:]
             owner, _, name = rest.replace("/", ".").rpartition(".")
-            for layer, v in zip(self.layers, value):
+            flat = value.reshape((-1,) + tuple(value.shape[len(lead):]))
+            for layer, v in zip(modules, flat):
                 module = layer.get_submodule(owner)
                 getattr(module, name).copy_(v)
                 if isinstance(module, CastWeights):
                     module.keep_cast(name, dtype_of(self.cfg))
-        else:
-            self.get_parameter(path.replace("/", ".")).copy_(value)
+            return
+        self.get_parameter(path.replace("/", ".")).copy_(value)
 
     def logits(self, h: torch.Tensor) -> torch.Tensor:
         """Final norm and the head, logits in f32."""
@@ -187,13 +273,38 @@ class TransformerLM(nn.Module):
         return torch.matmul(h.float(), self.lm_head.w)
 
 
+def _states(cfg: ModelConfig, lead: Tuple[int, ...], batch: int,
+            device) -> Dict[str, torch.Tensor]:
+    """``init_ssm_state`` stacked on the ``lead`` axes, zeros."""
+    st = init_ssm_state(cfg, batch, dtype_of(cfg), device)
+    return {k: torch.zeros(lead + tuple(v.shape), dtype=v.dtype,
+                           device=device) for k, v in st.items()}
+
+
 def _ssm_cache(cfg: ModelConfig, batch: int, device) -> Cache:
     """The ssm family's zero cache: every layer's ``init_ssm_state``
     stacked, as the reference's ``make_cache``."""
-    st = init_ssm_state(cfg, batch, dtype_of(cfg), device)
-    return {"layers": {k: torch.zeros((cfg.n_layers,) + tuple(v.shape),
-                                      dtype=v.dtype, device=device)
-                       for k, v in st.items()}}
+    return {"layers": _states(cfg, (cfg.n_layers,), batch, device)}
+
+
+def _hybrid_cache(cfg: ModelConfig, batch: int, max_len: int,
+                  device) -> Cache:
+    """The hybrid family's zero cache, as the reference's
+    ``make_cache``: the groups' and the tail's SSM states and one K/V
+    pair of ``max_len`` positions a shared-block site."""
+    h = cfg.hybrid
+    shape = kv_cache_shape(cfg, h.n_groups, batch, max_len)
+    dtype = dtype_of(cfg)
+    return {"groups": _states(cfg, (h.n_groups, h.ssm_per_group), batch,
+                              device),
+            "shared_kv": (torch.zeros(shape, dtype=dtype, device=device),
+                          torch.zeros(shape, dtype=dtype, device=device)),
+            "tail": _states(cfg, (h.tail_ssm,), batch, device)}
+
+
+def _put_state(stack: Dict[str, torch.Tensor], idx, state) -> None:
+    for k, v in state.items():
+        stack[k][idx] = v
 
 
 def lm_forward(model: TransformerLM, tokens: torch.Tensor, *,
@@ -208,25 +319,46 @@ def lm_forward(model: TransformerLM, tokens: torch.Tensor, *,
     positions; ``cache_len`` (>= S) allocates it that long at once,
     zeros past S, which is ``pad_cache`` without the copy.  For the ssm
     family the cache is every layer's decode state after the S tokens
-    (it has no length: ``cache_len`` is not read)."""
+    (it has no length: ``cache_len`` is not read); for the hybrid family
+    the groups' and the tail's states and each shared-block site's K/V."""
     cfg = model.cfg
     dtype = dtype_of(cfg)
     B, S = tokens.shape
     h = model.embed.embed(tokens, dtype)
     cache: Optional[Cache] = None
+    if return_cache and cfg.family != "ssm":
+        n = S if cache_len is None else cache_len
+        if n < S:
+            raise ValueError(f"cache_len {n} < sequence length {S}")
     if cfg.family == "ssm":
         if return_cache:
             cache = _ssm_cache(cfg, B, h.device)
         for i, layer in enumerate(model.layers):
             h, st = layer(h, return_state=return_cache)
             if cache is not None:
-                for k, v in st.items():
-                    cache["layers"][k][i] = v
+                _put_state(cache["layers"], i, st)
+    elif cfg.family == "hybrid":
+        if return_cache:
+            cache = _hybrid_cache(cfg, B, n, h.device)
+            ck, cv = cache["shared_kv"]
+        h_embed = h
+        shared = model.shared
+        rope = shared[0].attn.rope(torch.arange(S, device=h.device))
+        for gi, group in enumerate(model.groups):
+            for li, layer in enumerate(group):
+                h, st = layer(h, return_state=return_cache)
+                if cache is not None:
+                    _put_state(cache["groups"], (gi, li), st)
+            h, (k, v) = shared[gi % len(shared)](h, h_embed, rope)
+            if cache is not None:
+                ck[gi, :, :S] = k
+                cv[gi, :, :S] = v
+        for i, layer in enumerate(model.tail):
+            h, st = layer(h, return_state=return_cache)
+            if cache is not None:
+                _put_state(cache["tail"], i, st)
     else:
         if return_cache:
-            n = S if cache_len is None else cache_len
-            if n < S:
-                raise ValueError(f"cache_len {n} < sequence length {S}")
             shape = kv_cache_shape(cfg, cfg.n_layers, B, n)
             ck = torch.zeros(shape, dtype=dtype, device=h.device)
             cv = torch.zeros(shape, dtype=dtype, device=h.device)
@@ -258,6 +390,8 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int,
     'init'); the ssm family's states have no length."""
     if not cache_has_length(cfg):
         return _ssm_cache(cfg, batch, device)
+    if cfg.family == "hybrid":
+        return _hybrid_cache(cfg, batch, max_len, device)
     shape = kv_cache_shape(cfg, cfg.n_layers, batch, max_len)
     dtype = dtype_of(cfg)
     return {"layers": (torch.zeros(shape, dtype=dtype, device=device),
@@ -270,25 +404,41 @@ def pad_cache(cfg: ModelConfig, cache: Cache, max_len: int) -> Cache:
     length-free: left alone."""
     if not cache_has_length(cfg):
         return dict(cache)
-    k, v = cache["layers"]
+    key = "shared_kv" if cfg.family == "hybrid" else "layers"
+    k, v = cache[key]
     extra = max_len - k.shape[2]
     if extra <= 0:
         return dict(cache)
     pad = (0, 0, 0, 0, 0, extra)          # last three axes: D, Hkv, S
-    return {**cache, "layers": (torch.nn.functional.pad(k, pad),
-                                torch.nn.functional.pad(v, pad))}
+    return {**cache, key: (torch.nn.functional.pad(k, pad),
+                           torch.nn.functional.pad(v, pad))}
 
 
 def lm_decode(model: TransformerLM, token: torch.Tensor, pos: torch.Tensor,
               cache: Cache):
     """token: (B, 1); pos: (B,) int32, the valid cache length per row
-    (the new token goes at index pos; the ssm family does not read it).
+    (the new token goes at index pos; the ssm family does not read it;
+    the hybrid family's shared blocks do, at every site).
     -> (logits (B, 1, V) f32, cache), the cache updated in place."""
     h = model.embed.embed(token, dtype_of(model.cfg))
     if model.cfg.family == "ssm":
         states = cache["layers"]
         for i, layer in enumerate(model.layers):
             h = layer.decode(h, {k: v[i] for k, v in states.items()})
+        return model.logits(h), cache
+    if model.cfg.family == "hybrid":
+        h_embed = h
+        shared = model.shared
+        ck, cv = cache["shared_kv"]
+        rope = shared[0].attn.rope(pos[:, None])
+        for gi, group in enumerate(model.groups):
+            for li, layer in enumerate(group):
+                h = layer.decode(h, {k: v[gi, li]
+                                     for k, v in cache["groups"].items()})
+            h = shared[gi % len(shared)].decode(h, h_embed, ck[gi], cv[gi],
+                                                pos, rope)
+        for i, layer in enumerate(model.tail):
+            h = layer.decode(h, {k: v[i] for k, v in cache["tail"].items()})
         return model.logits(h), cache
     ck, cv = cache["layers"]
     rope = model.layers[0].attn.rope(pos[:, None])

@@ -20,9 +20,9 @@ HWIO), so a bank the port trains loads into either package.  Both
 directions are copies: a round trip is bit for bit.
 
 ``lm_from_params`` does the same for the language model: it carries the
-reference's ``Model.init_params`` tree (layers stacked; the dense or the
-ssm family, through the family's ``param_specs``) over into the port's
-``TransformerLM``, whose own init is ``Model.init_params(seed)``.
+reference's ``Model.init_params`` tree (layers stacked; the dense, ssm
+or hybrid family, through the family's ``param_specs``) over into the
+port's ``TransformerLM``, whose own init is ``Model.init_params(seed)``.
 """
 from __future__ import annotations
 
@@ -174,8 +174,10 @@ def _leaf_paths(tree: Mapping, prefix: str = ""):
 def lm_from_params(cfg: ModelConfig, tree: Mapping,
                    device: Device = "cuda") -> TransformerLM:
     """The reference's ``Model.init_params`` tree (any leaves
-    ``np.asarray`` accepts; layer parameters stacked on a leading
-    ``(n_layers,)`` axis) -> the port's ``TransformerLM`` on ``device``.
+    ``np.asarray`` accepts; layer parameters stacked on leading axes:
+    ``(n_layers,)``, or for the hybrid family ``(n_groups,
+    ssm_per_group)`` under ``groups/ssm_layers`` and one axis under
+    ``shared`` and ``tail``) -> the port's ``TransformerLM`` on ``device``.
     Every parameter's shape is checked against the port's specs, and a
     leaf the specs do not know raises."""
     dev = resolve_device(device)

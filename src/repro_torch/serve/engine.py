@@ -4,9 +4,10 @@ decode (the port's counterpart of the JAX package's ``serve/engine.py``).
 As in the reference, this serves the auxiliary language models, not the
 video pipeline.  Prompts are right-padded to a common length L; per-row
 true lengths drive (a) the first token, taken from each row's last REAL
-position, and (b) for the dense family the ``kv_len = pos + 1`` masking
-of every decode step, so padding never leaks into attention (causal
-prefill never reads it, and decode overwrites it before reading).
+position, and (b) for the dense and hybrid families the ``kv_len = pos +
+1`` masking of every decode step, so padding never leaks into attention
+(causal prefill never reads it, and decode overwrites it before
+reading).
 ``max_new_tokens`` decode steps follow, each appending the token sampled
 by the one before.
 
@@ -15,7 +16,9 @@ than L runs its SSM state and conv tail over the padding too (the state
 ABSORBS the right padding, ``repro/serve/engine.py``'s documented
 limitation), so only the longest rows are served as they would be
 alone; decode does not read ``pos``, and its state has no length, so
-``max_len`` does not bound it.
+``max_len`` does not bound it.  The hybrid family (Zamba2) has both: its
+SSM layers absorb the padding as the ssm family's, its shared attention
+blocks mask by ``kv_len`` and keep a KV cache that ``max_len`` bounds.
 
 Differences from the reference, all deliberate:
   * for a KV cache, ``max(lens) + max_new_tokens > max_len`` raises
@@ -23,10 +26,10 @@ Differences from the reference, all deliberate:
     write silently), as do an empty prompt and a token id outside the
     vocabulary (JAX clamps the gather; on the card it would be a
     device-side fault);
-  * for the ssm family, a batch whose longest prompt is shorter than
-    d_conv - 1 tokens raises ValueError naming that limit (the
-    reference's conv tail is then shorter than its cache, and its first
-    decode step fails on the shape);
+  * for the ssm and hybrid families, a batch whose longest prompt is
+    shorter than d_conv - 1 tokens raises ValueError naming that limit
+    (the reference's conv tail is then shorter than its cache, and its
+    first decode step fails on the shape);
   * the prefill writes its cache at ``max_len`` at once (the reference
     pads it after) and computes logits only at each row's last real
     position (the same numbers);

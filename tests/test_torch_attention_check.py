@@ -89,11 +89,18 @@ def test_bf16_near_zero_takes_the_absolute_bound(want_v, got_v, ok):
 
 def test_flash_cases_cover_the_kernel_contract():
     cases = flash_check.CASES
-    assert len(cases) == 8
+    assert len(cases) == 12
     assert {c[1] for c in cases} == {torch.float32, torch.bfloat16}
     # the prefill's call, a ragged edge, queries at the end of the keys,
     # kv_valid masking, non-causal, rows with no key
-    assert ("S500 causal", torch.bfloat16, 500, 500, True, 0) in cases
+    qwen2 = (flash_check.HQ, flash_check.HKV, flash_check.D)
+    assert ("S500 causal", torch.bfloat16, 500, 500, True, 0, qwen2) \
+        in cases
+    # zamba2-7b's head dim 112 at its prefill (S 500, ragged) in both
+    # dtypes
+    for dt in (torch.float32, torch.bfloat16):
+        assert ("D112 S500 causal", dt, 500, 500, True, 0,
+                flash_check.HYBRID_HEADS) in cases
     assert any(c[2] < c[3] and c[4] for c in cases)
     assert any(c[5] for c in cases) and any(not c[4] for c in cases)
     assert any(c[2] > c[3] and c[4] for c in cases)

@@ -11,9 +11,12 @@ JAX:
 
 The shapes, operands and tolerances are the kernels' ``check`` modules'
 (``repro_torch.kernels.<name>.check``), the same ``chip_smoke.py`` holds
-the kernels to: ``ssd_scan``'s f32 y and final state within 1e-4 of max
-|plain|, bf16 y within 2 bf16 ulps of the plain version's f32 result on
-the same (bf16-valued) inputs, f32 at a ragged S with no padding copy,
+the kernels to, at every instance the configs serve (the attention
+kernels at head dims 64 and 112, the scan at (P, N) = (64, 128) and (64,
+64)), with refusals of unbuilt ones: ``ssd_scan``'s f32 y and final
+state within 1e-4 of max |plain|, bf16 y within 2 bf16 ulps of the
+plain version's f32 result on the same (bf16-valued) inputs, f32 at a
+ragged S with no padding copy,
 and each dtype on its own kernel (both on tensor cores, f32 as 3xTF32,
 read from the profiler's trace); the attention kernels' f32 within
 1e-5, bf16 one bf16 ulp apart (the f32 bound near zero), flash

@@ -130,9 +130,10 @@ def test_registry_holds_qwen2_as_the_reference_does():
     cfg = pt_base.get_config("qwen2-0.5b")
     assert dataclasses.asdict(cfg) == \
         dataclasses.asdict(jx_get("qwen2-0.5b"))
-    assert pt_base.list_archs() == ["mamba2-370m", "qwen2-0.5b"]
+    assert pt_base.list_archs() == ["mamba2-370m", "qwen2-0.5b",
+                                    "stablelm-1.6b", "zamba2-7b"]
     with pytest.raises(KeyError):
-        pt_base.get_config("zamba2-7b")
+        pt_base.get_config("pixtral-12b")
     with pytest.raises(ValueError):
         dataclasses.replace(cfg, n_kv_heads=3)
 
@@ -154,7 +155,6 @@ def test_param_specs_are_the_reference_tree(reduced):
 
 
 @pytest.mark.parametrize("arch,family", [
-    ("zamba2-7b", "hybrid"),
     ("deepseek-moe-16b", "moe"), ("pixtral-12b", "vlm"),
     ("whisper-small", "encdec")])
 def test_other_families_raise_naming_the_roadmap(arch, family):
@@ -162,6 +162,53 @@ def test_other_families_raise_naming_the_roadmap(arch, family):
     assert cfg.family == family
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         build_model(cfg)
+
+
+# ---------------------------------------------------------------------------
+# stablelm-1.6b: MHA (32 of 32 heads), QKV bias, an untied head
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def stablelm_pair():
+    """``pair`` for ``stablelm-1.6b`` reduced at float32: (reference
+    model, its init_params(0) tree as numpy, port model, weights)."""
+    jc = dataclasses.replace(jx_get("stablelm-1.6b").reduced(),
+                             dtype="float32")
+    jm = jx_build(jc)
+    tree = jax.tree.map(np.asarray, jm.init_params(0))
+    pc = port_cfg(jc)
+    return jm, tree, build_model(pc), lm_from_params(pc, tree, device="cpu")
+
+
+def test_registry_holds_stablelm_as_the_reference_does():
+    cfg = pt_base.get_config("stablelm-1.6b")
+    assert dataclasses.asdict(cfg) == \
+        dataclasses.asdict(jx_get("stablelm-1.6b"))
+    assert cfg.param_count() == 1_644_414_976
+    assert (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.qkv_bias,
+            cfg.tie_embeddings) == (32, 32, 64, True, False)
+    model = build_model(cfg)
+    assert model.param_count() == 1_644_414_976
+
+
+def test_stablelm_lm_forward_logits_and_cache_float32():
+    jm, tree, pm, params = stablelm_pair()
+    assert params.lm_head is not None
+    toks = np.random.default_rng(40).integers(0, 256, (2, 37))
+    wl, _, wc = jm.forward(tree, {"tokens": jnp.asarray(toks, jnp.int32)},
+                           return_cache=True)
+    gl, _, gc = pm.forward(params, {"tokens": toks}, return_cache=True)
+    assert_close(gl, wl, "float32")
+    for got, want in zip(gc["layers"], wc["layers"]):
+        assert_close(got, want, "float32")
+
+
+def test_stablelm_generate_greedy_matches_reference_float32():
+    jm, tree, pm, params = stablelm_pair()
+    ps = _prompts("long", 256)
+    want = JxServe(jm, tree, max_len=48).generate(ps, max_new_tokens=8)
+    got = ServeEngine(pm, params, max_len=48).generate(ps, max_new_tokens=8)
+    assert got == want
 
 
 # ---------------------------------------------------------------------------
