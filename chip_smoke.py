@@ -85,7 +85,18 @@ each stream without one held to the same decisions and boxes within
 streams (bit for bit; ``track_step`` launches equal the broker's
 dispatches), and ``run_clips`` over the three clips on fresh frames with
 the shared ``DecodePool`` at ``decode_workers`` 1 and 3 (bit for bit).
-After live ingest (``run_live``), training and tuning (``run_tuning``):
+Then the executor's instrumentation (``run_traced``): cached clip 0 at 64
+frames with the tracer off, on and off, host and device TRACK (tracks,
+dispatches and launches bit for bit; one ``run`` span and its
+``stage.*`` children; the registry's dispatch counters), an induced
+drain failure's ``executor.drain`` crash dump, and 4 traced streams
+through one ``BatchBroker`` on one chunk clock (an exact flush and
+dispatch window ledger, a Chrome export with one lane a stream, each
+stream held to its solo run as the fleet holds them).  After live
+ingest (``run_live``), the SLO engine's stock rules, the health report
+and the Prometheus text over the registry it filled (``read_obs``: the
+append rule's p95 equals the appends' own, every queue depth reads 0,
+every sample line parses), then training and tuning (``run_tuning``):
 the three trainers' steps on the card against the CPU
 (``core.train_check``), ``tuner.setup`` at full width (both detector
 archs, all 8 detector and 5 proxy resolutions, the full tracker) on
@@ -107,6 +118,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -177,7 +189,12 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     check as flash_check)
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref  # noqa: E402
-from repro_torch.obs import REGISTRY, interp_quantile  # noqa: E402
+from repro_torch import obs  # noqa: E402
+from repro_torch.obs import REGISTRY, TRACER, interp_quantile  # noqa: E402
+from repro_torch.obs import recorder as obs_recorder  # noqa: E402
+from repro_torch.obs.serve import (default_components,  # noqa: E402
+                                   health_report, render_prometheus)
+from repro_torch.obs.slo import SloEngine, default_rules  # noqa: E402
 from repro_torch.query import (PackedTracks, Query,  # noqa: E402
                                QueryService, TimeRange, TrackStore,
                                compile_query)
@@ -1473,7 +1490,9 @@ def run_fleet(bank, params) -> dict:
     Launch counts
     are set to 0 just before each run and read just after every thread
     joined.
-    -> the launches of each path."""
+    -> (the launches of each path, the oracle ``run_traced`` holds its
+    brokered streams to: the clips, the solo runs and their ``ScoreLog``,
+    the drift bound and whether it read 0.0)."""
     t_phase = time.perf_counter()
     smi = nvidia_smi()
     conf = params.det_conf
@@ -1701,7 +1720,335 @@ def run_fleet(bank, params) -> dict:
             f"the clips; stage sums {stage_sums(res)}; tracks equal the "
             f"per-clip runs' bit for bit; launches {launches}; card {smi}")
     log(f"fleet phase: {time.perf_counter() - t_phase:.1f} s wall")
-    return fleet_launches
+    return fleet_launches, dict(clips=clips, solo=solo, solo_log=solo_log,
+                                bound=bound, exact=exact)
+
+
+# ---------------------------------------------------------------------------
+# Observability: the executor's spans, mirrors and crash dump on the card
+# ---------------------------------------------------------------------------
+
+TRACED_FRAMES = 64              # main-path clip of the traced runs
+TRACED_STREAMS = 4              # BatchBroker streams of the traced fleet
+TRACED_FAIL_CHUNK = 2           # the induced drain failure's chunk
+# one Prometheus sample: name, optional labels, a value float() reads
+PROM_SAMPLE = re.compile(
+    r'^[a-zA-Z_:][a-zA-Z0-9_:]*'
+    r'(\{[a-zA-Z_][a-zA-Z0-9_]*="(?:[^"\\]|\\.)*"'
+    r'(,[a-zA-Z_][a-zA-Z0-9_]*="(?:[^"\\]|\\.)*")*\})? (\S+)$')
+
+
+def traced_runs(run, label: str) -> list:
+    """``run`` tracer off, on, off, each counted; -> [(result, launches,
+    wall, spans)] in that order.  The tracer is off again after, and
+    the three runs must give the same tracks bit for bit, dispatches
+    and launches."""
+    out = []
+    for traced in (False, True, False):
+        TRACER.clear()
+        if traced:
+            obs.enable()
+        try:
+            res, launches, wall = counted(run)
+            spans = TRACER.snapshot()
+        finally:
+            obs.disable()
+            TRACER.clear()
+        out.append((res, launches, wall, spans))
+    ref = out[0]
+    for res, launches, _, spans in out:
+        if not same_tracks(res, ref[0]):
+            raise AssertionError(f"{label}: tracks with the tracer on "
+                                 "differ from tracer off")
+        if res.dispatches != ref[0].dispatches or launches != ref[1]:
+            raise AssertionError(f"{label}: dispatches {res.dispatches} / "
+                                 f"launches {launches} against "
+                                 f"{ref[0].dispatches} / {ref[1]}")
+    if out[0][3] or out[2][3] or not out[1][3]:
+        raise AssertionError(f"{label}: spans recorded with the tracer "
+                             "off, or none with it on")
+    return out
+
+
+def run_spans(spans, stream: str, label: str) -> tuple:
+    """One traced run's spans: exactly one ``run`` span of ``stream`` and
+    ``stage.*`` children parented to it with its stream and durations
+    >= 0; -> (the run span, the stage spans)."""
+    roots = [sp for sp in spans if sp.name == "run"]
+    if len(roots) != 1 or roots[0].stream != stream or roots[0].dur < 0:
+        raise AssertionError(f"{label}: run spans "
+                             f"{[(sp.stream, sp.dur) for sp in roots]}")
+    stages = [sp for sp in spans if sp.name.startswith("stage.")]
+    if not stages or any(sp.parent != roots[0].sid or sp.stream != stream
+                         or sp.dur < 0 or sp.proc < 0 for sp in stages):
+        raise AssertionError(f"{label}: stage spans not under the run")
+    return roots[0], stages
+
+
+def run_traced(bank, params, oracle) -> dict:
+    """The executor's instrumentation at full width, at the video cell's
+    θ, after the fleet (its threads end every profiler trace worth
+    reading) and before live ingest:
+
+    1. caldot1 test clip 0 at ``TRACED_FRAMES`` frames (frames cached),
+       host tracker, tracer off / on / off: the same tracks bit for bit,
+       dispatches and launches; one ``run`` span and its ``stage.*``
+       children with the run's stream; the registry's
+       ``executor.dispatch.{proxy,detect}`` grow by the run's dispatches
+       and ``detector.dispatches`` by at least the detect count;
+    2. the same with ``device_tracker`` (``track_step`` launches equal);
+    3. a drain that fails (a ``stages=`` proxy raising on chunk
+       ``TRACED_FAIL_CHUNK``) with a ``FlightRecorder`` installed: the
+       run raises, and the dump's reasons hold ``executor.drain`` and
+       its extra the run's stream;
+    4. ``TRACED_STREAMS`` streams of the fleet's 16-frame clips on one
+       ``BatchBroker`` and one chunk clock, tracer on: the Chrome export
+       loads with ``json.load``, one lane a stream plus ``(shared)``,
+       sorted non-negative timestamps; each flush's dispatch windows sum
+       to its windows and over the run to every window submitted; the
+       registry's ``broker.detect.dispatches`` grows by the broker's
+       dispatches; every stream held to its solo run as the fleet holds
+       them (``held_to``, flips counted).
+
+    fps with the tracer on and off and the span counts are printed, not
+    held.  -> the launches of each path."""
+    t_phase = time.perf_counter()
+    smi = nvidia_smi()
+    clip = make_clip("caldot1", "test", SEED, n_frames=TRACED_FRAMES)
+    stream = f"caldot1/test{SEED}"
+    launches = {}
+    counted(lambda: ClipExecutor(bank, params).run(clip))   # cache frames
+
+    # 1-2: the main path, host and device TRACK
+    for label, opts in (("host", ExecutorOptions()),
+                        ("device_tracker",
+                         ExecutorOptions(device_tracker=True))):
+        before = REGISTRY.snapshot()
+        runs = traced_runs(lambda: ClipExecutor(bank, params, opts).run(
+            clip), f"traced {label}")
+        after = REGISTRY.snapshot()
+        res, n, _, spans = runs[1]
+        check_result(res, TRACED_FRAMES)
+        root, stages = run_spans(spans, stream, f"traced {label}")
+        for k in ("proxy", "detect"):
+            grew = after[f"executor.dispatch.{k}"] - before.get(
+                f"executor.dispatch.{k}", 0)
+            if grew != 3 * res.dispatches[k]:
+                raise AssertionError(f"traced {label}: "
+                                     f"executor.dispatch.{k} grew {grew} "
+                                     f"over three runs of "
+                                     f"{res.dispatches[k]}")
+        det_grew = after["detector.dispatches"] - before.get(
+            "detector.dispatches", 0)
+        if det_grew < 3 * res.dispatches["detect"]:
+            raise AssertionError(f"traced {label}: detector.dispatches "
+                                 f"grew {det_grew}")
+        on_path = ["proxy_plan", "window_gather_batch"] + (
+            ["track_step"] if opts.device_tracker else [])
+        for name in on_path:
+            if n[name] <= 0:
+                raise AssertionError(f"{name} was not launched by the "
+                                     f"traced {label} run")
+        launches[f"traced_{label}"] = n
+        fps = [TRACED_FRAMES / r[2] for r in runs]
+        log(f"traced {label} (clip {clip.clip_id}, {TRACED_FRAMES} frames "
+            f"cached): fps tracer off {fps[0]:.2f}, on {fps[1]:.2f}, off "
+            f"{fps[2]:.2f}; tracks ({len(res.tracks)}), dispatches "
+            f"{res.dispatches} and launches {n} equal in all three; "
+            f"{len(spans)} spans (run {root.args}, "
+            f"{len(stages)} stage spans, stage span ms summed "
+            f"{ {st: round(sum(sp.dur for sp in stages if sp.name == st) / 1e6, 3) for st in sorted({sp.name for sp in stages})} }); "
+            f"registry: executor.dispatch.* and detector.dispatches "
+            f"grew by the runs' dispatches ({det_grew} detector calls); "
+            f"card {smi}")
+
+    # 3: a drain that fails, with the black box installed
+    def failing_proxy(ctx, task):
+        if task.index == TRACED_FAIL_CHUNK:
+            raise RuntimeError(f"induced failure on chunk {task.index}")
+        return stage_proxy(ctx, task)
+
+    with tempfile.TemporaryDirectory() as box:
+        rec = obs_recorder.install(obs_recorder.FlightRecorder(box))
+        TRACER.clear()
+        obs.enable()
+        try:
+            try:
+                ClipExecutor(bank, params,
+                             stages={"proxy": failing_proxy}).run(clip)
+            except RuntimeError as exc:
+                if "induced failure" not in str(exc):
+                    raise
+            else:
+                raise AssertionError("the induced drain failure did not "
+                                     "raise")
+            dumps = rec.dumps()
+        finally:
+            obs_recorder.uninstall()
+            obs.disable()
+            TRACER.clear()
+        if len(dumps) != 1:
+            raise AssertionError(f"{len(dumps)} crash dumps")
+        with open(dumps[0]) as f:
+            doc = json.load(f)
+    reasons = doc.get("reasons", [doc["reason"]])
+    if "executor.drain" not in reasons or doc["extra"]["stream"] != stream:
+        raise AssertionError(f"crash dump: reasons {reasons}, extra "
+                             f"{doc['extra']}")
+    log(f"traced drain failure (proxy raising on chunk "
+        f"{TRACED_FAIL_CHUNK}): the run raised; one crash dump, reasons "
+        f"{reasons}, extra {doc['extra']}, error {doc['error']['type']}: "
+        f"{doc['error']['message']!r}, lineage "
+        f"{[(sp['name'], sp.get('chunk')) for sp in doc['lineage']]}")
+
+    # 4: a traced BatchBroker fleet on one chunk clock
+    clips, solo, solo_log = oracle["clips"], oracle["solo"], \
+        oracle["solo_log"]
+    n = TRACED_STREAMS
+    broker = BatchBroker()
+    meet = threading.Barrier(n)
+    score_log = ScoreLog()
+    disp0 = REGISTRY.counter("broker.detect.dispatches").value
+
+    def one(i):
+        score_log.tl.stream = i
+        try:
+            return ClipExecutor(bank, params, ExecutorOptions(
+                batch_broker=broker), stages=on_clock(meet)).run(
+                    clips[i % len(clips)])
+        except BaseException:
+            meet.abort()
+            raise
+
+    TRACER.clear()
+    obs.enable()
+    try:
+        with score_log.recording():
+            res, n_fleet, wall = counted(lambda: run_threads(
+                [lambda i=i: one(i) for i in range(n)]))
+        broker.close()
+        spans = TRACER.snapshot()
+        with tempfile.TemporaryDirectory() as out:
+            path = Path(out) / "trace.json"
+            n_events = TRACER.export_chrome(str(path))
+            with open(path) as f:
+                events = json.load(f)
+    finally:
+        obs.disable()
+        TRACER.clear()
+    xs = [e for e in events if e["ph"] == "X"]
+    lanes = {e["args"]["name"] for e in events if e["ph"] == "M"}
+    streams = {f"caldot1/test{clips[i % len(clips)].clip_id}"
+               for i in range(n)}
+    if len(xs) != n_events or lanes != streams | {"(shared)"}:
+        raise AssertionError(f"chrome export: {len(xs)} events of "
+                             f"{n_events}, lanes {sorted(lanes)}")
+    ts = [e["ts"] for e in xs]
+    if ts != sorted(ts) or min(ts) < 0 or min(e["dur"] for e in xs) < 0:
+        raise AssertionError("chrome export: timestamps not sorted and "
+                             "non-negative")
+    flushes = {sp.sid: sp for sp in spans
+               if sp.name == "broker.detect.flush"}
+    disp = [sp for sp in spans if sp.name == "broker.detect.dispatch"]
+    per: Dict[int, int] = {}
+    for sp in disp:
+        if sp.parent not in flushes:
+            raise AssertionError("a dispatch span outside every flush")
+        per[sp.parent] = per.get(sp.parent, 0) + sp.args["windows"]
+    if per != {sid: f.args["windows"] for sid, f in flushes.items()}:
+        raise AssertionError("a flush's dispatch windows do not sum to "
+                             "its windows")
+    submitted = sum(r.detector_windows for r in res)
+    if not (len(disp) == broker.dispatches
+            and sum(per.values()) == broker.windows_in == submitted):
+        raise AssertionError(f"flush ledger: {len(disp)} dispatch spans, "
+                             f"{broker.dispatches} dispatches, windows "
+                             f"{sum(per.values())} / {broker.windows_in} "
+                             f"/ {submitted}")
+    grew = REGISTRY.counter("broker.detect.dispatches").value - disp0
+    if grew != broker.dispatches:
+        raise AssertionError(f"broker.detect.dispatches grew {grew}, the "
+                             f"broker made {broker.dispatches}")
+    for name in ("proxy_plan", "window_gather_batch"):
+        if n_fleet[name] <= 0:
+            raise AssertionError(f"{name} was not launched by the traced "
+                                 "fleet")
+    launches["traced_batch_broker"] = n_fleet
+    conf, thr = params.det_conf, bank.cfg.tracker.match_threshold
+    rule = oracle["exact"]
+    flips = {}
+    for i, r in enumerate(res):
+        c = i % len(clips)
+        _, flip = held_to(r, solo[c], score_log, solo_log, (i, c), rule,
+                          oracle["bound"], conf, thr,
+                          f"traced BatchBroker, {n} streams, stream {i}")
+        if flip is not None:
+            flips[i] = flip[0]
+    run_roots = [sp for sp in spans if sp.name == "run"]
+    if len(run_roots) != n:
+        raise AssertionError(f"{len(run_roots)} run spans for {n} streams")
+    log(f"traced BatchBroker, {n} streams x {FLEET_FRAMES} frames (one "
+        f"chunk clock, cached frames): {n * FLEET_FRAMES / wall:.2f} fps "
+        f"aggregate; {len(spans)} spans, Chrome export {n_events} events "
+        f"in lanes {sorted(lanes)}; {len(flushes)} flushes, "
+        f"{len(disp)} dispatch spans = dispatches, windows per flush "
+        f"{sorted(per.values())} sum {sum(per.values())} = windows "
+        f"submitted {submitted}; broker.detect.dispatches grew {grew}; "
+        f"streams whose decisions flipped {len(flips)} of {n} {flips}, the "
+        f"rest hold their solo tracks "
+        + ("bit for bit" if rule else f"within rtol {BOX_RTOL} / atol "
+           f"{BOX_ATOL}") + f"; launches {n_fleet}; card {smi}")
+    log(f"traced phase: {time.perf_counter() - t_phase:.1f} s wall; card "
+        f"{smi}")
+    return launches
+
+
+def read_obs(append_walls: list) -> None:
+    """After the live phase: one tick of the stock SLO rules over the
+    registry it filled (the append rule's quantile must equal
+    ``interp_quantile`` of the appends' wall seconds), one health report
+    (the shared decode pool's and both brokers' queue depths read 0 once
+    every run has finished) and one Prometheus rendering (every sample
+    line parses)."""
+    t0 = time.perf_counter()
+    hist = REGISTRY.get("stream.append.wall_seconds")
+    if hist is None or hist.count != len(append_walls):
+        raise AssertionError(f"stream.append.wall_seconds holds "
+                             f"{None if hist is None else hist.count} "
+                             f"appends, the live phase made "
+                             f"{len(append_walls)}")
+    engine = SloEngine(default_rules())
+    fired = engine.tick()
+    verdicts = engine.report()["rules"]
+    want = interp_quantile(sorted(append_walls), 0.95)
+    got = verdicts["append_latency"].get("value")
+    if got != want:
+        raise AssertionError(f"append_latency p95 {got!r}, the appends' "
+                             f"{want!r}")
+    snap = REGISTRY.snapshot()
+    health = health_report(snap, default_components())
+    for comp in ("decode_pool", "broker_detect", "broker_track"):
+        v = health["components"][comp]["value"]
+        if v != 0.0:
+            raise AssertionError(f"{comp} reads {v!r} with every run "
+                                 "finished")
+    text = render_prometheus(snap)
+    samples = [ln for ln in text.splitlines() if not ln.startswith("#")]
+    for ln in samples:
+        m = PROM_SAMPLE.match(ln)
+        if m is None:
+            raise AssertionError(f"malformed exposition line {ln!r}")
+        float(m.group(3))
+    log(f"obs after live ingest: SLO verdicts "
+        f"{ {k: (v['state'], v['samples'], v.get('value')) for k, v in verdicts.items()} }"
+        f" (append_latency p95 {got!r} = interp_quantile of the "
+        f"{len(append_walls)} appends' wall seconds); edges fired "
+        f"{[(e.rule, e.severity) for e in fired]}; health "
+        f"{health['status']}: "
+        f"{ {k: (c['status'], c['value']) for k, c in health['components'].items()} }"
+        f"; Prometheus text {len(text)} bytes, {len(samples)} samples, "
+        f"every one parsed; {time.perf_counter() - t0:.3f} s; card "
+        f"{nvidia_smi()}")
 
 
 # ---------------------------------------------------------------------------
@@ -3687,9 +4034,22 @@ def main() -> int:
     # the fleet last: after its stream threads, the profiler's traces
     # held no device kernel for the rest of the process (twice), and
     # every phase before it reads the profiler
-    fleet = run_fleet(bank, params)
+    fleet, oracle = run_fleet(bank, params)
+    # the executor's spans, mirrors and crash dump: after the fleet (no
+    # profiler trace is read after it), held to the fleet's solo runs
+    traced = run_traced(bank, params, oracle)
     # live ingest after the fleet: it starts threads and reads no trace
-    live = run_live(bank, params)
+    append_walls: list = []
+
+    def publishing(fn):
+        def wrapper(ing, clip, report):
+            append_walls.append(report.wall_seconds)
+            return fn(ing, clip, report)
+        return wrapper
+    with wrapped(SegmentIngestor, "_publish", publishing):
+        live = run_live(bank, params)
+    # the SLO engine, health and exposition over what live ingest filled
+    read_obs(append_walls)
     # training and tuning last: a bank of its own, trained on the card
     tuning = run_tuning(untrained)
     for k in kernels:
@@ -3698,6 +4058,8 @@ def main() -> int:
                                    for path, n in fleet.items()}
             k["launches_live"] = {path: n[k["name"]]
                                   for path, n in live.items()}
+            k["launches_traced"] = {path: n[k["name"]]
+                                    for path, n in traced.items()}
             if not sum(k["launches_live"].values()):
                 raise AssertionError(f"{k['name']} was not launched by "
                                      "the live phase")

@@ -288,8 +288,11 @@ class Detector:
             net = init_detector(arch, seed)
         self.net = net.to(self.device).eval()
         # dispatch counter: one per detect_batch call (bench and
-        # RunResult bookkeeping, as the reference's)
+        # RunResult bookkeeping, as the reference's).  Kept a plain
+        # per-instance int; each increment also folds into the registry.
         self.dispatches = 0
+        from repro_torch.obs.metrics import REGISTRY
+        self._m_dispatches = REGISTRY.counter("detector.dispatches")
 
     def detect_batch(self, frames, conf: float,
                      origins: Optional[Sequence] = None,
@@ -302,6 +305,7 @@ class Detector:
         decode_detections); default full frame.  n_valid: decode only the
         first n_valid rows (the rest are bucket padding)."""
         self.dispatches += 1
+        self._m_dispatches.inc()
         with torch.inference_mode():
             scores_t, boxes_t = detect_scores(
                 self.net, to_device(frames, self.device))

@@ -60,10 +60,29 @@ to the stream's carried tracker; ``repro_torch.stream.ingest``'s
 run collects each frame's proxy positive-cell fraction into
 ``RunResult.proxy_fracs``, the ingestor's ``DriftMonitor`` input.
 
+Observability (``repro_torch.obs``), as the reference's: with the
+tracer on, each run emits one ``run`` span (opened with its frames and
+chunk, closed with its windows and skipped frames) and a
+``stage.{name}`` span per chunk and stage, parented to the run by its
+id (decode runs on worker threads); each broker flush emits a
+``broker.{detect,track}.flush`` span with a ``…dispatch`` child per
+dispatched group.  Always on: the brokers' registry mirrors
+(``broker.{detect,track}.{dispatches,units_in}`` counters, ``.fill`` and
+``.linger_wait_ms`` histograms, the ``.queue_depth`` gauge), the shared
+``DecodePool``'s ``executor.decode.queue_depth`` gauge, each run's
+``RunProfile.publish`` from ``finish``, and a crash dump
+(``executor.drain``) when a drain raises, a no-op until a flight
+recorder is installed.  None of it changes tracks or dispatches.  A
+stage span's duration is exactly what the run's profile records for
+that call: on a card that is host time (the launches' enqueue, plus the
+wait wherever a result comes back to the host), and tracing adds no
+synchronisation and no copy to the host, so the stages overlap as they
+do untraced.  Unlike the reference's, the brokers' ``queue_depth`` also
+reads the pending requests after a flush, a cancel or a close, so an
+idle broker reads 0.
+
 Not ported: the ``devices`` and ``mesh`` options (the port runs on the
-bank's one card), and the tracing spans and metrics-registry mirrors of
-the runs and brokers (the brokers keep their public stats attributes;
-the live path's spans and metrics are in ``repro_torch.obs``).
+bank's one card).
 """
 from __future__ import annotations
 
@@ -90,7 +109,9 @@ from repro_torch.core.windows import (ChunkPlan, full_frame_plan,
 from repro_torch.data.video_synth import Clip
 from repro_torch.kernels.track_step import track_step
 from repro_torch.kernels.window_gather import window_gather_batch
-from repro_torch.obs.metrics import RunProfile, drift_enabled
+from repro_torch.obs.metrics import REGISTRY, RunProfile, drift_enabled
+from repro_torch.obs.recorder import crash_dump
+from repro_torch.obs.trace import TRACER
 
 DEFAULT_CHUNK = 16     # frames per chunk (B) when θ does not say
 
@@ -214,7 +235,12 @@ class _Broker:
     the subclass's limit (``_full``), or a request has waited
     ``linger_ms``.  ``unregister`` cancels the stream's pending requests
     with ``BrokerCancelled``; ``close()`` drains what is pending, then
-    refuses new work."""
+    refuses new work.
+
+    Each broker mirrors its stats into the registry under
+    ``broker.{_metric}.*`` and, with the tracer on, emits a
+    ``broker.{_metric}.flush`` span per flush with a
+    ``broker.{_metric}.dispatch`` child per dispatched group."""
 
     _name = "broker"
 
@@ -226,6 +252,13 @@ class _Broker:
         self._waiting = 0                           # guarded-by: _cv
         self._closed = False                        # guarded-by: _cv
         self.dispatches = 0                         # guarded-by: _cv
+        # registry mirrors (cached: a registry reset zeroes in place)
+        m = f"broker.{self._metric}"
+        self._m_disp = REGISTRY.counter(f"{m}.dispatches")
+        self._m_units = REGISTRY.counter(f"{m}.units_in")
+        self._m_fill = REGISTRY.histogram(f"{m}.fill")
+        self._m_wait = REGISTRY.histogram(f"{m}.linger_wait_ms")
+        self._m_depth = REGISTRY.gauge(f"{m}.queue_depth")
 
     # -- stream side ----------------------------------------------------------
 
@@ -249,6 +282,7 @@ class _Broker:
                         "flight")
                     req.done = True
             self._pending = [r for r in self._pending if not r.done]
+            self._m_depth.set(len(self._pending))
             self._cv.notify_all()
 
     def close(self) -> None:
@@ -259,6 +293,7 @@ class _Broker:
                 return
             self._closed = True
             batch, self._pending = self._pending, []
+            self._m_depth.set(0)
             if batch:
                 self._apply_stats(self._flush(batch))
             self._cv.notify_all()
@@ -276,15 +311,18 @@ class _Broker:
             # no notify on enqueue: this thread checks the triggers
             # itself before waiting, and every other waiter re-checks at
             # its own linger deadline
+            req.t_enq = time.monotonic()
             self._pending.append(req)
             self._waiting += 1
+            self._m_depth.set(len(self._pending))
             try:
-                deadline = time.monotonic() + self.linger
+                deadline = req.t_enq + self.linger
                 while not req.done:
                     if self._pending and (
                             self._should_flush()
                             or time.monotonic() >= deadline):
                         batch, self._pending = self._pending, []
+                        self._m_depth.set(0)
                         cv.release()
                         try:
                             stats = self._flush(batch)
@@ -319,17 +357,38 @@ class _Broker:
     def _flush(self, batch: list) -> list:
         """Dispatch each group of compatible requests once; a failing
         group's requests get its exception, the others are served."""
+        # how long the oldest rider lingered before this flush fired
+        wait_ms = max(0.0, (time.monotonic()
+                            - min(r.t_enq for r in batch)) * 1e3)
+        self._m_wait.observe(wait_ms)
+        fsp = None
+        if TRACER.enabled:
+            fsp = TRACER.open(
+                f"broker.{self._metric}.flush", "broker",
+                args={"requests": len(batch),
+                      "streams": len({id(r.handle) for r in batch}),
+                      **self._flush_args(batch),
+                      "wait_ms": round(wait_ms, 3)})
         groups: Dict[tuple, list] = {}
         for req in batch:
             groups.setdefault(self._group_key(req), []).append(req)
         stats = []
         for reqs in groups.values():
+            d0 = time.perf_counter_ns() if fsp is not None else 0
             try:
                 stats.append(self._dispatch(reqs))
             except BaseException as exc:    # routed to its requests
                 for r in reqs:
                     r.error = exc
                     r.done = True
+            else:
+                if fsp is not None:
+                    TRACER.emit(
+                        f"broker.{self._metric}.dispatch", "broker", ts=d0,
+                        dur=time.perf_counter_ns() - d0, parent=fsp.sid,
+                        args=self._dispatch_args(stats[-1], reqs))
+        if fsp is not None:
+            TRACER.close(fsp)
         return stats
 
 
@@ -356,7 +415,7 @@ class _BrokerHandle:
 
 class _BrokerRequest:
     __slots__ = ("handle", "detector", "frames", "conf", "origins",
-                 "scales", "n", "done", "result", "error")
+                 "scales", "n", "t_enq", "done", "result", "error")
 
     def __init__(self, handle, detector, frames, conf, origins, scales,
                  n: int):
@@ -367,6 +426,7 @@ class _BrokerRequest:
         self.origins = list(origins)
         self.scales = list(scales)
         self.n = n
+        self.t_enq = 0.0                # monotonic at enqueue
         self.done = False
         self.result: Optional[List[np.ndarray]] = None
         self.error: Optional[BaseException] = None
@@ -421,10 +481,12 @@ class BatchBroker(_Broker):
     is.
 
     Stats: ``dispatches`` consolidated detector calls, ``windows_in``
-    real windows served, ``batch_fill`` per-call valid/bucket share.
+    real windows served, ``batch_fill`` per-call valid/bucket share;
+    mirrored as ``broker.detect.{dispatches,units_in,fill}``.
     """
 
     _name = "detect"
+    _metric = "detect"
 
     def __init__(self, max_batch: int = 64, linger_ms: float = 10.0):
         super().__init__(linger_ms)
@@ -455,11 +517,25 @@ class BatchBroker(_Broker):
             self.dispatches += 1
             self.windows_in += total
             self.batch_fill.append(total / bucket)
+            self._m_disp.inc()
+            self._m_units.inc(total)
+            self._m_fill.observe(total / bucket)
 
     @staticmethod
     def _group_key(req: _BrokerRequest) -> tuple:
         return (id(req.detector), float(req.conf),
                 tuple(req.frames.shape[1:3]))
+
+    @staticmethod
+    def _flush_args(batch: List[_BrokerRequest]) -> dict:
+        return {"windows": sum(r.n for r in batch)}
+
+    @staticmethod
+    def _dispatch_args(stat: Tuple[int, int],
+                       reqs: List[_BrokerRequest]) -> dict:
+        total, bucket = stat
+        return {"windows": total, "bucket": bucket, "streams": len(reqs),
+                "fill": round(total / bucket, 3)}
 
     def _dispatch(self, reqs: List[_BrokerRequest]) -> Tuple[int, int]:
         detector = reqs[0].detector
@@ -510,7 +586,7 @@ class _TrackHandle:
 
 class _TrackRequest:
     __slots__ = ("handle", "arrs", "thr", "params", "table", "key",
-                 "done", "result", "error")
+                 "t_enq", "done", "result", "error")
 
     def __init__(self, handle, arrs, thr, params, table, key):
         self.handle = handle
@@ -519,6 +595,7 @@ class _TrackRequest:
         self.params = params
         self.table = table
         self.key = key                  # flush-group key
+        self.t_enq = 0.0                # monotonic at enqueue
         self.done = False
         self.result = None
         self.error: Optional[BaseException] = None
@@ -545,9 +622,11 @@ class TrackBroker(_Broker):
     copy of each output to the host a group.
 
     Stats: ``dispatches`` ``track_step`` calls, ``steps_in`` real stream
-    steps served, ``stream_fill`` streams per call."""
+    steps served, ``stream_fill`` streams per call; mirrored as
+    ``broker.track.{dispatches,units_in,fill}``."""
 
     _name = "track step"
+    _metric = "track"
 
     def __init__(self, max_streams: int = 16, linger_ms: float = 5.0):
         super().__init__(linger_ms)
@@ -576,10 +655,21 @@ class TrackBroker(_Broker):
             self.dispatches += 1
             self.steps_in += k
             self.stream_fill.append(k)
+            self._m_disp.inc()
+            self._m_units.inc(k)
+            self._m_fill.observe(float(k))
 
     @staticmethod
     def _group_key(req: _TrackRequest) -> tuple:
         return req.key
+
+    @staticmethod
+    def _flush_args(batch: List[_TrackRequest]) -> dict:
+        return {}
+
+    @staticmethod
+    def _dispatch_args(stat: int, reqs: List[_TrackRequest]) -> dict:
+        return {"streams": len(reqs)}
 
     def _dispatch(self, reqs: List[_TrackRequest]) -> int:
         K = len(reqs)
@@ -668,6 +758,15 @@ class _RunContext:
         self.skipped = 0
         self.profile = RunProfile(STAGES)
         self._disp_track0 = int(getattr(self.tracker, "dispatches", 0))
+        # the stream label of the run's spans, and its root span
+        # (children emitted from worker threads parent to it by id)
+        self.stream = f"{clip.profile.name}/{clip.split}{clip.clip_id}"
+        self.run_span = None
+        if TRACER.enabled:
+            self.run_span = TRACER.open(
+                "run", "executor", stream=self.stream,
+                args={"frames": len(self.frame_ids),
+                      "chunk": self.chunk})
         # per-frame proxy positive-cell fractions (drift monitoring
         # only; appended by PROXY, which runs on the draining thread)
         self.proxy_fracs: Optional[List[float]] = \
@@ -683,8 +782,8 @@ class _RunContext:
         return self.broker_handle
 
     def close(self) -> None:
-        """Release the broker registrations; called by the executor when
-        the run finishes or is cancelled."""
+        """Release the broker registrations and close the run span;
+        called by the executor when the run finishes or is cancelled."""
         if self.broker_handle is not None:
             self.broker_handle.close()
             self.broker_handle = None
@@ -696,6 +795,10 @@ class _RunContext:
             self.track_handle.close()
             self.track_handle = None
         self._track_broker = None
+        if self.run_span is not None and self.run_span.dur < 0:
+            TRACER.close(self.run_span,
+                         args={"windows": self.n_windows,
+                               "skipped": self.skipped})
 
     def upload(self, task: ChunkTask) -> torch.Tensor:
         """Pad the chunk to B frames and move it to the run's device."""
@@ -868,7 +971,11 @@ def _timed(name: str, fn: Callable) -> Callable:
     run's profile (``thread_time`` counts only the calling thread, so
     overlapped stages do not double-count each other).  Wall time of a
     stage that launches device work is host time: the device work is
-    synchronised where its results come back to the host."""
+    synchronised where its results come back to the host.  With the
+    tracer on, the same interval is emitted as a ``stage.{name}`` span
+    parented to the run's root by its id (decode runs on worker threads
+    whose thread-local span stack is empty)."""
+    span_name = f"stage.{name}"
 
     def wrapper(ctx: _RunContext, task: ChunkTask) -> ChunkTask:
         t0 = time.perf_counter_ns()
@@ -876,9 +983,16 @@ def _timed(name: str, fn: Callable) -> Callable:
         try:
             return fn(ctx, task)
         finally:
-            ctx.profile.note_stage(
-                name, (time.perf_counter_ns() - t0) / 1e9,
-                (time.thread_time_ns() - c0) / 1e9)
+            dur = time.perf_counter_ns() - t0
+            proc = time.thread_time_ns() - c0
+            ctx.profile.note_stage(name, dur / 1e9, proc / 1e9)
+            if TRACER.enabled:
+                root = ctx.run_span
+                TRACER.emit(span_name, "stage", ts=t0, dur=dur,
+                            proc=proc, stream=ctx.stream,
+                            chunk=task.index,
+                            parent=root.sid if root is not None
+                            else None)
     return wrapper
 
 
@@ -936,7 +1050,7 @@ class StreamingScheduler:
     def start(self, ctx: _RunContext, tasks: List[ChunkTask],
               stages: Dict[str, Callable]):
         pool = DecodePool(min(self.workers, max(len(tasks), 1)),
-                          name="multiscope-decode")
+                          name="multiscope-decode", shared=False)
         try:
             return pool, pool.submit(ctx, tasks, stages, self.depth)
         except BaseException:
@@ -1004,13 +1118,22 @@ class DecodePool:
 
     Runs sharing a pool must be DRAINED in submission order (or
     cancelled): a later run drained first could starve behind an earlier
-    run's full queue that nobody consumes."""
+    run's full queue that nobody consumes.
+
+    A shared pool (the default) sets the ``executor.decode.queue_depth``
+    gauge, its undecoded jobs, on every submit and dequeue and when it
+    closes; the pool a ``StreamingScheduler`` owns for one run
+    (``shared=False``) sets none, as the reference's per-run decode
+    threads do not."""
 
     def __init__(self, workers: int = 2,
-                 name: str = "multiscope-pool-decode"):
+                 name: str = "multiscope-pool-decode", shared: bool = True):
         self.workers = max(1, int(workers))
         self._jobs: "queue.Queue" = queue.Queue()
         self._closed = False
+        # backpressure signal for health grading (qsize is advisory)
+        self._m_queue_depth = REGISTRY.gauge(
+            "executor.decode.queue_depth") if shared else None
         self._threads = [
             threading.Thread(target=self._worker, daemon=True,
                              name=f"{name}-{k}")
@@ -1027,6 +1150,7 @@ class DecodePool:
         run = _PoolRun(ctx, tasks, stages, depth)
         for i, task in enumerate(tasks):
             self._jobs.put((run, i, task))
+        self._note_depth()
         return run
 
     def cancel(self, run: _PoolRun) -> None:
@@ -1055,6 +1179,11 @@ class DecodePool:
             self._jobs.put(None)
         for th in self._threads:
             th.join()
+        self._note_depth()
+
+    def _note_depth(self) -> None:
+        if self._m_queue_depth is not None:
+            self._m_queue_depth.set(self._jobs.qsize())
 
     # -- worker side ----------------------------------------------------------
 
@@ -1069,6 +1198,7 @@ class DecodePool:
     def _worker(self) -> None:
         while True:
             job = self._jobs.get()
+            self._note_depth()
             if job is None:
                 return
             run, i, task = job
@@ -1209,6 +1339,13 @@ class ClipExecutor:
         t0 = time.process_time()
         try:
             self.scheduler.drain(ctx, run.handle, self.stages)
+        except BaseException as exc:
+            # black box: a no-op unless a FlightRecorder is installed
+            crash_dump("executor.drain", exc,
+                       extra={"stream": ctx.stream,
+                              "frames": len(ctx.frame_ids),
+                              "chunk": ctx.chunk})
+            raise
         finally:
             ctx.close()
         tracks = ctx.tracker.result()
@@ -1220,6 +1357,8 @@ class ClipExecutor:
         dispatches = {"proxy": ctx.profile.dispatches("proxy"),
                       "detect": ctx.profile.dispatches("detect"),
                       "track": track_disp}
+        ctx.profile.disp["track"] = track_disp
+        ctx.profile.publish()
         return RunResult(tracks, seconds, len(ctx.frame_ids),
                          ctx.n_windows, ctx.full_frames, ctx.skipped,
                          stage_seconds=ctx.profile.stage_seconds(),

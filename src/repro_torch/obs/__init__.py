@@ -1,11 +1,15 @@
-"""Observability of the port: tracing spans, the metrics registry and
-the crash flight recorder.
+"""Observability of the port: tracing spans, the metrics registry, the
+crash flight recorder, the SLO engine and the serving plane's pure half.
 
 The port of the JAX package's ``repro.obs`` (``src/repro/obs/``):
 ``obs.enable()`` to trace, ``obs.REGISTRY.snapshot()`` to read metrics,
 ``obs.recorder.install(FlightRecorder(root))`` for crash dumps.  The
-serving plane (``obs.serve``), the SLO engine (``obs.slo``) and the
-command line (``obs.__main__``) are not ported yet.
+executor, its brokers, its decode pool and the detector emit the
+reference's spans and registry names.  The SLO engine (``obs.slo``) and
+the serving plane's exposition and health (``obs.serve``) load lazily:
+importing ``repro_torch.obs`` on the hot path pays for neither.  The
+serving plane's HTTP server and the command line (``obs.__main__``) are
+not ported yet.
 """
 from .trace import (Span, Tracer, TRACER, enable, disable, enabled,
                     export_jsonl, export_chrome)
@@ -22,4 +26,15 @@ __all__ = [
     "RunProfile", "DriftMonitor", "stage_block", "empty_stage_block",
     "merge_stage_blocks", "assert_stage_sane", "interp_quantile",
     "drift_enabled", "enable_drift", "disable_drift", "recorder",
+    "serve", "slo",
 ]
+
+_LAZY_SUBMODULES = ("serve", "slo")
+
+
+def __getattr__(name: str):
+    if name in _LAZY_SUBMODULES:
+        import importlib
+        return importlib.import_module(f".{name}", __name__)
+    raise AttributeError(f"module {__name__!r} has no attribute "
+                         f"{name!r}")

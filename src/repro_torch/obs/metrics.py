@@ -3,12 +3,9 @@ whole pipeline, plus the shared stage-timing assembly and the
 per-watermark drift monitors.
 
 The port of the JAX package's ``repro.obs.metrics``
-(``src/repro/obs/metrics.py``), the same code but for
-``RunProfile``: the port's copy keeps the run's stage timings and
-dispatch counts for ``RunResult`` and publishes nothing, so the
-``executor.*``, ``detector.*`` and ``broker.*`` names below are not
-in the port's registry yet.  The live path's ``stream.*``,
-``query.*``, ``standing.*`` and ``store.*`` metrics are.
+(``src/repro/obs/metrics.py``), the same code: every name below is in
+the port's registry under the reference's name (``RunProfile.publish``
+folds each executor run in from ``ClipExecutor.finish``).
 
 Before this module each subsystem grew its own ad-hoc counters —
 ``Detector.dispatches``, the executor's ``stage_seconds`` dicts, the
@@ -369,9 +366,25 @@ class RunProfile:
     def stage_seconds(self) -> Dict[str, Dict[str, float]]:
         """stage -> {"wall": s, "process": s}."""
         with self._lock:
-            return {s: {"wall": float(self.wall[s]),
-                        "process": float(self.proc.get(s, 0.0))}
-                    for s in self.wall}
+            return stage_block(self.wall, self.proc)
+
+    def publish(self, registry: Registry = REGISTRY,
+                prefix: str = "executor") -> None:
+        """Fold this run's totals into the registry (called once per run
+        by ``ClipExecutor.finish``): each stage's wall and thread-CPU
+        seconds into ``{prefix}.stage.{st}.{wall,process}_seconds``
+        histograms, each dispatch count into ``{prefix}.dispatch.{name}``
+        counters."""
+        with self._lock:
+            wall, proc = dict(self.wall), dict(self.proc)
+            disp = dict(self.disp)
+        for st in wall:
+            registry.histogram(
+                f"{prefix}.stage.{st}.wall_seconds").observe(wall[st])
+            registry.histogram(
+                f"{prefix}.stage.{st}.process_seconds").observe(proc[st])
+        for name, n in disp.items():
+            registry.counter(f"{prefix}.dispatch.{name}").inc(n)
 
 
 # ---------------------------------------------------------------------------

@@ -2,9 +2,13 @@
 box.
 
 The port of the JAX package's ``repro.obs.recorder``
-(``src/repro/obs/recorder.py``), the same code; the port's live path
-calls ``crash_dump`` from ``SegmentIngestor.append`` and
-``QueryService.query``, not yet from ``ClipExecutor.finish``.
+(``src/repro/obs/recorder.py``), the same code but for how a dump
+recognises the exception it was written for: the reference keys its
+dumps by ``id(exc)``, which a later exception can reuse once the first
+is freed, merging an unrelated crash into an old dump; the port marks
+the exception object itself with the dump's path.  The port calls
+``crash_dump`` from ``ClipExecutor.finish``, ``SegmentIngestor.append``
+and ``QueryService.query``, as the reference does.
 
 The ring (``ring-NNNNNN.jsonl`` segment files under one directory,
 oldest segment deleted when the segment cap is hit) holds whatever the
@@ -70,7 +74,6 @@ class FlightRecorder:
         self._last_sid = 0                   # guarded-by: _lock
         self._last_values: Dict[str, object] = {}   # guarded-by: _lock
         self._dump_n = 0                     # guarded-by: _lock
-        self._dumped: Dict[int, str] = {}    # guarded-by: _lock
 
     # -- ring -----------------------------------------------------------------
 
@@ -206,7 +209,7 @@ class FlightRecorder:
                    "traceback": "".join(traceback.format_exception(
                        type(exc), exc, exc.__traceback__))}
         with self._lock:
-            prior = self._dumped.get(id(exc)) if exc is not None else None
+            prior = _dumps_of(exc).get(self.root)
             if prior is not None and os.path.exists(prior):
                 try:
                     with open(prior) as f:
@@ -228,7 +231,10 @@ class FlightRecorder:
                 self.root, f"{_DUMP_PREFIX}{self._dump_n:06d}.json")
             self._dump_n += 1
             if exc is not None:
-                self._dumped[id(exc)] = path
+                try:
+                    exc._flight_dumps = {**_dumps_of(exc), self.root: path}
+                except AttributeError:      # a type without a __dict__
+                    pass
             doc = {"reason": reason, "t": time.time(), "error": err,
                    "lineage": lineage, "spans": closed,
                    "metrics": registry.snapshot(),
@@ -247,6 +253,12 @@ class FlightRecorder:
             return []
         return [os.path.join(self.root, n) for n in sorted(names)
                 if n.startswith(_DUMP_PREFIX) and n.endswith(".json")]
+
+
+def _dumps_of(exc: Optional[BaseException]) -> Dict[str, str]:
+    """The dumps already written for this exception OBJECT, by recorder
+    root (carried on the object, so no later exception inherits them)."""
+    return getattr(exc, "_flight_dumps", {}) if exc is not None else {}
 
 
 # ---------------------------------------------------------------------------

@@ -2,9 +2,8 @@
 
 The port of the JAX package's ``repro.obs.trace``
 (``src/repro/obs/trace.py``), the same code: spans, their names and
-the exported records are the reference's.  The port emits two of the
-names below, ``stream.append`` and ``query.run``; the executor's and
-the brokers' spans are not ported yet.
+the exported records are the reference's, and the port emits every
+name below from the same sites.
 
 The tracer collects SPANS — named wall-clock intervals tagged with the
 stream (clip) they belong to, the chunk index, the emitting thread and
@@ -16,7 +15,8 @@ DECODE/PROXY/DETECT/TRACK stages, broker lanes showing the consolidated
 flushes every stream's windows rode).
 
 The instrumentation contract (tested by tests/test_obs.py, and for the
-port by tests/test_torch_obs.py and tests/test_torch_stream.py):
+port by tests/test_torch_obs.py, tests/test_torch_obs_hooks.py and
+tests/test_torch_stream.py):
 
   * **disabled = free.**  ``TRACER.enabled`` is False by default and
     every instrumentation site guards with one attribute read + branch

@@ -39,6 +39,10 @@ against batches 4, 16 and 64 (both architectures, a window and a full
 frame at full width), within ``BATCH_DRIFT_ATOL``; and one
 ``TrackBroker`` launch over 4 streams of mixed Q, each stream's outputs
 equal to the plain version's on the CPU bit for bit.  Two hold the
+executor's instrumentation on the card: tracks, dispatches and
+``track_step`` launches with the tracer on equal the untraced runs bit
+for bit (host and device TRACK), and a ``BatchBroker``'s flush and
+dispatch spans give an exact window ledger.  Two hold the
 training and tuning path: the proxy's 3 training steps on the card
 against the CPU (``repro_torch.core.train_check``), and a CUDA bank's
 window times, taken over a batch of 16 on the device, larger for a
@@ -477,6 +481,96 @@ def test_device_assign_checkpoint_resumes_under_device_tracker(dev,
     assert track_step.launches > before
     _packed_equal(sealed, batch.get(clip))
     _numpy_only(sealed)
+
+
+def test_tracing_on_the_card_is_bit_identical(dev):
+    # the tracer observes the card's runs without perturbing them: host
+    # and device TRACK, tracer off / on / off, give the same tracks bit
+    # for bit, dispatches and track_step launches; the traced run has
+    # one run span and its stage spans, with the run's stream
+    import numpy as np
+    from repro_torch import obs
+    from repro_torch.core.executor import ClipExecutor, ExecutorOptions
+    from repro_torch.kernels.track_step import track_step
+    bank, params, clip = _live_setup(dev)
+    for opts in (ExecutorOptions(), ExecutorOptions(device_tracker=True)):
+        runs = []
+        for traced in (False, True, False):
+            obs.TRACER.clear()
+            if traced:
+                obs.enable()
+            try:
+                before = track_step.launches
+                r = ClipExecutor(bank, params, opts).run(clip)
+                torch.cuda.synchronize()
+                runs.append((r, track_step.launches - before,
+                             obs.TRACER.snapshot()))
+            finally:
+                obs.disable()
+                obs.TRACER.clear()
+        ref = runs[0][0]
+        assert sum(map(len, ref.tracks)) > 0
+        for r, launches, spans in runs:
+            assert r.dispatches == ref.dispatches
+            assert launches == runs[0][1]
+            assert len(r.tracks) == len(ref.tracks)
+            for x, y in zip(r.tracks, ref.tracks):
+                assert np.array_equal(x, y)
+        spans = runs[1][2]
+        roots = [sp for sp in spans if sp.name == "run"]
+        assert len(roots) == 1 and roots[0].stream == "caldot1/test0"
+        stages = [sp for sp in spans if sp.name.startswith("stage.")]
+        assert len(stages) == 4 * (LIVE_FRAMES // LIVE_SEG)
+        assert all(sp.parent == roots[0].sid and sp.dur >= 0
+                   for sp in stages)
+        assert runs[0][2] == runs[2][2] == []
+        if opts.device_tracker:
+            assert runs[0][1] > 0
+
+
+def test_batch_broker_flush_ledger_on_the_card(dev):
+    # 3 streams through one BatchBroker on the card with the tracer on:
+    # each flush's dispatch windows sum to its windows, over the run to
+    # every window the streams submitted, and the registry's dispatch
+    # counter grows by the broker's dispatches
+    import threading
+    from repro_torch import obs
+    from repro_torch.core.executor import (BatchBroker, ExecutorOptions,
+                                           run_clip_streamed)
+    bank, params, clip = _live_setup(dev)
+    broker = BatchBroker()
+    disp0 = obs.REGISTRY.counter("broker.detect.dispatches").value
+    results = [None] * 3
+    obs.TRACER.clear()
+    obs.enable()
+    try:
+        threads = [threading.Thread(target=lambda i=i: results.__setitem__(
+            i, run_clip_streamed(bank, params, clip, ExecutorOptions(
+                batch_broker=broker))), daemon=True) for i in range(3)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        assert not any(t.is_alive() for t in threads)
+        broker.close()
+        spans = obs.TRACER.snapshot()
+    finally:
+        obs.disable()
+        obs.TRACER.clear()
+    assert all(r is not None for r in results)
+    flushes = {sp.sid: sp for sp in spans if sp.name == "broker.detect.flush"}
+    disp = [sp for sp in spans if sp.name == "broker.detect.dispatch"]
+    assert len(disp) == broker.dispatches > 0
+    per = {}
+    for sp in disp:
+        assert sp.parent in flushes
+        per[sp.parent] = per.get(sp.parent, 0) + sp.args["windows"]
+    assert per == {sid: f.args["windows"] for sid, f in flushes.items()}
+    total = sum(r.detector_windows for r in results)
+    assert sum(per.values()) == broker.windows_in == total
+    assert obs.REGISTRY.counter("broker.detect.dispatches").value - disp0 \
+        == broker.dispatches
+    assert obs.REGISTRY.gauge("broker.detect.queue_depth").value == 0.0
 
 
 def test_proxy_training_on_the_card_matches_the_cpu(dev):

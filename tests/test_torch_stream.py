@@ -590,10 +590,11 @@ def test_append_failure_writes_a_crash_dump(setup, tmp_path):
         trec.uninstall()
     with open(path) as f:
         doc = json.load(f)
-    assert doc["reason"] == "stream.append"
+    # the executor's drain hook writes the dump, the append's merges in
+    assert doc["reasons"] == ["executor.drain", "stream.append"]
     assert doc["checkpoint"] == st.sidecar_path(clip, CKPT_SUFFIX)
-    assert doc["extra"] == {"stream": "caldot1/test0",
-                            "requested_frames": 8}
+    assert doc["extra"] == {"stream": "caldot1/test0", "frames": 8,
+                            "chunk": 16, "requested_frames": 8}
     assert doc["error"]["type"] == "RuntimeError"
 
 
