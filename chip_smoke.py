@@ -104,10 +104,24 @@ caldot1 clips, the trained ssd-deep's F1 against the untrained one's,
 ``tuner.tune`` with 3 iterations (``proxy_score`` launched), a proxy
 proposal's evaluation (``proxy_plan`` and ``window_gather_batch``
 launched), and the tuned θ twice on the main path (equal tracks).
-Every phase runs uncaught: any failure exits non-zero before the result
-line.
+Then the registry over HTTP (``run_served``): 4 streams on one
+``BatchBroker`` and one chunk clock, unscraped and then with an
+``ObsServer`` scraped through ``/metrics`` and ``/healthz`` from a
+thread the whole run (each stream held to its solo run as the traced
+fleet; the same launches; every scrape well formed;
+``broker.detect.units_in`` grown by every window), and ``python -m
+repro_torch.obs`` in process (``serve-smoke``, ``scrape`` and
+``snapshot`` against a live server, ``dump`` and ``tail``).  Last the
+two examples over the port (``run_examples``:
+``examples/torch_quickstart.py`` and ``examples/torch_limit_query.py``
+at the reduced configuration with cut steps and clips; their invariant
+lines held, ``proxy_plan`` and ``track_step`` launched, and
+``window_gather_batch`` once for each sub-frame size class they
+planned).  Every phase runs uncaught: any failure exits non-zero before
+the result line.
 
-The last three lines of standard output are the kernels' JSON record,
+The line before the last three gives the whole script's wall.  The
+last three lines of standard output are the kernels' JSON record,
 the card's name and power limit as ``nvidia-smi`` reports them, and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the rest of the checkout, it exits non-zero and prints no result.
@@ -116,6 +130,8 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import importlib.util
+import io
 import json
 import math
 import re
@@ -124,6 +140,8 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
+import urllib.request
 from pathlib import Path
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -141,6 +159,7 @@ from repro_torch.core import pipeline as pl  # noqa: E402
 from repro_torch.core.detector import (Detector, batch_drift,  # noqa: E402
                                        next_bucket)
 from repro_torch.core.proxy import ProxyModel  # noqa: E402
+from repro_torch.core import executor as executor_mod  # noqa: E402
 from repro_torch.core.executor import (BatchBroker,  # noqa: E402
                                        ClipExecutor, ExecutorOptions,
                                        TrackBroker, run_clips,
@@ -192,8 +211,12 @@ from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref  # noqa: E402
 from repro_torch import obs  # noqa: E402
 from repro_torch.obs import REGISTRY, TRACER, interp_quantile  # noqa: E402
 from repro_torch.obs import recorder as obs_recorder  # noqa: E402
-from repro_torch.obs.serve import (default_components,  # noqa: E402
-                                   health_report, render_prometheus)
+from repro_torch.obs.__main__ import main as obs_main  # noqa: E402
+from repro_torch.obs.__main__ import (validate_exposition,  # noqa: E402
+                                      validate_health)
+from repro_torch.obs.serve import (ObsServer,  # noqa: E402
+                                   default_components, health_report,
+                                   render_prometheus)
 from repro_torch.obs.slo import SloEngine, default_rules  # noqa: E402
 from repro_torch.query import (PackedTracks, Query,  # noqa: E402
                                QueryService, TimeRange, TrackStore,
@@ -1785,6 +1808,53 @@ def run_spans(spans, stream: str, label: str) -> tuple:
     return roots[0], stages
 
 
+def clocked_broker_run(bank, params, clips, n: int) -> tuple:
+    """``n`` streams of ``clips`` (round-robin), each its own
+    ``ClipExecutor`` on its own thread, through one ``BatchBroker`` on
+    one chunk clock (``on_clock``), their detector rows logged; the
+    launch counts set to 0 just before and read after every thread
+    joined, and the broker closed; -> (results, launches, wall, the
+    broker, the ``ScoreLog``)."""
+    broker = BatchBroker()
+    meet = threading.Barrier(n)
+    score_log = ScoreLog()
+
+    def one(i):
+        score_log.tl.stream = i
+        try:
+            return ClipExecutor(bank, params, ExecutorOptions(
+                batch_broker=broker), stages=on_clock(meet)).run(
+                    clips[i % len(clips)])
+        except BaseException:
+            meet.abort()
+            raise
+
+    with score_log.recording():
+        res, launches, wall = counted(lambda: run_threads(
+            [lambda i=i: one(i) for i in range(n)]))
+    broker.close()
+    return res, launches, wall, broker, score_log
+
+
+def hold_broker_run(bank, params, oracle, res, score_log,
+                    label: str) -> dict:
+    """Each stream of a ``clocked_broker_run`` held to its clip's solo
+    run as the fleet holds them (``held_to``); -> {stream: the kind of
+    decision that flipped} for the streams held to their counters."""
+    clips, solo, solo_log = oracle["clips"], oracle["solo"], \
+        oracle["solo_log"]
+    conf, thr = params.det_conf, bank.cfg.tracker.match_threshold
+    flips = {}
+    for i, r in enumerate(res):
+        c = i % len(clips)
+        _, flip = held_to(r, solo[c], score_log, solo_log, (i, c),
+                          oracle["exact"], oracle["bound"], conf, thr,
+                          f"{label}, stream {i}")
+        if flip is not None:
+            flips[i] = flip[0]
+    return flips
+
+
 def run_traced(bank, params, oracle) -> dict:
     """The executor's instrumentation at full width, at the video cell's
     θ, after the fleet (its threads end every profiler trace worth
@@ -1902,31 +1972,14 @@ def run_traced(bank, params, oracle) -> dict:
         f"{[(sp['name'], sp.get('chunk')) for sp in doc['lineage']]}")
 
     # 4: a traced BatchBroker fleet on one chunk clock
-    clips, solo, solo_log = oracle["clips"], oracle["solo"], \
-        oracle["solo_log"]
+    clips = oracle["clips"]
     n = TRACED_STREAMS
-    broker = BatchBroker()
-    meet = threading.Barrier(n)
-    score_log = ScoreLog()
     disp0 = REGISTRY.counter("broker.detect.dispatches").value
-
-    def one(i):
-        score_log.tl.stream = i
-        try:
-            return ClipExecutor(bank, params, ExecutorOptions(
-                batch_broker=broker), stages=on_clock(meet)).run(
-                    clips[i % len(clips)])
-        except BaseException:
-            meet.abort()
-            raise
-
     TRACER.clear()
     obs.enable()
     try:
-        with score_log.recording():
-            res, n_fleet, wall = counted(lambda: run_threads(
-                [lambda i=i: one(i) for i in range(n)]))
-        broker.close()
+        res, n_fleet, wall, broker, score_log = clocked_broker_run(
+            bank, params, clips, n)
         spans = TRACER.snapshot()
         with tempfile.TemporaryDirectory() as out:
             path = Path(out) / "trace.json"
@@ -1974,16 +2027,9 @@ def run_traced(bank, params, oracle) -> dict:
             raise AssertionError(f"{name} was not launched by the traced "
                                  "fleet")
     launches["traced_batch_broker"] = n_fleet
-    conf, thr = params.det_conf, bank.cfg.tracker.match_threshold
+    flips = hold_broker_run(bank, params, oracle, res, score_log,
+                            f"traced BatchBroker, {n} streams")
     rule = oracle["exact"]
-    flips = {}
-    for i, r in enumerate(res):
-        c = i % len(clips)
-        _, flip = held_to(r, solo[c], score_log, solo_log, (i, c), rule,
-                          oracle["bound"], conf, thr,
-                          f"traced BatchBroker, {n} streams, stream {i}")
-        if flip is not None:
-            flips[i] = flip[0]
     run_roots = [sp for sp in spans if sp.name == "run"]
     if len(run_roots) != n:
         raise AssertionError(f"{len(run_roots)} run spans for {n} streams")
@@ -2049,6 +2095,295 @@ def read_obs(append_walls: list) -> None:
         f"; Prometheus text {len(text)} bytes, {len(samples)} samples, "
         f"every one parsed; {time.perf_counter() - t0:.3f} s; card "
         f"{nvidia_smi()}")
+
+
+# ---------------------------------------------------------------------------
+# The serving plane over HTTP, its command line, and the two examples
+# ---------------------------------------------------------------------------
+
+SCRAPE_TIMEOUT_S = 5.0          # every urlopen of the served phase
+SCRAPED_ROUTES = ("/metrics", "/healthz")
+
+
+def scrape(url: str) -> tuple:
+    """One GET with a timeout; -> (status, body).  An HTTP error status
+    (``/healthz`` answers 503 on ``fail``) is an answer, not a failure."""
+    try:
+        with urllib.request.urlopen(url, timeout=SCRAPE_TIMEOUT_S) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as exc:
+        return exc.code, exc.read().decode()
+
+
+def check_scrapes(bodies: dict) -> None:
+    """Every ``/metrics`` body a 200 that ``validate_exposition`` passes,
+    every ``/healthz`` a 200 or 503 whose document ``validate_health``
+    passes; at least one scrape of each route."""
+    for path, got in bodies.items():
+        if not got:
+            raise AssertionError(f"no scrape of {path} completed")
+        for status, body in got:
+            if path == "/metrics":
+                if status != 200:
+                    raise AssertionError(f"/metrics answered {status}")
+                validate_exposition(body)
+            else:
+                doc = json.loads(body)
+                validate_health(doc)
+                if status != (503 if doc["status"] == "fail" else 200):
+                    raise AssertionError(f"/healthz {doc['status']} "
+                                         f"answered {status}")
+
+
+def obs_cli(argv: list) -> str:
+    """``python -m repro_torch.obs`` in this process; -> its standard
+    output (a non-zero exit fails)."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = obs_main(argv)
+    if rc != 0:
+        raise AssertionError(f"repro_torch.obs {argv[0]} exited {rc}")
+    return out.getvalue()
+
+
+def run_served(bank, params, oracle) -> dict:
+    """The serving plane under load, after ``run_tuning`` (which keeps
+    its place right after ``read_obs``): ``TRACED_STREAMS``
+    streams of the fleet's clips on one ``BatchBroker`` and one chunk
+    clock, unscraped, then again with an ``ObsServer`` (port 0, an
+    ``SloEngine`` over the registry, a ``FlightRecorder``) scraped from
+    a thread through ``/metrics`` and ``/healthz`` the whole run.  Each
+    run's streams are held to the fleet's solo runs as ``run_traced``
+    holds its own (``held_to``, flips counted); the scraped run launches
+    what the unscraped one did (``FLEET_KERNELS``, ``proxy_plan`` and
+    ``window_gather_batch`` at least once); ``broker.detect.units_in``
+    grows by every window submitted; every scrape is well formed
+    (``check_scrapes``).  Scrapes a second, the handler threads' CPU
+    seconds and fps scraped against unscraped are printed, not held.
+    Then the command line: ``serve-smoke`` (its three artifacts and a
+    ``ValueError`` dump), ``scrape`` and ``snapshot`` against a live
+    server over the registry, ``dump`` and ``tail`` on the smoke's
+    flight directory.  -> the launches of both runs."""
+    t_phase = time.perf_counter()
+    smi = nvidia_smi()
+    clips, n = oracle["clips"], TRACED_STREAMS
+    label = f"served BatchBroker, {n} streams"
+    units = REGISTRY.counter("broker.detect.units_in")
+
+    res0, n0, wall0, _, log0 = clocked_broker_run(bank, params, clips, n)
+    flips0 = hold_broker_run(bank, params, oracle, res0, log0,
+                             f"{label}, unscraped")
+
+    bodies: Dict[str, list] = {path: [] for path in SCRAPED_ROUTES}
+    stop = threading.Event()
+    errors: list = []
+    with tempfile.TemporaryDirectory() as tmp:
+        server = ObsServer(port=0, slo=SloEngine(registry=REGISTRY),
+                           recorder=obs_recorder.FlightRecorder(
+                               str(Path(tmp) / "ring")))
+
+        def hammer():
+            while not stop.is_set():
+                for path in SCRAPED_ROUTES:
+                    try:
+                        bodies[path].append(scrape(server.url + path))
+                    except OSError as exc:
+                        errors.append(exc)
+
+        server.start()
+        scraper = threading.Thread(target=hammer, daemon=True,
+                                   name="chip-smoke-scraper")
+        try:
+            u0 = units.value
+            t0 = time.perf_counter()
+            scraper.start()
+            res, n1, wall, broker, log1 = clocked_broker_run(
+                bank, params, clips, n)
+            grew = units.value - u0
+        finally:
+            stop.set()
+            scraper.join(4 * SCRAPE_TIMEOUT_S)
+            scraped_s = time.perf_counter() - t0
+            server.stop()
+        if scraper.is_alive():
+            raise AssertionError("the scraper did not stop")
+        stats = server.stats()
+    if errors:
+        raise AssertionError(f"{len(errors)} scrapes failed: {errors[0]!r}")
+    check_scrapes(bodies)
+    flips = hold_broker_run(bank, params, oracle, res, log1,
+                            f"{label}, scraped")
+    submitted = sum(r.detector_windows for r in res)
+    if not grew == broker.windows_in == submitted:
+        raise AssertionError(f"broker.detect.units_in grew {grew}, the "
+                             f"broker took {broker.windows_in} windows, "
+                             f"{submitted} were submitted")
+    for name in FLEET_KERNELS:
+        if n1[name] != n0[name]:
+            raise AssertionError(f"{name}: {n1[name]} launches scraped, "
+                                 f"{n0[name]} unscraped")
+    for name in ("proxy_plan", "window_gather_batch"):
+        if n1[name] <= 0:
+            raise AssertionError(f"{name} was not launched by the scraped "
+                                 "fleet")
+    n_scrapes = {p: len(b) for p, b in bodies.items()}
+    frames = n * FLEET_FRAMES
+    log(f"{label} x {FLEET_FRAMES} frames (one chunk clock): fps "
+        f"unscraped {frames / wall0:.2f}, scraped "
+        f"{frames / wall:.2f}; scrapes {n_scrapes} in {scraped_s:.3f} s = "
+        f"{sum(n_scrapes.values()) / scraped_s:.1f} a second, every "
+        f"/metrics body and /healthz document valid (health "
+        f"{sorted({json.loads(b)['status'] for _, b in bodies['/healthz']})}"
+        f"); server stats {stats} (handler CPU seconds "
+        f"{stats['handler_cpu_seconds']!r}); broker.detect.units_in grew "
+        f"{grew} = windows submitted; streams whose decisions flipped: "
+        f"unscraped {flips0}, scraped {flips} of {n}; launches unscraped "
+        f"{n0}, scraped {n1}; card {smi}")
+
+    # the operator command line
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "smoke"
+        said = obs_cli(["serve-smoke", "--out", str(out)]).strip()
+        for name in ("metrics.txt", "healthz.json", "snapshot.json"):
+            if not (out / name).is_file():
+                raise AssertionError(f"serve-smoke wrote no {name}")
+        with ObsServer(port=0) as server:
+            text = obs_cli(["scrape", "--url", server.url])
+            n_samples = validate_exposition(text)
+            snap = json.loads(obs_cli(["snapshot", "--url", server.url]))
+        if snap["metrics"].get("broker.detect.units_in") != units.value:
+            raise AssertionError("/snapshot's broker.detect.units_in "
+                                 f"{snap['metrics'].get('broker.detect.units_in')}"
+                                 f" against the registry's {units.value}")
+        validate_health(snap["health"])
+        flight = str(out / "flight")
+        dump = json.loads(obs_cli(["dump", "--dir", flight]))
+        if dump["error"]["type"] != "ValueError" \
+                or dump["checkpoint"] != "camA/ckpt.npz":
+            raise AssertionError(f"serve-smoke's dump: {dump['error']}, "
+                                 f"checkpoint {dump['checkpoint']}")
+        tail = [json.loads(ln) for ln in
+                obs_cli(["tail", "--dir", flight, "-n", "5"]).splitlines()]
+        if not 0 < len(tail) <= 5:
+            raise AssertionError(f"tail -n 5 printed {len(tail)} records")
+    log(f"repro_torch.obs: {said}; scrape of the registry {len(text)} "
+        f"bytes, {n_samples} samples; snapshot health "
+        f"{snap['health']['status']}, {len(snap['metrics'])} metrics; "
+        f"dump {dump['reason']} ({dump['error']['type']}); tail "
+        f"{[r['kind'] for r in tail]}")
+    log(f"served phase: {time.perf_counter() - t_phase:.1f} s wall; card "
+        f"{smi}")
+    return {"unscraped": n0, "scraped": n1}
+
+
+# the examples' own arguments: the reference's 250 detector and 800
+# tracker steps and its clip counts (4 train, 3 val, 3 test or 8 query)
+# cut so that both examples together take about a minute on the card
+EXAMPLE_ARGS = {
+    "torch_quickstart": ["--detector-steps", "250", "--tracker-steps",
+                         "400", "--train-clips", "3", "--val-clips", "2",
+                         "--test-clips", "2"],
+    "torch_limit_query": ["--detector-steps", "250", "--tracker-steps",
+                          "400", "--train-clips", "3", "--val-clips", "2",
+                          "--query-clips", "4"],
+}
+
+
+@contextlib.contextmanager
+def counting_gathers(tally: list):
+    """The executor's DETECT stage wrapped to add to ``tally[0]`` the
+    sub-frame size classes of each chunk's plan: each is one
+    ``window_gather_batch`` launch."""
+    detect = executor_mod.DEFAULT_STAGES["detect"]
+    lock = threading.Lock()             # streams detect on their threads
+
+    def counted_detect(ctx, task):
+        n = sum((w * pl.CELL_PX, h * pl.CELL_PX) != (ctx.W, ctx.H)
+                for w, h in task.plan.by_size)
+        with lock:
+            tally[0] += n
+        return detect(ctx, task)
+
+    executor_mod.DEFAULT_STAGES["detect"] = counted_detect
+    try:
+        yield
+    finally:
+        executor_mod.DEFAULT_STAGES["detect"] = detect
+
+
+def example(name: str):
+    """``examples/<name>.py`` imported by its path."""
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_examples() -> dict:
+    """The two examples over the port, last: each ``main(["--device",
+    "cuda", ...])`` at ``EXAMPLE_ARGS``, its launch counts set to 0 just
+    before and read just after, its standard output captured.  Held: the
+    quickstart's "ad-hoc agrees: True" (exact store arithmetic) and a
+    ``/healthz`` status of ok, warn or fail; a ``correct=`` line for both
+    systems of the limit query; ``proxy_plan`` and ``track_step``
+    launched by the two together, and ``window_gather_batch`` once for
+    each sub-frame size class their plans held (``counting_gathers``:
+    on the card the tuner's measured window times can leave no
+    sub-frame window at the reduced configuration).  The quickstart's
+    two "tracks bit-identical" values are printed, not held (the broker
+    line rides the detector's batch drift, the device line the f32 host
+    JV's gap; the fleet, traced and live phases hold those paths to
+    their bounds).  -> {example: launches}."""
+    t_phase = time.perf_counter()
+    smi = nvidia_smi()
+    launches = {}
+    outs = {}
+    classes = {}
+    for name, args in EXAMPLE_ARGS.items():
+        main_fn = example(name).main
+        buf = io.StringIO()
+        tally = [0]
+        with contextlib.redirect_stdout(buf), counting_gathers(tally):
+            _, n, wall = counted(
+                lambda: main_fn(["--device", DEVICE, *args]))
+        outs[name] = out = buf.getvalue()
+        launches[name], classes[name] = n, tally[0]
+        if n["window_gather_batch"] != tally[0]:
+            raise AssertionError(f"{name}: {n['window_gather_batch']} "
+                                 "window_gather_batch launches for "
+                                 f"{tally[0]} sub-frame size classes")
+        shown = [ln for ln in out.splitlines()
+                 if ln.strip() and not ln.startswith(("[tune]", "[setup]"))]
+        log(f"example {name} {' '.join(args)}: {wall:.1f} s wall; launches "
+            f"{n}; sub-frame size classes planned {tally[0]}; its output "
+            "but the tuner's log:\n  " + "\n  ".join(shown))
+    quick, limit = outs["torch_quickstart"], outs["torch_limit_query"]
+    if "ad-hoc agrees: True" not in quick:
+        raise AssertionError("the quickstart's standing query disagrees "
+                             "with the ad-hoc one")
+    health = re.search(r"GET /healthz: (ok|warn|fail) \(", quick)
+    if health is None:
+        raise AssertionError("the quickstart printed no /healthz status")
+    identical = re.findall(r"^  (.*) tracks bit-identical: (True|False)$",
+                           quick, re.M)
+    if len(identical) != 2:
+        raise AssertionError(f"{len(identical)} 'tracks bit-identical' "
+                             "lines in the quickstart")
+    for system in ("blazeit", "multiscope"):
+        if not re.search(rf"^{system}\s*: pre=.* correct=\d+/\d+$", limit,
+                         re.M):
+            raise AssertionError(f"the limit query printed no correct= "
+                                 f"line for {system}")
+    for name in ("proxy_plan", "track_step"):
+        if not sum(n[name] for n in launches.values()):
+            raise AssertionError(f"{name} was not launched by the examples")
+    log(f"examples: ad-hoc agrees True; /healthz {health.group(1)}; tracks "
+        f"bit-identical (printed, not held): broker line "
+        f"{identical[0][1]}, device_tracker line {identical[1][1]}; "
+        f"window_gather_batch launches = sub-frame size classes planned "
+        f"{classes}; {time.perf_counter() - t_phase:.1f} s wall; card {smi}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -4027,6 +4362,7 @@ def main() -> int:
                           timeout=60).stdout.strip().splitlines()[-1]
     log(f"card: {smi}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, nvcc: {nvcc}")
+    t_script = time.perf_counter()
     build_kernels()
     video, bank, params, untrained = run_video()
     kernels = video + run_lm() + run_ssm()
@@ -4050,8 +4386,12 @@ def main() -> int:
         live = run_live(bank, params)
     # the SLO engine, health and exposition over what live ingest filled
     read_obs(append_walls)
-    # training and tuning last: a bank of its own, trained on the card
+    # training and tuning: a bank of its own, trained on the card
     tuning = run_tuning(untrained)
+    # the registry served over HTTP while a fleet runs, and the CLI
+    served = run_served(bank, params, oracle)
+    # the two examples last: each trains its own reduced-config system
+    examples = run_examples()
     for k in kernels:
         if k["name"] in FLEET_KERNELS:
             k["launches_fleet"] = {path: n[k["name"]]
@@ -4060,12 +4400,20 @@ def main() -> int:
                                   for path, n in live.items()}
             k["launches_traced"] = {path: n[k["name"]]
                                     for path, n in traced.items()}
+            k["launches_served"] = {path: n[k["name"]]
+                                    for path, n in served.items()}
             if not sum(k["launches_live"].values()):
                 raise AssertionError(f"{k['name']} was not launched by "
                                      "the live phase")
         if k["name"] in TUNING_KERNELS:
             k["launches_tuning"] = {path: n[k["name"]]
                                     for path, n in tuning.items()}
+        by_example = {ex: n[k["name"]] for ex, n in examples.items()
+                      if k["name"] in n}
+        if sum(by_example.values()):
+            k["launches_examples"] = by_example
+    log(f"chip_smoke: {time.perf_counter() - t_script:.1f} s wall from the "
+        f"kernels' build to the result; card {smi}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

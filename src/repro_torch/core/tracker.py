@@ -82,6 +82,7 @@ class CropCNN(nn.Module):
         x = F.relu(self.conv0(x))
         x = F.relu(self.conv1(x))
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+        # repro-lint: disable=bit-contract -- crop CNN runs upstream of the host/device split: one impl, both paths consume its output
         return torch.tanh(x @ self.wd + self.bd)
 
 
@@ -754,6 +755,7 @@ def embed_dets(net: TrackerNet, crops: torch.Tensor, boxes: torch.Tensor,
                          boxes[:, 3], te / 8.0, torch.log1p(te)], dim=1)
     d = torch.cat([x, extra], dim=1)
     dp = net.det_proj
+    # repro-lint: disable=bit-contract -- train-only head; inference twins are _det_feats_np (host) / kernels.track_step (device)
     return torch.tanh(d @ dp["w"] + dp["b"])
 
 
@@ -762,9 +764,12 @@ def gru_step(net: TrackerNet, h: torch.Tensor, feat: torch.Tensor
     """h: (..., H); feat: (..., e) -> new h."""
     g = net.gru
     hf = torch.cat([feat, h], dim=-1)
+    # repro-lint: disable=bit-contract -- train-only head; inference twins are _gru_np (host) / kernels.track_step (device)
     z = torch.sigmoid(hf @ g["wz"] + g["bz"])
+    # repro-lint: disable=bit-contract -- train-only head; inference twins are _gru_np (host) / kernels.track_step (device)
     r = torch.sigmoid(hf @ g["wr"] + g["br"])
     hf2 = torch.cat([feat, r * h], dim=-1)
+    # repro-lint: disable=bit-contract -- train-only head; inference twins are _gru_np (host) / kernels.track_step (device)
     cand = torch.tanh(hf2 @ g["wh"] + g["bh"])
     return (1 - z) * h + z * cand
 
@@ -791,7 +796,9 @@ def match_logits(net: TrackerNet, track_h: torch.Tensor,
         det_feats[None].expand(T, N, det_feats.shape[1]),
         rel,
     ], dim=-1)
+    # repro-lint: disable=bit-contract -- train-only head; inference twins are _match_np (host) / kernels.track_step (device)
     hid = torch.tanh(pair @ m["w0"] + m["b0"])
+    # repro-lint: disable=bit-contract -- train-only head; inference twins are _match_np (host) / kernels.track_step (device)
     return (hid @ m["w1"] + m["b1"])[..., 0]
 
 
@@ -825,7 +832,9 @@ def _train_loss(net: TrackerNet, crops, boxes, te, prefix_mask, cand_mask,
     d = cboxes - last_box[:, None, :]
     rel = torch.cat([d[..., :2], d[..., :2] / cte, d[..., 2:]], dim=-1)
     pair = torch.cat([h[:, None].expand(B, K, H), cand, rel], dim=-1)
+    # repro-lint: disable=bit-contract -- training loss; never on the serving path
     hid = torch.tanh(pair @ m["w0"] + m["b0"])
+    # repro-lint: disable=bit-contract -- training loss; never on the serving path
     logits = (hid @ m["w1"] + m["b1"])[..., 0]          # (B, K)
     y = labels.to(torch.float32)
     bce = torch.clamp(logits, min=0) - logits * y \

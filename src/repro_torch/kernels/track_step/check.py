@@ -70,11 +70,13 @@ def operands(rng, K: int, Q: int, heads: Sequence[torch.Tensor],
     h_r, tbox_r, alive_r, te_gap_r, te_match, x, dbox, dvalid = ops
     for k in range(K):
         T, n = live if live is not None else rng.integers(0, 65, 2)
+        # repro-lint: disable=bit-contract -- seeded random operands for the card check; the bits are carried by kernels.track_step and its plain version, which both read these same inputs
         h_r[k, :T] = np.tanh(rng.standard_normal((T, H)))
         tbox_r[k, :T] = rng.random((T, 4)) * [1, 1, 0.1, 0.1]
         alive_r[k, :T] = 1.0
         te_gap_r[k, :T] = rng.integers(1, 9, T)
         te_match[k] = float(rng.integers(1, 4))
+        # repro-lint: disable=bit-contract -- seeded random operands for the card check; the bits are carried by kernels.track_step and its plain version, which both read these same inputs
         x[k, :n] = np.tanh(rng.standard_normal((n, e)))
         dbox[k, :n] = rng.random((n, 4)) * [1, 1, 0.1, 0.1]
         dvalid[k, :n] = 1.0

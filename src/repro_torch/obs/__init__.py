@@ -6,10 +6,11 @@ The port of the JAX package's ``repro.obs`` (``src/repro/obs/``):
 ``obs.recorder.install(FlightRecorder(root))`` for crash dumps.  The
 executor, its brokers, its decode pool and the detector emit the
 reference's spans and registry names.  The SLO engine (``obs.slo``) and
-the serving plane's exposition and health (``obs.serve``) load lazily:
-importing ``repro_torch.obs`` on the hot path pays for neither.  The
-serving plane's HTTP server and the command line (``obs.__main__``) are
-not ported yet.
+the serving plane (``obs.serve``: exposition, health and the
+``ObsServer`` mounting ``/metrics``, ``/healthz`` and ``/snapshot``) load
+lazily: importing ``repro_torch.obs`` on the hot path pays for neither.
+``python -m repro_torch.obs`` is the operator command line (``scrape``,
+``snapshot``, ``tail``, ``dump``, ``serve-smoke``).
 """
 from .trace import (Span, Tracer, TRACER, enable, disable, enabled,
                     export_jsonl, export_chrome)

@@ -433,8 +433,7 @@ class TrackStore:
 
     def _version_dir(self, dataset: str,
                      fingerprint: Optional[str] = None) -> str:
-        # unlocked callers (has/get) pass a fingerprint snapshot; the
-        # default is read only under the lock
+        # repro-lint: disable=lock-discipline -- unlocked callers (has/get) always pass an explicit fingerprint snapshot; the default-arg read is only reached under the lock
         fp = fingerprint or self.fingerprint
         return os.path.join(self.root, dataset, fp)
 
@@ -609,6 +608,7 @@ class TrackStore:
         packed = self.get(clip)
         if packed is None:
             raise KeyError(f"clip {clip_key(clip)} not materialized "
+                           # repro-lint: disable=lock-discipline -- error-message snapshot; a torn θ read only mislabels the exception
                            f"for θ {self.fingerprint}")
         return packed.tracks()
 
@@ -706,8 +706,7 @@ class TrackStore:
                     f"{len(cold)} cold clips but the store has no model "
                     f"bank to extract with")
             t0 = time.perf_counter()
-            # against a stable θ snapshot: set_params mid-ingest is not
-            # supported (get() rejects results of a stale fingerprint)
+            # repro-lint: disable=lock-discipline -- batch ingest runs against a stable θ snapshot; set_params mid-ingest is unsupported (the fingerprint check in get() rejects stale results)
             results, seconds = run_clips(self.bank, self.params, cold,
                                          self.options)
             for clip, res in zip(cold, results):

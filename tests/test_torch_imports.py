@@ -1,5 +1,7 @@
-"""Import isolation of the port: ``repro_torch`` and ``chip_smoke.py``
-import nothing of JAX and nothing of the JAX package ``repro``."""
+"""Import isolation of the port: ``repro_torch`` (its command line
+``repro_torch.obs.__main__`` too), the examples over it
+(``examples/torch_*.py``) and ``chip_smoke.py`` import nothing of JAX
+and nothing of the JAX package ``repro``."""
 import ast
 import json
 import os
@@ -13,6 +15,7 @@ pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
+EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
 
 
 def _modules():
@@ -27,10 +30,16 @@ def _modules():
 def test_modules_pull_in_no_jax_or_repro():
     mods = _modules()
     assert "repro_torch.core.executor" in mods and len(mods) > 15
+    assert "repro_torch.obs.__main__" in mods
+    examples = [str(p) for p in EXAMPLES]
+    assert len(examples) == 2
     code = (
-        "import importlib, json, sys\n"
+        "import importlib, importlib.util, json, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
+        f"for i, p in enumerate({examples!r}):\n"
+        "    spec = importlib.util.spec_from_file_location(f'ex{i}', p)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print(json.dumps(bad))\n")
@@ -49,7 +58,7 @@ def _imported_names(path: Path):
             yield node.module or ""
 
 
-@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py"))
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + EXAMPLES
                          + [ROOT / "chip_smoke.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_sources_import_no_jax_or_repro(path):
