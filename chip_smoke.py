@@ -63,14 +63,31 @@ between chunks).  Then Zamba2 serving (``run_hybrid``): the attention
 kernels at head dim 112 (flash at S 500 and 512; decode at B 4, S 1024,
 32 of 32 heads) and ``ssd_scan`` at (P, N) = (64, 64) (H 112, S 500 and
 a ragged Q 100) against their plain versions, timed, then
-``ServeEngine.generate`` at full zamba2-7b width (81 layers: 13 groups
-of 5 Mamba2 layers and one of 2 shared attention blocks, 3 tail layers;
-d_model 3584, f32 masters and their bf16 copies, about 36 GiB) on the
-same 4 prompts: twice (13 ``flash_attention``, 416 ``decode_attention``
-and 68 ``ssd_scan`` launches each), timed, profiled, and the serve
+``ServeEngine.generate`` at full zamba2-7b width and 5 of its 13 groups
+(33 of 81 layers: 5 groups of 5 Mamba2 layers and one of 2 shared
+attention blocks, 3 tail layers; d_model 3584, f32 masters and their
+bf16 copies) on the same 4 prompts: twice (5 ``flash_attention``, 160
+``decode_attention`` and 28 ``ssd_scan`` launches each), timed,
+profiled, and the serve
 checks on the longest row in bf16 and f32 with three planted faults
 (every site using shared block 0, zeros for the embedding the shared
-blocks read, decode attending kv_len = pos).  Last the fleet
+blocks read, decode attending kv_len = pos).  Then MoE serving
+(``run_moe``): the attention kernels at head dim 128 (flash at S 500
+and 512 at deepseek-moe-16b's 16 of 16 heads, and at S 512 at
+grok-1-314b's, deepseek-67b's and deepseek-coder-33b's head layouts;
+decode at B 4, S 1024 at all four) against their plain versions, its own
+timed, then ``ServeEngine.generate`` at full deepseek-moe-16b width (28
+layers: 1 dense and 27 MoE layers of 64 routed experts, top-6, and 2
+shared experts; d_model 2048; 16,375,728,128 parameters held in bf16,
+the router in f32) on the same 4 prompts: twice (28
+``flash_attention`` and 896 ``decode_attention`` launches each), timed
+(the decode step beside the bound its weights set), profiled, and the
+serve checks in bf16 and on an f32 copy of 14 of the 28 layers, with
+the prompt tokens whose routing differs between the kernel and plain
+runs and the pairs each layer dropped logged, the decode check held on
+the rows where no run dropped a pair of the row's own tokens, and three
+planted faults (the routed gates renormalised over the top-k, the
+shared experts skipped, decode attending kv_len = pos).  Last the fleet
 (``run_fleet``, after every phase that
 reads the profiler, at the video cell's θ): caldot1 test clips 0-2 at 16
 frames, round-robin over concurrent streams, each stream's tracks held
@@ -102,8 +119,9 @@ the three trainers' steps on the card against the CPU
 archs, all 8 detector and 5 proxy resolutions, the full tracker) on
 caldot1 clips, the trained ssd-deep's F1 against the untrained one's,
 ``tuner.tune`` with 3 iterations (``proxy_score`` launched), a proxy
-proposal's evaluation (``proxy_plan`` and ``window_gather_batch``
-launched), and the tuned θ twice on the main path (equal tracks).
+proposal's evaluation (or, where the cache proposes none, the sparsest
+proxy θ's: ``proxy_plan`` and ``window_gather_batch`` launched), and the
+tuned θ twice on the main path (equal tracks).
 Then the registry over HTTP (``run_served``): 4 streams on one
 ``BatchBroker`` and one chunk clock, unscraped and then with an
 ``ObsServer`` scraped through ``/metrics`` and ``/healthz`` from a
@@ -225,6 +243,7 @@ from repro_torch.query.ref import reference_query  # noqa: E402
 from repro_torch.stream import SegmentIngestor, StandingQuery  # noqa: E402
 from repro_torch.kernels.ssd_scan import check as ssd_check  # noqa: E402
 from repro_torch.models import attention as lm_attention  # noqa: E402
+from repro_torch.models import moe as lm_moe  # noqa: E402
 from repro_torch.models import ssm as lm_ssm  # noqa: E402
 from repro_torch.models import transformer as lm_transformer  # noqa: E402
 from repro_torch.models.model import Model, build_model  # noqa: E402
@@ -300,12 +319,32 @@ SSM_CFG = get_config("mamba2-370m")  # full width
 # bf16 rounding further (rounding-only gaps up to 0.23 of the RMS, the
 # smallest planted fault 0.79, PERF.md)
 SSM_LOGIT_TOL = {"bfloat16": 0.4, "float32": 1e-3}
-HYBRID_CFG = get_config("zamba2-7b")  # full width: all 81 layers
+# full width at 5 of its 13 groups (33 of 81 layers: 5 groups of 5 Mamba2
+# layers and a shared block, the 3 tail layers), to keep the script
+# within its time with the MoE phase (PERF.md section 4): the kernels'
+# shapes do not change with depth, and both shared blocks still alternate
+HYBRID_GROUPS = 5
+HYBRID_CFG = get_config("zamba2-7b")
+HYBRID_CFG = dataclasses.replace(
+    HYBRID_CFG, hybrid=dataclasses.replace(HYBRID_CFG.hybrid,
+                                           n_groups=HYBRID_GROUPS),
+    n_layers=HYBRID_GROUPS * (HYBRID_CFG.hybrid.ssm_per_group + 1)
+    + HYBRID_CFG.hybrid.tail_ssm)
 # the Zamba2 cell's serve checks, by the same rule: f32 as the other
 # cells; bf16 about twice the rounding-only gaps its first full-width
 # run read (0.301-0.309 of the RMS over 81 layers), the smallest fault
 # held in bf16 3.02 (PERF.md)
 HYBRID_LOGIT_TOL = {"bfloat16": 0.6, "float32": 1e-3}
+# full width, all 28 layers, its weights held in bf16 (f32 masters and
+# their bf16 copies, 91.5 GiB, do not fit the card); the f32 check copy
+# at MOE_F32_LAYERS of 28 (1 dense + 13 MoE layers): f32 masters of all
+# 28 (61.0 GiB) and the f32 draw of the largest expert stack (18.6 GiB)
+# do not fit
+MOE_CFG = dataclasses.replace(get_config("deepseek-moe-16b"),
+                              param_dtype="bfloat16")
+MOE_F32_LAYERS = 14
+# the MoE cell's serve checks, by the same rule (PERF.md)
+MOE_LOGIT_TOL = {"bfloat16": 0.6, "float32": 1e-3}
 
 
 def log(*args) -> None:
@@ -3237,8 +3276,9 @@ def run_tuning(untrained: dict) -> dict:
        point with its ``seconds`` beside the synchronised wall of its
        ``run_split``; ``proxy_score`` must be launched over setup and
        tune; then ``ProxyCache.propose(θ_best, S)`` through
-       ``_evaluate``, which must launch ``proxy_plan`` and
-       ``window_gather_batch``;
+       ``_evaluate`` (where it proposes nothing, or no sub-frame window,
+       the sparsest proxy θ with recall), which must launch
+       ``proxy_plan`` and ``window_gather_batch``;
     4. the curve's most accurate θ twice through ``ClipExecutor`` on test
        clip 0 (equal tracks), its count accuracy and MOTA beside the
        untrained main path's (``untrained``).
@@ -3399,12 +3439,18 @@ def run_tuning(untrained: dict) -> dict:
 
     cand = proxy_cache.propose(sys_.theta_best, S)
     if cand is None:
-        raise AssertionError("the proxy cache proposed nothing for θ_best")
-    if not evaluate(cand, f"proxy proposal for θ_best at S {S}"
-                    )["window_gather_batch"]:
-        # its plans hold no sub-frame window (on the card the proxy and a
-        # window cost most of a full frame, so the cheapest entry may be
-        # a threshold that skips every frame): the sparsest proxy θ that
+        # on the card a proxy costs most of a full frame (PERF.md), so
+        # the cheapest entry, a threshold that skips every frame, meets
+        # the budget by a margin of about the timers' noise, and the
+        # cache may propose nothing, as the reference's tuner then does
+        log(f"proxy proposal for θ_best at S {S}: none (budget "
+            f"{(1.0 - S) * proxy_cache.t_frame_full!r} s a frame, the "
+            f"cheapest entry "
+            f"{min(t for t, _ in proxy_cache.entries.values())!r} s)")
+    if cand is None or not evaluate(cand, f"proxy proposal for θ_best at "
+                                    f"S {S}")["window_gather_batch"]:
+        # no proposal, or its plans hold no sub-frame window (the
+        # cheapest entry may skip every frame): the sparsest proxy θ that
         # still finds objects, with the measured window times, and if
         # they leave no sub-frame window either, with window times
         # proportional to area, as ``set_up`` seeds the main path's
@@ -3571,7 +3617,7 @@ def check_flash_attention(heads=(flash_check.HQ, flash_check.HKV,
     return rows
 
 
-def check_decode_attention(cases=decode_check.CASES[:-1],
+def check_decode_attention(cases=decode_check.LM_CASES,
                            timed=(decode_check.CASES[0][0],)):
     """The decode kernel against its plain version on the card
     (``kernels.decode_attention.check``), over ``cases``, in bf16 and
@@ -3660,7 +3706,8 @@ class ServeCell:
     by name, with their wrappers and launches a generate; the swap of
     each for its plain version; the rows held alone against the batch
     and against a fresh prefill (``None``: every row); the planted
-    faults; the logit tolerance by activation dtype."""
+    faults; the logit tolerance by activation dtype; and, where a fresh
+    prefill is no identity for every row, the decode check itself."""
     cfg: Any
     kernels: Dict[str, Tuple[Callable, int]]
     plain: Tuple[Tuple[Any, str, Callable], ...]
@@ -3669,6 +3716,9 @@ class ServeCell:
     tol: Dict[str, float]
     # the device kernels behind ``kernels``, by the names a trace gives
     device_names: Tuple[str, ...] = ()
+    # (model, params, prompts, out, logs) -> the decode check's gap;
+    # None: ``decode_gap`` over ``rows``
+    decode: Optional[Callable] = None
 
     def counts(self) -> Dict[str, int]:
         return {n: fn.launches for n, (fn, _) in self.kernels.items()}
@@ -3681,13 +3731,29 @@ class ServeCell:
         return {n: w for n, (_, w) in self.kernels.items()}
 
 
+def routing_recording(store: dict):
+    """A wrapper for ``Model.forward`` that keeps, for a model with MoE
+    layers, each call's routing a layer under ``store["routing"]``."""
+    def wrap(fn):
+        def wrapper(self, params, *args, **kwargs):
+            out = fn(self, params, *args, **kwargs)
+            if self.cfg.family == "moe":
+                store.setdefault("routing", []).append(
+                    [layer.moe.routing for layer in params.layers])
+            return out
+        return wrapper
+    return wrap
+
+
 def served(eng, prompts, n_new, plain=()):
-    """One generate with the prefill and decode logits recorded; each
-    ``(owner, attr, plain_fn)`` of ``plain`` swaps a kernel's wrapper for
-    its plain version for this run.  -> (tokens, {"prefill": [..],
-    "decode": [..]})."""
+    """One generate with the prefill and decode logits recorded (and an
+    MoE model's prefill routing); each ``(owner, attr, plain_fn)`` of
+    ``plain`` swaps a kernel's wrapper for its plain version for this
+    run.  -> (tokens, {"prefill": [..], "decode": [..]})."""
     logs = {}
     with contextlib.ExitStack() as hooks:
+        hooks.enter_context(wrapped(Model, "forward",
+                                    routing_recording(logs)))
         hooks.enter_context(wrapped(Model, "forward",
                                     recording(logs, "prefill")))
         hooks.enter_context(wrapped(Model, "decode_step",
@@ -3902,6 +3968,127 @@ def hybrid_cell(cfg, prompts) -> ServeCell:
         FLASH_KERNEL_NAMES + DECODE_KERNEL_NAMES + ssd_check.KERNEL_NAMES)
 
 
+def _renormalised_gates(fn):
+    def wrapper(x, router, m):
+        r = fn(x, router, m)
+        gates = r.gate_vals / r.gate_vals.sum(dim=-1, keepdim=True)
+        return dataclasses.replace(
+            r, gate_vals=gates,
+            w_sort=gates.reshape(r.order.shape).gather(1, r.order))
+    return wrapper
+
+
+def _without_shared_experts(fn):
+    def wrapper(self, x):
+        n, self.n_shared = self.n_shared, 0
+        try:
+            return fn(self, x)
+        finally:
+            self.n_shared = n
+    return wrapper
+
+
+MOE_FAULTS = (
+    ("routed gates renormalised over the top-k", lm_moe, "route",
+     _renormalised_gates, "prefill", True),
+    ("shared experts skipped", lm_moe.MoEBlock, "forward",
+     _without_shared_experts, "prefill", True),
+    ("decode attends kv_len = pos", lm_attention, "decode_attention",
+     _decode_kv_len_is_pos, "decode", False),
+)
+
+
+def moe_drops(routings, lens) -> np.ndarray:
+    """(MoE layers, B): pairs dropped of each row's own tokens (not its
+    right padding) in each layer's routing."""
+    n = torch.as_tensor(lens, device=routings[0].keep.device)[:, None]
+    return torch.stack([((~r.keep) & (r.t_sort < n)).sum(dim=-1)
+                        for r in routings]).cpu().numpy()
+
+
+def moe_routing_readings(logs_k, logs_p, lens, dt: str) -> dict:
+    """An MoE model's routing in a serve check's prefill: the tokens (of
+    the prompts, not the padding) whose top-k experts or kept pairs
+    differ between the kernel run and the plain-version run, a layer,
+    and the pairs the kernel run dropped, a layer and row (the prompts'
+    own tokens, and all pairs with the padding's)."""
+    got, plain = logs_k["routing"][0], logs_p["routing"][0]
+    S = got[0].gate_idx.shape[1]
+    real = torch.arange(S, device=got[0].keep.device)[None, :] \
+        < torch.as_tensor(lens, device=got[0].keep.device)[:, None]
+    differ = [int((g.differs(p) & real).sum()) for g, p in zip(got, plain)]
+    drops = moe_drops(got, lens)
+    drops_all = [r.dropped.tolist() for r in got]
+    log(f"moe routing ({dt} prefill, {len(got)} MoE layers): prompt "
+        f"tokens whose top-k experts or kept pairs differ between the "
+        f"kernel and plain-version runs, a layer {differ} (total "
+        f"{sum(differ)} of {len(got) * sum(lens)}); pairs dropped of the "
+        f"prompts' own tokens, a layer and row {drops.tolist()} (total "
+        f"{int(drops.sum())} of "
+        f"{len(got) * sum(lens) * got[0].gate_idx.shape[-1]}), with the "
+        f"padding's {drops_all}")
+    return dict(topk_differ=differ, dropped=drops.tolist(),
+                dropped_with_padding=drops_all)
+
+
+def moe_decode_gap(model, params, prompts, out, logs) -> float:
+    """``decode_gap`` for an MoE model, over every row where neither the
+    generate's prefill nor either fresh prefill dropped a pair of one of
+    the row's own tokens: capacity follows the padded length, so where a
+    run drops one, the two runs are other computations, not roundings of
+    one (the newest token, which a decode step never drops, is the first
+    a fresh prefill drops from a full expert).  The fresh prefills take
+    every row, so their padding (and capacity) is the batch's.  Raises
+    if no row is held.  -> the larger gap over the held rows."""
+    lens = [len(p) for p in prompts]
+    before = moe_drops(logs["routing"][0], lens).sum(axis=0)
+    held = before == 0
+    fresh, after = [], []
+    for s in (0, len(logs["decode"]) - 1):
+        seqs = [out[i][:lens[i] + s + 1] for i in range(len(prompts))]
+        fresh.append((s, prefill_logits(model, params, seqs)))
+        drops = moe_drops([layer.moe.routing for layer in params.layers],
+                          [len(q) for q in seqs]).sum(axis=0)
+        after.append(drops.tolist())
+        held &= drops == 0
+    rows = np.flatnonzero(held).tolist()
+    if not rows:
+        raise AssertionError("moe decode check: every row dropped a pair "
+                             f"of its own tokens (generate {before}, "
+                             f"fresh prefills {after})")
+    gap = max(logit_gap(logs["decode"][s][rows], f[rows])
+              for s, f in fresh)
+    log(f"moe decode check: rows {rows} held (pairs of a row's own tokens "
+        f"dropped: generate's prefill {before.tolist()}, fresh prefills "
+        f"at the first and last step {after}); gap {gap!r} RMS")
+    return gap
+
+
+def moe_cell(cfg, prompts) -> ServeCell:
+    """deepseek-moe-16b: ``flash_attention`` once a layer in the prefill,
+    ``decode_attention`` once a layer every decode step.  Capacity
+    follows the padded length, so a shorter prompt alone is another
+    computation than its row in the batch: only the longest row is held
+    alone; the decode check holds the rows where no run dropped a pair
+    of the row's own tokens (``moe_decode_gap``)."""
+    longest = max(range(len(prompts)), key=lambda i: len(prompts[i]))
+    return ServeCell(
+        cfg, {"flash_attention": (flash_attention, cfg.n_layers),
+              "decode_attention": (decode_attention,
+                                   cfg.n_layers * LM_NEW_TOKENS)},
+        ((lm_attention, "flash_attention", flash_attention_ref),
+         (lm_attention, "decode_attention", decode_attention_ref)),
+        (longest,), MOE_FAULTS, MOE_LOGIT_TOL,
+        FLASH_KERNEL_NAMES + DECODE_KERNEL_NAMES, decode=moe_decode_gap)
+
+
+def moe_f32_copy(cfg):
+    """The MoE cell's f32 check copy: f32 activations over f32 weights
+    at ``MOE_F32_LAYERS`` layers (the full width)."""
+    return dataclasses.replace(cfg, dtype="float32", param_dtype="float32",
+                               n_layers=MOE_F32_LAYERS)
+
+
 def serve_checks(eng, prompts, cell: ServeCell) -> dict:
     """The serving path held to itself at ``eng``'s dtype: the kernels
     against their plain versions (prefill logits and greedy tokens),
@@ -3938,8 +4125,14 @@ def serve_checks(eng, prompts, cell: ServeCell) -> dict:
         r["batch1"] = max(r["batch1"], logits_close(
             logs1["prefill"][0][0], logs_k["prefill"][0][i],
             f"{dt} prompt {i} served alone against in the batch", tol))
-    r["decode_vs_prefill"] = decode_gap(model, params, prompts, out_k,
-                                        logs_k, rows)
+    if "routing" in logs_k:
+        r.update(moe_routing_readings(logs_k, logs_p, lens, dt))
+
+    def decode_check(out, logs):
+        if cell.decode is not None:
+            return cell.decode(model, params, prompts, out, logs)
+        return decode_gap(model, params, prompts, out, logs, rows)
+    r["decode_vs_prefill"] = decode_check(out_k, logs_k)
     if r["decode_vs_prefill"] > tol:
         raise AssertionError(f"{dt} decode step against a fresh prefill: "
                              f"logits differ by {r['decode_vs_prefill']!r}"
@@ -3961,8 +4154,7 @@ def serve_checks(eng, prompts, cell: ServeCell) -> dict:
     for fname, owner, attr, wrap, check, in_bf16 in cell.faults:
         with wrapped(owner, attr, wrap):
             out_f, logs_f = served(eng, prompts, n_new)
-        gap = (decode_gap(model, params, prompts, out_f, logs_f, rows)
-               if check == "decode" else
+        gap = (decode_check(out_f, logs_f) if check == "decode" else
                logit_gap(logs_f["prefill"][0], logs_k["prefill"][0]))
         held = dt == "float32" or in_bf16
         r["faults"][fname] = gap
@@ -4035,23 +4227,36 @@ def lm_prompts(cfg):
             for n in LM_PROMPT_LENS]
 
 
-def run_serving(cfg, cell_of) -> dict:
+def f32_copy(cfg):
+    """The f32 check copy of a serving cell's config: f32 activations."""
+    return dataclasses.replace(cfg, dtype="float32")
+
+
+def run_serving(cfg, cell_of, f32_of=f32_copy) -> dict:
     """``ServeEngine.generate`` of one cell at full width (bf16
-    activations over f32 masters from ``SEED``) on ``lm_prompts``: cold
-    and repeat (the same tokens, each kernel launched as the cell says,
-    the counts set to 0 just before each), a timed run (prefill against
-    decode), ``serve_checks``, a profiled run, then ``serve_checks``
-    again on an f32-activation copy.  ``cell_of(cfg, prompts)`` gives
-    the cell for a config.  -> {"launches": the cold run's counts}."""
+    activations over weights in ``cfg.param_dtype`` from ``SEED``) on
+    ``lm_prompts``: cold and repeat (the same tokens, each kernel
+    launched as the cell says, the counts set to 0 just before each), a
+    timed run (prefill against decode, and the decode step against its
+    weights' bound), ``serve_checks``, a profiled run, then
+    ``serve_checks`` again on the f32 copy ``f32_of(cfg)``.
+    ``cell_of(cfg, prompts)`` gives the cell for a config.  -> {"launches":
+    the cold run's counts, "perf": the timed run's readings}."""
     prompts = lm_prompts(cfg)
     cell = cell_of(cfg, prompts)
     model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = model.init_params(seed=SEED, device=DEVICE)
     torch.cuda.synchronize()
-    log(f"lm: {cfg.name} ({model.param_count()} parameters, f32 masters, "
-        f"{cfg.dtype} activations, {cfg.n_layers} layers) initialised on "
-        f"the card from seed {SEED} in {time.perf_counter() - t0:.2f} s")
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in params.parameters())
+    log(f"lm: {cfg.name} ({model.param_count()} parameters held in "
+        f"{cfg.param_dtype}, {weight_bytes / 2**30:.3f} GiB, {cfg.dtype} "
+        f"activations, {cfg.n_layers} layers) initialised on the card from "
+        f"seed {SEED} in {time.perf_counter() - t0:.2f} s; "
+        f"max_memory_allocated at init "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     lens = [len(p) for p in prompts]
     eng = ServeEngine(model, params, max_len=LM_MAX_LEN)
     n_new = LM_NEW_TOKENS
@@ -4103,17 +4308,24 @@ def run_serving(cfg, cell_of) -> dict:
     peak = torch.cuda.max_memory_allocated()
     pre = spent["prefill"]
     dec = wall - pre
+    # a decode step reads every weight but the embedding table (a row a
+    # token) once: the reference's dispatch runs all experts every step
+    step_bytes = weight_bytes - params.embed.table.numel() \
+        * params.embed.table.element_size()
     perf = dict(prefill_s=pre, prefill_tok_s=sum(lens) / pre,
                 prefill_padded_tok_s=len(lens) * max(lens) / pre,
                 decode_ms_per_step=dec / n_new * 1e3,
                 decode_tok_s=len(lens) * n_new / dec, generate_s=wall,
-                peak_bytes=peak)
+                peak_bytes=peak,
+                decode_weight_bound_ms=step_bytes / HBM_BYTES_PER_S * 1e3)
     log(f"serve {cfg.name} (timed): prefill {pre:.4f} s = "
         f"{perf['prefill_tok_s']:.0f} prompt tokens/s "
         f"({perf['prefill_padded_tok_s']:.0f} padded); decode {n_new} "
         f"steps in {dec:.4f} s = {perf['decode_ms_per_step']:.3f} ms/step "
-        f"= {perf['decode_tok_s']:.1f} tokens/s at batch {len(lens)}; "
-        f"max_memory_allocated {peak / 2**30:.3f} GiB")
+        f"= {perf['decode_tok_s']:.1f} tokens/s at batch {len(lens)} "
+        f"(a step's weights, {step_bytes / 2**30:.3f} GiB, bound it at "
+        f"{perf['decode_weight_bound_ms']:.3f} ms); max_memory_allocated "
+        f"{peak / 2**30:.3f} GiB")
 
     # the kernels against their plain versions, batch 1, decode against
     # prefill and the planted faults: in the config's bf16, then in f32,
@@ -4123,21 +4335,28 @@ def run_serving(cfg, cell_of) -> dict:
         raise AssertionError("recorded generate differs from the first")
     busy = serve_busy(eng, prompts, kernel_names=cell.device_names)
     del eng, params
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    torch.cuda.empty_cache()
+    cfg32 = f32_of(cfg)
     model32 = build_model(cfg32)
+    torch.cuda.reset_peak_memory_stats()
     eng32 = ServeEngine(model32, model32.init_params(seed=SEED,
                                                      device=DEVICE),
                         max_len=LM_MAX_LEN)
+    log(f"lm: {cfg32.name} f32 check copy ({cfg32.n_layers} layers, "
+        f"{model32.param_count()} parameters held in "
+        f"{cfg32.param_dtype}); max_memory_allocated at init "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     chk32 = serve_checks(eng32, prompts, cell_of(cfg32, prompts))
     busy32 = serve_busy(eng32, prompts, kernel_names=cell.device_names)
     del eng32
+    torch.cuda.empty_cache()
     log(f"lm serving {cfg.name}: " + json.dumps(dict(
         perf, **busy, **{f"float32_{k}": v for k, v in busy32.items()},
         **{f"{c['dtype']}_{k}": c[k]
                          for c in (chk, chk32)
                          for k in ("plain", "batch1", "decode_vs_prefill",
                                    "faults")})))
-    return dict(launches=runs[0][1])
+    return dict(launches=runs[0][1], perf=perf)
 
 
 def run_lm() -> list:
@@ -4310,9 +4529,10 @@ def run_ssm() -> list:
 
 
 def run_hybrid(kernels: list) -> None:
-    """Zamba2 serving at full zamba2-7b width (81 layers: 13 groups of 5
-    Mamba2 layers and a shared block, 3 tail layers; d_model 3584, 32 of
-    32 heads of 112, d_ff 14336, 112 SSM heads of P 64, N 64): the three
+    """Zamba2 serving at full zamba2-7b width and ``HYBRID_GROUPS`` of its
+    13 groups (33 of 81 layers: 5 groups of 5 Mamba2 layers and a shared
+    block, 3 tail layers; d_model 3584, 32 of 32 heads of 112, d_ff
+    14336, 112 SSM heads of P 64, N 64): the three
     kernels' instances at its shapes against their plain versions (head
     dim 112; (P, N) = (64, 64)), timed, then the hybrid serving cell.
     Each of ``kernels``' flash_attention, decode_attention and ssd_scan
@@ -4352,6 +4572,57 @@ def run_hybrid(kernels: list) -> None:
                                  max(r["max_abs_err"] for r in rows.values()))
 
 
+def run_moe(kernels: list) -> None:
+    """deepseek-moe-16b serving at full width (28 layers: 1 dense and 27
+    MoE layers of 64 routed experts, top-6, and 2 shared; d_model 2048,
+    16 of 16 heads of 128, vocab 102,400; its weights held in bf16): the
+    attention kernels' head-dim-128 instances against their plain
+    versions (flash at S 500 and 512 at its heads and at S 512 at the
+    other configs' head layouts; decode at B 4, S 1024 at every layout),
+    its own timed beside SDPA, then the MoE serving cell, whose f32 check
+    copy has 14 of the 28 layers.  Each of ``kernels``' flash_attention
+    and decode_attention records gains a ``moe`` entry (the D 128
+    instance's times, bound and error; the decode record the timed
+    decode step against its weights' bound) and ``launches_moe`` (the
+    cold generate's count)."""
+    torch.cuda.empty_cache()
+    fa = check_flash_attention(flash_check.MOE_HEADS,
+                               timed=("D128 S500 causal",
+                                      "D128 S512 causal"))
+    for heads in flash_check.D128_LAYOUTS.values():
+        fa.update(check_flash_attention(heads, timed=()))
+    da = check_decode_attention(decode_check.D128_CASES,
+                                timed=(decode_check.MOE_CASE[0],))
+    served_run = run_serving(MOE_CFG, moe_cell, f32_of=moe_f32_copy)
+    by_name = {k["name"]: k for k in kernels}
+    keys = ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "bound_f32_core_ms", "max_abs_err")
+    perf = served_run["perf"]
+    for name, rows, main_case, shape in (
+            ("flash_attention", fa, "D128 S500 causal",
+             "B 4, S 500, Hq 16, Hkv 16, D 128, causal"),
+            ("decode_attention", da, decode_check.MOE_CASE[0],
+             "B 4, S 1024, Hq 16, Hkv 16, D 128, kv_len (1, 61, 512, "
+             "1024)")):
+        rec = by_name[name]
+        entry = {dt: {k: rows[(main_case, dt)].get(k) for k in keys}
+                 for dt in ("bfloat16", "float32")}
+        if name == "flash_attention":
+            for dt in entry:
+                entry[dt]["library_device_ms"] = \
+                    rows[(main_case, dt)]["library_device_ms"]
+        else:
+            entry["bfloat16"]["blocks"] = rows[(main_case, "bfloat16")][
+                "blocks"]
+            entry["serve_decode_ms_per_step"] = perf["decode_ms_per_step"]
+            entry["serve_decode_weight_bound_ms"] = \
+                perf["decode_weight_bound_ms"]
+        rec["moe"] = dict(shape=shape, **entry)
+        rec["launches_moe"] = served_run["launches"][name]
+        rec["max_abs_err"] = max(rec["max_abs_err"],
+                                 max(r["max_abs_err"] for r in rows.values()))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4367,6 +4638,7 @@ def main() -> int:
     video, bank, params, untrained = run_video()
     kernels = video + run_lm() + run_ssm()
     run_hybrid(kernels)
+    run_moe(kernels)
     # the fleet last: after its stream threads, the profiler's traces
     # held no device kernel for the rest of the process (twice), and
     # every phase before it reads the profiler

@@ -3,9 +3,10 @@
 The port runs the pipeline's main path (one clip through
 ``core.executor.ClipExecutor``: decode -> proxy -> detect -> track) on an
 NVIDIA GPU, with TRACK on the host or on the device, the per-frame engine
-and the unfused proxy path, and the serving path of the dense and Mamba2
-language models (``serve.ServeEngine`` over ``models``: ragged prefill,
-then decode).  Its nine kernels, ``kernels.proxy_plan``,
+and the unfused proxy path, and the serving path of the dense,
+mixture-of-experts, Mamba2 and Zamba2 language models
+(``serve.ServeEngine`` over ``models``: ragged prefill, then decode).
+Its nine kernels, ``kernels.proxy_plan``,
 ``kernels.proxy_score``, ``kernels.window_gather`` (two),
 ``kernels.assign``, ``kernels.track_step``, ``kernels.flash_attention``,
 ``kernels.decode_attention`` and ``kernels.ssd_scan``, are hand-written

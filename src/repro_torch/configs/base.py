@@ -4,10 +4,11 @@ package's ``configs/base.py``).
 Every architecture is a frozen ``ModelConfig``; ``reduced()`` gives the
 tiny same-family config the CPU tests run, and ``param_count()`` the
 analytic parameter count.  Configs are pure data.  The registry holds
-the configurations the port has copied so far (``mamba2_370m``,
-``qwen2_0_5b``, ``stablelm_1_6b``, ``zamba2_7b``); the models it serves
-are the ``dense``, ``ssm`` and ``hybrid`` families
-(``repro_torch.models``).
+the configurations the port has copied so far (``deepseek_67b``,
+``deepseek_coder_33b``, ``deepseek_moe_16b``, ``grok_1_314b``,
+``mamba2_370m``, ``qwen2_0_5b``, ``stablelm_1_6b``, ``zamba2_7b``); the
+models it serves are the ``dense``, ``moe``, ``ssm`` and ``hybrid``
+families (``repro_torch.models``).
 """
 from __future__ import annotations
 
@@ -295,6 +296,7 @@ _REGISTRY: Dict[str, ModelConfig] = {}
 def _load_all() -> None:
     """Import every per-arch module once (each registers its config)."""
     from repro_torch.configs import (  # noqa: F401
+        deepseek_67b, deepseek_coder_33b, deepseek_moe_16b, grok_1_314b,
         mamba2_370m, qwen2_0_5b, stablelm_1_6b, zamba2_7b)
 
 

@@ -20,9 +20,12 @@
 // In f32 (3xTF32: three tf32 products at 495 TFLOP/s) the same work is
 // 11 us, against 5 us for its 16.8 MB at S 512.  zamba2-7b's prefill (B
 // 4, S 500, Hq = Hkv = 32, D 112, causal, bf16) moves 57.3 MB (17.1 us)
-// for 7.2 GFLOP (7.3 us at the bf16 peak): bytes again.
+// for 7.2 GFLOP (7.3 us at the bf16 peak): bytes again; deepseek-moe-16b's
+// (Hq = Hkv = 16, D 128) moves 32.8 MB (9.8 us) for 4.1 GFLOP (4.2 us).
 //
-// Head dims 64 and 112 are built (launch_bf16, launch_f32).  A bf16 row
+// Head dims 64, 112 and 128 are built (launch_bf16, launch_f32).  D 128
+// is two whole 64-column panels in bf16 and four 32-float panels in f32
+// (no zero fill), with D 112's shared memory (82 KB, 193 KB).  A bf16 row
 // of 112 is 224 bytes, not a whole number of the 128-byte swizzle rows
 // the tensor maps and wgmma's descriptors use, so a tile is D / 64
 // panels of 64 columns (two at D 112), each its own TMA box; the box of
@@ -735,7 +738,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 }  // namespace tf
 
 // built for the head dims of the configs served on the card: 64
-// (qwen2-0.5b, stablelm-1.6b) and 112 (zamba2-7b)
+// (qwen2-0.5b, stablelm-1.6b), 112 (zamba2-7b) and 128 (deepseek-moe-16b,
+// and the heads of grok-1-314b, deepseek-67b and deepseek-coder-33b)
 int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
                int Sq, int Skv, int Hq, int Hkv, int D, int n_valid,
                int causal, float scale, cudaStream_t stream) {
@@ -744,6 +748,9 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
                           scale, stream);
   if (D == 112)
     return tf::launch<112>(q, k, v, o, B, Sq, Skv, Hq, Hkv, n_valid, causal,
+                           scale, stream);
+  if (D == 128)
+    return tf::launch<128>(q, k, v, o, B, Sq, Skv, Hq, Hkv, n_valid, causal,
                            scale, stream);
   return (int)cudaErrorInvalidValue;
 }
@@ -756,6 +763,9 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
                           scale, stream);
   if (D == 112)
     return tc::launch<112>(q, k, v, o, B, Sq, Skv, Hq, Hkv, n_valid, causal,
+                           scale, stream);
+  if (D == 128)
+    return tc::launch<128>(q, k, v, o, B, Sq, Skv, Hq, Hkv, n_valid, causal,
                            scale, stream);
   return (int)cudaErrorInvalidValue;
 }

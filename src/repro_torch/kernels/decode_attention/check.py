@@ -10,25 +10,36 @@ import torch
 
 from repro_torch.kernels.decode_attention.ops import (decode_attention,
                                                       decode_attention_ref)
-from repro_torch.kernels.flash_attention.check import (kernel_agrees,
+from repro_torch.kernels.flash_attention.check import (D128_LAYOUTS,
+                                                       kernel_agrees,
                                                        operands)
 
-# (name, B, S, Hq, Hkv, D, kv_len): the serving call at qwen2-0.5b's heads
-# and max_len 1024 with kv_len (1, 61, S/2, S); an empty row and lengths
-# on either side of a 64-key tile; a full 16-head group (MAX_GROUP);
-# stablelm-1.6b's heads (MHA, 32 of 32 of 64: 512 clusters of 16 blocks)
-# and zamba2-7b's (MHA, 32 of 32 of 112) at the serving call's lengths
-CASES = (("B4 S1024 kv_len (1, 61, 512, 1024)", 4, 1024, 14, 2, 64,
-          (1, 61, 512, 1024)),
-         ("B4 S1024 kv_len (0, 64, 65, 1023)", 4, 1024, 14, 2, 64,
-          (0, 64, 65, 1023)),
-         ("G16 B2 S256 kv_len (200, 256)", 2, 256, 32, 2, 64, (200, 256)),
-         ("MHA32 B4 S1024 kv_len (1, 61, 512, 1024)", 4, 1024, 32, 32, 64,
-          (1, 61, 512, 1024)),
-         ("D112 MHA32 B4 S1024 kv_len (1, 61, 512, 1024)", 4, 1024, 32, 32,
-          112, (1, 61, 512, 1024)))
-# the zamba2-7b serving call, timed in chip_smoke.py beside the first
-HYBRID_CASE = CASES[-1]
+# (name, B, S, Hq, Hkv, D, kv_len).  run_lm's: the serving call at
+# qwen2-0.5b's heads and max_len 1024 with kv_len (1, 61, S/2, S); an
+# empty row and lengths on either side of a 64-key tile; a full 16-head
+# group (MAX_GROUP); stablelm-1.6b's heads (MHA, 32 of 32 of 64: 512
+# clusters of 16 blocks) at the serving call's lengths
+LM_CASES = (("B4 S1024 kv_len (1, 61, 512, 1024)", 4, 1024, 14, 2, 64,
+             (1, 61, 512, 1024)),
+            ("B4 S1024 kv_len (0, 64, 65, 1023)", 4, 1024, 14, 2, 64,
+             (0, 64, 65, 1023)),
+            ("G16 B2 S256 kv_len (200, 256)", 2, 256, 32, 2, 64,
+             (200, 256)),
+            ("MHA32 B4 S1024 kv_len (1, 61, 512, 1024)", 4, 1024, 32, 32,
+             64, (1, 61, 512, 1024)))
+# the zamba2-7b serving call (MHA, 32 of 32 of 112), timed in
+# chip_smoke.py beside the first
+HYBRID_CASE = ("D112 MHA32 B4 S1024 kv_len (1, 61, 512, 1024)", 4, 1024,
+               32, 32, 112, (1, 61, 512, 1024))
+# the deepseek-moe-16b serving call (MHA, 16 of 16 of 128), timed
+# likewise, and the other head-dim-128 layouts (groups of 6, 8 and 7) at
+# its lengths
+MOE_CASE = ("D128 MHA16 B4 S1024 kv_len (1, 61, 512, 1024)", 4, 1024, 16,
+            16, 128, (1, 61, 512, 1024))
+D128_CASES = (MOE_CASE,) + tuple(
+    (f"D128 {arch} B4 S1024 kv_len (1, 61, 512, 1024)", 4, 1024, hq, hkv,
+     d, (1, 61, 512, 1024)) for arch, (hq, hkv, d) in D128_LAYOUTS.items())
+CASES = LM_CASES + (HYBRID_CASE,) + D128_CASES
 DTYPES = (torch.bfloat16, torch.float32)
 
 

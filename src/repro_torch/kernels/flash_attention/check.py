@@ -24,13 +24,22 @@ B = 4
 HQ, HKV, D = 14, 2, 64
 # zamba2-7b's shared attention block: 32 query heads over 32 KV heads of 112
 HYBRID_HEADS = (32, 32, 112)
+# deepseek-moe-16b's: 16 query heads over 16 KV heads of 128
+MOE_HEADS = (16, 16, 128)
+# the other head-dim-128 layouts of the configs: grok-1-314b's 48 over 8,
+# deepseek-67b's 64 over 8 and deepseek-coder-33b's 56 over 8 (a group of
+# 7, no power of two)
+D128_LAYOUTS = {"grok-1-314b": (48, 8, 128), "deepseek-67b": (64, 8, 128),
+                "deepseek-coder-33b": (56, 8, 128)}
 # (name, dtype, Sq, Skv, causal, kv_valid, (Hq, Hkv, D)): the serving
 # shape (S 512) in both dtypes, the prefill's own S 500 (the ragged edge,
 # masked in the kernel), Sq 128 < Skv 512 causal (queries at the end of
 # the keys), non-causal, kv_valid 500, and Sq 512 > Skv 256 causal, whose
 # first 256 rows see no key (they must be 0), at qwen2-0.5b's heads; then
 # zamba2-7b's prefill (S 500) and S 512 at head dim 112 (two 64-column
-# panels, the second 48 wide), both dtypes
+# panels, the second 48 wide), both dtypes; deepseek-moe-16b's the same
+# at head dim 128 (two whole panels), and S 512 at each of the other
+# head-dim-128 layouts, both dtypes (the f32 cases span 8 query tiles)
 CASES = (("S512 causal", torch.bfloat16, 512, 512, True, 0, (HQ, HKV, D)),
          ("S512 causal", torch.float32, 512, 512, True, 0, (HQ, HKV, D)),
          ("S500 causal", torch.bfloat16, 500, 500, True, 0, (HQ, HKV, D)),
@@ -50,7 +59,14 @@ CASES = (("S512 causal", torch.bfloat16, 512, 512, True, 0, (HQ, HKV, D)),
          ("D112 S512 causal", torch.bfloat16, 512, 512, True, 0,
           HYBRID_HEADS),
          ("D112 S512 causal", torch.float32, 512, 512, True, 0,
-          HYBRID_HEADS))
+          HYBRID_HEADS),
+         ("D128 S500 causal", torch.bfloat16, 500, 500, True, 0, MOE_HEADS),
+         ("D128 S500 causal", torch.float32, 500, 500, True, 0, MOE_HEADS),
+         ("D128 S512 causal", torch.bfloat16, 512, 512, True, 0, MOE_HEADS),
+         ("D128 S512 causal", torch.float32, 512, 512, True, 0, MOE_HEADS)
+         ) + tuple((f"D128 {arch} S512 causal", dt, 512, 512, True, 0, heads)
+                   for arch, heads in D128_LAYOUTS.items()
+                   for dt in (torch.bfloat16, torch.float32))
 # head dims the wrapper must refuse on a CUDA tensor: no kernel build
 UNBUILT_HEAD_DIMS = (32, 96)
 

@@ -38,8 +38,9 @@ from repro_torch.kernels._build import library
 NEG_INF = float(np.finfo(np.float32).min)
 BLOCK = 128                      # the reference wrapper's block_q/block_k
 # head dims the kernels are built for: qwen2-0.5b's and stablelm-1.6b's
-# 64, zamba2-7b's 112
-HEAD_DIMS = (64, 112)
+# 64, zamba2-7b's 112, deepseek-moe-16b's (and grok-1-314b's,
+# deepseek-67b's and deepseek-coder-33b's) 128
+HEAD_DIMS = (64, 112, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 # flash_attention_launch(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, kv_valid,
 #                        causal, sm_scale, bf16, stream)

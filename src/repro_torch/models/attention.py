@@ -19,6 +19,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.models.common import param_dtype
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.layers import Linear, apply_rope, rope_tables
 
@@ -34,11 +35,12 @@ class Attention(nn.Module):
                  d_in: Optional[int] = None):
         super().__init__()
         d = d_in or cfg.d_model
+        dt = param_dtype(cfg)
         self.cfg = cfg
-        self.wq = Linear(d, cfg.q_dim, cfg.qkv_bias, device)
-        self.wk = Linear(d, cfg.kv_dim, cfg.qkv_bias, device)
-        self.wv = Linear(d, cfg.kv_dim, cfg.qkv_bias, device)
-        self.wo = Linear(cfg.q_dim, cfg.d_model, False, device)
+        self.wq = Linear(d, cfg.q_dim, cfg.qkv_bias, device, dt)
+        self.wk = Linear(d, cfg.kv_dim, cfg.qkv_bias, device, dt)
+        self.wv = Linear(d, cfg.kv_dim, cfg.qkv_bias, device, dt)
+        self.wo = Linear(cfg.q_dim, cfg.d_model, False, device, dt)
 
     def project(self, x: torch.Tensor):
         """``_project_qkv``: x (B, S, d_in) -> q (B, S, Hq, D), k, v (B,

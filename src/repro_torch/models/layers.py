@@ -1,12 +1,15 @@
 """Building blocks of the language models (the port's counterpart of the
 JAX package's ``models/layers.py``).
 
-Dtype rules, as the reference's: parameters are f32 master weights;
-compute follows the activations (bf16 at the configs' default), with
-each weight cast to the activation dtype at use; norms run in f32 and
-logits come out in f32.  ``Linear`` and ``SwiGLU`` keep each weight's
-copy in the activation dtype beside it, made once when the weight is
-written (``TransformerLM.load_``): the bits of a cast at every use.
+Dtype rules, as the reference's: parameters are held in the config's
+``param_dtype`` (f32 master weights by default; bf16 where a model does
+not fit the card otherwise), each module built with ``dtype=``; compute
+follows the activations (bf16 at the configs' default), with each weight
+cast to the activation dtype at use; norms run in f32 (their scales
+upcast) and logits come out in f32 (the tied table or the head upcast).
+``Linear`` and ``SwiGLU`` keep each weight's copy in the activation
+dtype beside it when the two dtypes differ, made once when the weight
+is written (``TransformerLM.load_``): the bits of a cast at every use.
 
 ``Linear`` keeps the reference's weight layout, ``w`` of shape
 (d_in, d_out), so ``params.lm_from_params`` copies it as it is.
@@ -20,24 +23,27 @@ import torch.nn.functional as F
 from torch import nn
 
 
-def empty_param(shape, device) -> nn.Parameter:
-    """An f32 parameter to be filled by an init or the bridge (serving
-    only: no gradient)."""
-    return nn.Parameter(torch.empty(tuple(shape), dtype=torch.float32,
+def empty_param(shape, device, dtype=None) -> nn.Parameter:
+    """A parameter in ``dtype`` (default f32) to be filled by an init or
+    the bridge (serving only: no gradient)."""
+    return nn.Parameter(torch.empty(tuple(shape),
+                                    dtype=dtype or torch.float32,
                                     device=device), requires_grad=False)
 
 
 class CastWeights(nn.Module):
-    """A module whose f32 weights are used in the activation dtype.
+    """A module whose weights are used in the activation dtype.
     ``keep_cast(name, dtype)`` stores ``<name>`` cast to ``dtype`` as a
     non-persistent buffer ``<name>_cast`` (so ``.to()`` moves it and
-    ``state_dict`` leaves it out); whoever writes the weight calls it
-    again.  Without a kept copy of that dtype a use casts."""
+    ``state_dict`` leaves it out) when the weight is held in another
+    dtype, and no second copy when it is held in ``dtype`` already;
+    whoever writes the weight calls it again.  Without a kept copy of
+    that dtype a use casts (a no-op for a weight held in it)."""
 
     def keep_cast(self, name: str, dtype: torch.dtype) -> None:
-        if dtype != torch.float32:
-            self.register_buffer(f"{name}_cast",
-                                 getattr(self, name).detach().to(dtype),
+        weight = getattr(self, name)
+        if dtype != weight.dtype:
+            self.register_buffer(f"{name}_cast", weight.detach().to(dtype),
                                  persistent=False)
 
     def weight(self, name: str, dtype: torch.dtype) -> torch.Tensor:
@@ -49,20 +55,21 @@ class CastWeights(nn.Module):
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float
             ) -> torch.Tensor:
-    """``rmsnorm``: computed in f32, returned in the input's dtype."""
+    """``rmsnorm``: computed in f32 (the scale upcast), returned in the
+    input's dtype."""
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
-    return (y * scale).to(x.dtype)
+    return (y * scale.float()).to(x.dtype)
 
 
 class RMSNorm(nn.Module):
     """``rmsnorm`` with its scale as a parameter."""
 
-    def __init__(self, dim: int, eps: float, device=None):
+    def __init__(self, dim: int, eps: float, device=None, dtype=None):
         super().__init__()
         self.eps = eps
-        self.scale = empty_param((dim,), device)
+        self.scale = empty_param((dim,), device, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return rmsnorm(x, self.scale, self.eps)
@@ -72,10 +79,11 @@ class Linear(CastWeights):
     """``linear``: y = x @ w (+ b), weight (d_in, d_out), both cast to
     x's dtype."""
 
-    def __init__(self, d_in: int, d_out: int, bias: bool, device=None):
+    def __init__(self, d_in: int, d_out: int, bias: bool, device=None,
+                 dtype=None):
         super().__init__()
-        self.w = empty_param((d_in, d_out), device)
-        self.b = empty_param((d_out,), device) if bias else None
+        self.w = empty_param((d_in, d_out), device, dtype)
+        self.b = empty_param((d_out,), device, dtype) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = torch.matmul(x, self.weight("w", x.dtype))
@@ -87,9 +95,9 @@ class Linear(CastWeights):
 class Embedding(nn.Module):
     """The token table (vocab, d); ``embed`` and the tied ``unembed``."""
 
-    def __init__(self, vocab: int, dim: int, device=None):
+    def __init__(self, vocab: int, dim: int, device=None, dtype=None):
         super().__init__()
-        self.table = empty_param((vocab, dim), device)
+        self.table = empty_param((vocab, dim), device, dtype)
 
     def embed(self, tokens: torch.Tensor, dtype: torch.dtype
               ) -> torch.Tensor:
@@ -98,8 +106,8 @@ class Embedding(nn.Module):
         return self.table[tokens].to(dtype)
 
     def unembed(self, x: torch.Tensor) -> torch.Tensor:
-        """Logits in f32 (loss numerics)."""
-        return torch.matmul(x.float(), self.table.t())
+        """Logits in f32 (loss numerics): both sides upcast."""
+        return torch.matmul(x.float(), self.table.float().t())
 
 
 def rope_tables(positions: torch.Tensor, head_dim: int, theta: float
@@ -132,12 +140,12 @@ class SwiGLU(CastWeights):
     back to ``d_model``, as ``def_mlp_swiglu``."""
 
     def __init__(self, d_model: int, d_ff: int, device=None,
-                 d_in: Optional[int] = None):
+                 d_in: Optional[int] = None, dtype=None):
         super().__init__()
         d_in = d_in or d_model
-        self.w_gate = empty_param((d_in, d_ff), device)
-        self.w_up = empty_param((d_in, d_ff), device)
-        self.w_down = empty_param((d_ff, d_model), device)
+        self.w_gate = empty_param((d_in, d_ff), device, dtype)
+        self.w_up = empty_param((d_in, d_ff), device, dtype)
+        self.w_down = empty_param((d_ff, d_model), device, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         g = torch.matmul(x, self.weight("w_gate", x.dtype))

@@ -1,9 +1,10 @@
 """The Model API (the port's counterpart of the JAX package's
-``models/model.py``), dense, ssm and hybrid families.
+``models/model.py``), dense, moe, ssm and hybrid families.
 
 ``build_model(cfg)`` returns a ``Model`` exposing:
 
-  init_params(seed, device=)  -> TransformerLM (f32 master weights)
+  init_params(seed, device=)  -> TransformerLM (weights in the config's
+                                 param_dtype: f32 masters by default)
   param_specs() / param_count()
   forward(params, batch, return_cache=)  -> (logits, aux, cache | None)
   prefill(params, batch, max_len=)       -> (logits_last (B, V), cache)
@@ -55,11 +56,14 @@ class Model:
     def init_params(self, seed: int = 0, device: Device = "cuda"
                     ) -> TransformerLM:
         """Weights drawn by name from ``seed`` (``models.common``), on
-        ``device``: the port's own init, not the reference's numbers."""
+        ``device``: the port's own init, not the reference's numbers.
+        Each is drawn in f32 and held in its spec's dtype or the config's
+        ``param_dtype``; one parameter's f32 draw lives at a time."""
         dev = resolve_device(device)
         model = TransformerLM(self.cfg, dev)
         for spec in self.param_specs():
-            model.load_(spec.path, init_tensor(spec, seed, dev))
+            model.load_(spec.path, init_tensor(spec, seed, dev,
+                                               self.cfg.param_dtype))
         return model.eval()
 
     def forward(self, params: TransformerLM, batch: Dict[str, Any],

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_step
+from repro_torch.models.common import param_dtype
 from repro_torch.models.layers import (CastWeights, Linear, empty_param,
                                       rmsnorm)
 
@@ -59,15 +60,16 @@ class SSMBlock(CastWeights):
         super().__init__()
         s, d_inner, n_heads, conv_dim = dims(cfg)
         d = cfg.d_model
+        dt = param_dtype(cfg)
         self.cfg = cfg
-        self.in_proj = Linear(d, proj_dim(cfg), False, device)
-        self.conv_w = empty_param((s.d_conv, conv_dim), device)
-        self.conv_b = empty_param((conv_dim,), device)
-        self.A_log = empty_param((n_heads,), device)
-        self.dt_bias = empty_param((n_heads,), device)
-        self.D = empty_param((n_heads,), device)
-        self.norm_scale = empty_param((d_inner,), device)
-        self.out_proj = Linear(d_inner, d, False, device)
+        self.in_proj = Linear(d, proj_dim(cfg), False, device, dt)
+        self.conv_w = empty_param((s.d_conv, conv_dim), device, dt)
+        self.conv_b = empty_param((conv_dim,), device, dt)
+        self.A_log = empty_param((n_heads,), device, dt)
+        self.dt_bias = empty_param((n_heads,), device, dt)
+        self.D = empty_param((n_heads,), device, dt)
+        self.norm_scale = empty_param((d_inner,), device, dt)
+        self.out_proj = Linear(d_inner, d, False, device, dt)
 
     def keep_cast(self, name: str, dtype: torch.dtype) -> None:
         if name in self.CAST:
@@ -81,13 +83,14 @@ class SSMBlock(CastWeights):
 
     def _ssm_inputs(self, conv: torch.Tensor, dt: torch.Tensor):
         """silu(conv + conv_b) split into x, B, C; softplus(dt + dt_bias)
-        in f32; A = -exp(A_log)."""
+        in f32; A = -exp(A_log) (dt_bias and A_log upcast)."""
         s, d_inner, _, _ = dims(self.cfg)
         gN = s.n_groups * s.d_state
         conv = F.silu(conv + self.weight("conv_b", conv.dtype))
-        dt_act = F.softplus(dt.float() + self.dt_bias)
+        dt_act = F.softplus(dt.float() + self.dt_bias.float())
         return (conv[..., :d_inner], conv[..., d_inner:d_inner + gN],
-                conv[..., d_inner + gN:], dt_act, -torch.exp(self.A_log))
+                conv[..., d_inner + gN:], dt_act,
+                -torch.exp(self.A_log.float()))
 
     def _out(self, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
         """``_gated_norm`` (RMSNorm(y * silu(z)), in f32, back in y's
@@ -115,7 +118,7 @@ class SSMBlock(CastWeights):
             conv = conv + pad[:, i:i + S_] * w[i]
         xs, Bm, Cm, dt_act, A = self._ssm_inputs(conv, dt)
         y, final = ssd_scan(xs.reshape(B_, S_, n_heads, s.head_dim), dt_act,
-                            A, Bm, Cm, self.D, chunk=s.chunk_size)
+                            A, Bm, Cm, self.D.float(), chunk=s.chunk_size)
         out = self._out(y.reshape(B_, S_, d_inner), z)
         if return_state:
             return out, {"ssm": final, "conv": xbc[:, S_ - (s.d_conv - 1):]}
@@ -134,7 +137,7 @@ class SSMBlock(CastWeights):
                             self.weight("conv_w", x.dtype))
         xt, Bt, Ct, dt_act, A = self._ssm_inputs(conv, dt)
         y, new = ssd_step(state["ssm"], xt.reshape(B_, n_heads, s.head_dim),
-                          dt_act, A, Bt, Ct, self.D)
+                          dt_act, A, Bt, Ct, self.D.float())
         state["ssm"].copy_(new)
         tail.copy_(hist[:, 1:])
         return self._out(y.reshape(B_, d_inner), z)[:, None]

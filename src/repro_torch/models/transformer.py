@@ -1,4 +1,4 @@
-"""Decoder-only LM assembly, dense, ssm and hybrid families (the port's
+"""Decoder-only LM assembly, dense, moe, ssm and hybrid families (the port's
 counterpart of the JAX package's ``models/transformer.py``): parameter
 specs, the full-sequence forward with cache capture (prefill), caches,
 and the single-token decode.
@@ -9,7 +9,10 @@ The reference stacks each layer's parameters on leading axes and runs
 shapes, so a stacked tensor (the reference's, or the port's own init) is
 split over the layers when it is loaded.  The caches are the reference's
 trees: for the dense family one (L, B, S, Hkv, D) K/V tensor pair; for
-the ssm family (Mamba2) ``{"ssm": (L, B, H, P, N) f32, "conv": (L, B,
+the moe family one pair a stack, ``dense_layers`` (the first
+``dense_first_n`` layers, whose MLP is a SwiGLU of ``dense_d_ff``) and
+``layers`` (the rest, whose MLP is a ``moe.MoEBlock``); for the ssm
+family (Mamba2) ``{"ssm": (L, B, H, P, N) f32, "conv": (L, B,
 d_conv - 1, conv_dim)}``, which has no sequence axis.
 
 The hybrid family (Zamba2) runs ``n_groups`` groups of ``ssm_per_group``
@@ -35,18 +38,18 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import Attention, Rope, kv_cache_shape
-from repro_torch.models.common import ParamSpec
+from repro_torch.models.common import ParamSpec, param_dtype
 from repro_torch.models.layers import (CastWeights, Embedding, Linear,
                                       RMSNorm, SwiGLU)
+from repro_torch.models.moe import MoEBlock
 from repro_torch.models.ssm import (SSMBlock, dims as ssm_dims,
                                    init_ssm_state, proj_dim)
 
 Cache = Dict[str, Any]
-PORTED = ("dense", "ssm", "hybrid")
+PORTED = ("dense", "moe", "ssm", "hybrid")
 
 # families still to port, and the ROADMAP.md queue 1 item that will
 NOT_PORTED = {
-    "moe": "queue 1 item 12d (mixture of experts)",
     "vlm": "queue 1 item 12e (vision frontend)",
     "encdec": "queue 1 item 12f (encoder-decoder, cross-attention)",
 }
@@ -83,28 +86,66 @@ def _ssm_layer_specs(cfg: ModelConfig, prefix: str,
             ParamSpec(f"{prefix}/ssm/out_proj/w", lead + (d_inner, d))]
 
 
-def _attn_block_specs(cfg: ModelConfig, prefix: str, n: int,
-                      d_in: int) -> List[ParamSpec]:
-    """An attention + SwiGLU block (``_def_attn_layer``, or the hybrid's
-    shared block reading ``d_in`` = 2 d_model) under ``prefix``, stacked
-    on ``(n,)``."""
-    d, q, kv, ff = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff
+def _swiglu_specs(prefix: str, lead: Tuple[int, ...], d_in: int, ff: int,
+                  d: int) -> List[ParamSpec]:
+    """``def_mlp_swiglu`` under ``prefix``, stacked on the ``lead``
+    axes."""
+    return [ParamSpec(f"{prefix}/w_gate", lead + (d_in, ff)),
+            ParamSpec(f"{prefix}/w_up", lead + (d_in, ff)),
+            ParamSpec(f"{prefix}/w_down", lead + (ff, d))]
+
+
+def _moe_specs(cfg: ModelConfig, prefix: str, n: int) -> List[ParamSpec]:
+    """``def_moe_block`` under ``prefix``, stacked on ``(n,)``: the router
+    (always f32), the routed experts stacked on E, the shared experts."""
+    m, d = cfg.moe, cfg.d_model
+    E, f = m.n_experts, m.expert_d_ff
+    specs = [ParamSpec(f"{prefix}/router", (n, d, E), dtype="float32"),
+             ParamSpec(f"{prefix}/experts/w_gate", (n, E, d, f)),
+             ParamSpec(f"{prefix}/experts/w_up", (n, E, d, f)),
+             ParamSpec(f"{prefix}/experts/w_down", (n, E, f, d))]
+    for i in range(m.n_shared):
+        specs += _swiglu_specs(f"{prefix}/shared{i}", (n,), d, f, d)
+    return specs
+
+
+def _attn_block_specs(cfg: ModelConfig, prefix: str, n: int, d_in: int,
+                      d_ff: Optional[int] = None,
+                      moe: bool = False) -> List[ParamSpec]:
+    """An attention block (``_def_attn_layer``, or the hybrid's shared
+    block reading ``d_in`` = 2 d_model) under ``prefix``, stacked on
+    ``(n,)``: its MLP a SwiGLU of ``d_ff`` (default ``cfg.d_ff``), or
+    with ``moe`` an MoE block."""
+    d, q, kv = cfg.d_model, cfg.q_dim, cfg.kv_dim
     specs = [ParamSpec(f"{prefix}/ln_attn/scale", (n, d_in), "ones")]
     for name, d_out in (("wq", q), ("wk", kv), ("wv", kv)):
         specs.append(ParamSpec(f"{prefix}/attn/{name}/w", (n, d_in, d_out)))
         if cfg.qkv_bias:
             specs.append(ParamSpec(f"{prefix}/attn/{name}/b", (n, d_out),
                                    "zeros"))
-    return specs + [ParamSpec(f"{prefix}/attn/wo/w", (n, q, d)),
-                    ParamSpec(f"{prefix}/ln_mlp/scale", (n, d_in), "ones"),
-                    ParamSpec(f"{prefix}/mlp/w_gate", (n, d_in, ff)),
-                    ParamSpec(f"{prefix}/mlp/w_up", (n, d_in, ff)),
-                    ParamSpec(f"{prefix}/mlp/w_down", (n, ff, d))]
+    specs += [ParamSpec(f"{prefix}/attn/wo/w", (n, q, d)),
+              ParamSpec(f"{prefix}/ln_mlp/scale", (n, d_in), "ones")]
+    if moe:
+        return specs + _moe_specs(cfg, f"{prefix}/moe", n)
+    return specs + _swiglu_specs(f"{prefix}/mlp", (n,), d_in,
+                                 d_ff or cfg.d_ff, d)
+
+
+def attn_stack_sizes(cfg: ModelConfig) -> List[Tuple[str, int]]:
+    """The attention-layer stacks of the dense and moe families in order,
+    (parameter and cache key, layers): dense ``layers``; moe
+    ``dense_layers`` (when ``dense_first_n``) then ``layers``."""
+    if cfg.family != "moe":
+        return [("layers", cfg.n_layers)]
+    n_dense = cfg.moe.dense_first_n
+    return ([("dense_layers", n_dense)] if n_dense else []) \
+        + [("layers", cfg.n_layers - n_dense)]
 
 
 def param_specs(cfg: ModelConfig) -> List[ParamSpec]:
-    """``def_lm_params`` for the dense, ssm and hybrid families: paths
-    and shapes of the reference's parameter tree, layers stacked."""
+    """``def_lm_params`` for the dense, moe, ssm and hybrid families:
+    paths, shapes and dtype overrides of the reference's parameter tree,
+    layers stacked."""
     check_family(cfg)
     L, d = cfg.n_layers, cfg.d_model
     specs = [ParamSpec("embed/table", (cfg.vocab_size, d), scale=1.0)]
@@ -116,6 +157,11 @@ def param_specs(cfg: ModelConfig) -> List[ParamSpec]:
                                   (h.n_groups, h.ssm_per_group))
         specs += _attn_block_specs(cfg, "shared", h.n_shared_blocks, 2 * d)
         specs += _ssm_layer_specs(cfg, "tail", (h.tail_ssm,))
+    elif cfg.family == "moe":
+        for key, n in attn_stack_sizes(cfg):
+            specs += _attn_block_specs(
+                cfg, key, n, d, d_ff=cfg.moe.dense_d_ff,
+                moe=key == "layers")
     else:
         specs += _attn_block_specs(cfg, "layers", L, d)
     specs.append(ParamSpec("ln_final/scale", (d,), "ones"))
@@ -125,24 +171,41 @@ def param_specs(cfg: ModelConfig) -> List[ParamSpec]:
 
 
 class Block(nn.Module):
-    """One attention layer: ``_attn_layer_fwd`` (swiglu)."""
+    """One attention layer: ``_attn_layer_fwd``, its MLP ``mlp``, a SwiGLU
+    of ``d_ff`` (default ``cfg.d_ff``), or with ``moe`` an ``MoEBlock``
+    named ``moe``."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None,
+                 d_ff: Optional[int] = None, moe: bool = False):
         super().__init__()
-        self.ln_attn = RMSNorm(cfg.d_model, cfg.norm_eps, device)
+        dt = param_dtype(cfg)
+        self.ln_attn = RMSNorm(cfg.d_model, cfg.norm_eps, device, dt)
         self.attn = Attention(cfg, device=device)
-        self.ln_mlp = RMSNorm(cfg.d_model, cfg.norm_eps, device)
-        self.mlp = SwiGLU(cfg.d_model, cfg.d_ff, device)
+        self.ln_mlp = RMSNorm(cfg.d_model, cfg.norm_eps, device, dt)
+        if moe:
+            self.moe = MoEBlock(cfg, device)
+        else:
+            self.mlp = SwiGLU(cfg.d_model, d_ff or cfg.d_ff, device,
+                              dtype=dt)
+
+    def _ffn(self, h: torch.Tensor):
+        """h + the MLP of rmsnorm(h) -> (h, the MoE aux loss or None)."""
+        x = self.ln_mlp(h)
+        if "moe" in self._modules:
+            out, aux = self.moe(x)
+            return h + out, aux
+        return h + self.mlp(x), None
 
     def forward(self, h: torch.Tensor, rope: Optional[Rope] = None):
+        """-> (h, (k, v) after rope, the MoE aux loss or None)."""
         a, kv = self.attn(self.ln_attn(h), rope=rope)
-        h = h + a
-        return h + self.mlp(self.ln_mlp(h)), kv
+        h, aux = self._ffn(h + a)
+        return h, kv, aux
 
     def decode(self, h, cache_k, cache_v, pos, rope: Optional[Rope] = None):
         h = h + self.attn.decode(self.ln_attn(h), cache_k, cache_v, pos,
                                  rope)
-        return h + self.mlp(self.ln_mlp(h))
+        return self._ffn(h)[0]
 
 
 class SharedBlock(nn.Module):
@@ -152,11 +215,11 @@ class SharedBlock(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        d2 = 2 * cfg.d_model
-        self.ln_attn = RMSNorm(d2, cfg.norm_eps, device)
+        d2, dt = 2 * cfg.d_model, param_dtype(cfg)
+        self.ln_attn = RMSNorm(d2, cfg.norm_eps, device, dt)
         self.attn = Attention(cfg, device=device, d_in=d2)
-        self.ln_mlp = RMSNorm(d2, cfg.norm_eps, device)
-        self.mlp = SwiGLU(cfg.d_model, cfg.d_ff, device, d_in=d2)
+        self.ln_mlp = RMSNorm(d2, cfg.norm_eps, device, dt)
+        self.mlp = SwiGLU(cfg.d_model, cfg.d_ff, device, d_in=d2, dtype=dt)
 
     def _mlp(self, h: torch.Tensor, h_embed: torch.Tensor) -> torch.Tensor:
         return h + self.mlp(self.ln_mlp(torch.cat([h, h_embed], dim=-1)))
@@ -182,7 +245,8 @@ class SSMLayer(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        self.ln = RMSNorm(cfg.d_model, cfg.norm_eps, device)
+        self.ln = RMSNorm(cfg.d_model, cfg.norm_eps, device,
+                          param_dtype(cfg))
         self.ssm = SSMBlock(cfg, device)
 
     def forward(self, h: torch.Tensor, return_state: bool = False):
@@ -196,18 +260,21 @@ class SSMLayer(nn.Module):
 
 
 class TransformerLM(nn.Module):
-    """The LM's weights (f32 masters), one module per layer: ``Block``s
-    (dense) or ``SSMLayer``s (ssm) in ``layers``; for the hybrid family
-    ``groups`` (n_groups lists of ``SSMLayer``s), ``shared``
-    (``SharedBlock``s) and ``tail`` (``SSMLayer``s).  Built empty;
-    ``Model.init_params`` or ``params.lm_from_params`` fill it through
-    ``load_``."""
+    """The LM's weights (in ``cfg.param_dtype``: f32 masters by default;
+    the MoE router always f32), one module per layer: ``Block``s (dense)
+    or ``SSMLayer``s (ssm) in ``layers``; for the moe family ``Block``s
+    with a SwiGLU of ``dense_d_ff`` in ``dense_layers`` and with an
+    ``MoEBlock`` in ``layers``; for the hybrid family ``groups``
+    (n_groups lists of ``SSMLayer``s), ``shared`` (``SharedBlock``s) and
+    ``tail`` (``SSMLayer``s).  Built empty; ``Model.init_params`` or
+    ``params.lm_from_params`` fill it through ``load_``."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         check_family(cfg)
         self.cfg = cfg
-        self.embed = Embedding(cfg.vocab_size, cfg.d_model, device)
+        dt = param_dtype(cfg)
+        self.embed = Embedding(cfg.vocab_size, cfg.d_model, device, dt)
 
         def ssm_layers(n):
             return nn.ModuleList(SSMLayer(cfg, device) for _ in range(n))
@@ -221,21 +288,35 @@ class TransformerLM(nn.Module):
         elif cfg.family == "ssm":
             self.layers = ssm_layers(cfg.n_layers)
         else:
-            self.layers = nn.ModuleList(Block(cfg, device)
-                                        for _ in range(cfg.n_layers))
-        self.ln_final = RMSNorm(cfg.d_model, cfg.norm_eps, device)
+            moe = cfg.family == "moe"
+            for key, n in attn_stack_sizes(cfg):
+                setattr(self, key, nn.ModuleList(
+                    Block(cfg, device,
+                          d_ff=cfg.moe.dense_d_ff if moe else None,
+                          moe=moe and key == "layers")
+                    for _ in range(n)))
+        self.ln_final = RMSNorm(cfg.d_model, cfg.norm_eps, device, dt)
         self.lm_head = None if cfg.tie_embeddings else Linear(
-            cfg.d_model, cfg.vocab_size, False, device)
+            cfg.d_model, cfg.vocab_size, False, device, dt)
 
     @property
     def device(self) -> torch.device:
         return self.embed.table.device
 
+    def attn_stacks(self) -> List[Tuple[str, nn.ModuleList]]:
+        """The dense and moe families' stacks of ``Block``s in order, by
+        parameter and cache key (``attn_stack_sizes``)."""
+        return [(key, getattr(self, key))
+                for key, _ in attn_stack_sizes(self.cfg)]
+
     def _stacks(self) -> Dict[str, tuple]:
         """Each stacked path prefix -> (the stacked axes, the modules in
         the order of the stack, flattened)."""
-        if self.cfg.family != "hybrid":
+        if self.cfg.family == "ssm":
             return {"layers": ((len(self.layers),), list(self.layers))}
+        if self.cfg.family != "hybrid":
+            return {key: ((len(mods),), list(mods))
+                    for key, mods in self.attn_stacks()}
         return {"groups/ssm_layers": (
                     (len(self.groups), len(self.groups[0])),
                     [layer for group in self.groups for layer in group]),
@@ -245,9 +326,11 @@ class TransformerLM(nn.Module):
     @torch.no_grad()
     def load_(self, path: str, value: torch.Tensor) -> None:
         """Copy the parameter at reference path ``path`` (a stacked path,
-        "layers/...", or for the hybrid family "groups/ssm_layers/...",
-        "shared/..." and "tail/...") from ``value``; a layer weight's
-        copy in the activation dtype is made here, once."""
+        "layers/...", for the moe family also "dense_layers/...", for the
+        hybrid family "groups/ssm_layers/...", "shared/..." and
+        "tail/...") from ``value``, cast to the parameter's dtype; a
+        layer weight's copy in the activation dtype, where that differs,
+        is made here, once."""
         for prefix, (lead, modules) in self._stacks().items():
             if not path.startswith(prefix + "/"):
                 continue
@@ -266,11 +349,11 @@ class TransformerLM(nn.Module):
         self.get_parameter(path.replace("/", ".")).copy_(value)
 
     def logits(self, h: torch.Tensor) -> torch.Tensor:
-        """Final norm and the head, logits in f32."""
+        """Final norm and the head, logits in f32 (both sides upcast)."""
         h = self.ln_final(h)
         if self.lm_head is None:
             return self.embed.unembed(h)
-        return torch.matmul(h.float(), self.lm_head.w)
+        return torch.matmul(h.float(), self.lm_head.w.float())
 
 
 def _states(cfg: ModelConfig, lead: Tuple[int, ...], batch: int,
@@ -302,6 +385,19 @@ def _hybrid_cache(cfg: ModelConfig, batch: int, max_len: int,
             "tail": _states(cfg, (h.tail_ssm,), batch, device)}
 
 
+def _kv_cache(cfg: ModelConfig, batch: int, max_len: int,
+              device) -> Cache:
+    """The dense and moe families' zero cache: one K/V pair of
+    ``max_len`` positions a stack of ``attn_stack_sizes``."""
+    dtype = dtype_of(cfg)
+    cache = {}
+    for key, n in attn_stack_sizes(cfg):
+        shape = kv_cache_shape(cfg, n, batch, max_len)
+        cache[key] = (torch.zeros(shape, dtype=dtype, device=device),
+                      torch.zeros(shape, dtype=dtype, device=device))
+    return cache
+
+
 def _put_state(stack: Dict[str, torch.Tensor], idx, state) -> None:
     for k, v in state.items():
         stack[k][idx] = v
@@ -310,7 +406,7 @@ def _put_state(stack: Dict[str, torch.Tensor], idx, state) -> None:
 def lm_forward(model: TransformerLM, tokens: torch.Tensor, *,
                return_cache: bool = False, cache_len: Optional[int] = None,
                logits_at: Optional[torch.Tensor] = None):
-    """tokens: (B, S) -> (logits f32, aux_loss, cache | None).
+    """tokens: (B, S) -> (logits f32, aux_loss f32, cache | None).
 
     Logits are (B, S, V), or (B, V) at one position per row when
     ``logits_at`` (B,) is given (the same numbers up to the head
@@ -320,12 +416,15 @@ def lm_forward(model: TransformerLM, tokens: torch.Tensor, *,
     zeros past S, which is ``pad_cache`` without the copy.  For the ssm
     family the cache is every layer's decode state after the S tokens
     (it has no length: ``cache_len`` is not read); for the hybrid family
-    the groups' and the tail's states and each shared-block site's K/V."""
+    the groups' and the tail's states and each shared-block site's K/V.
+    The aux loss is the MoE blocks' load-balance losses summed in layer
+    order (0 for the other families)."""
     cfg = model.cfg
     dtype = dtype_of(cfg)
     B, S = tokens.shape
     h = model.embed.embed(tokens, dtype)
     cache: Optional[Cache] = None
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if return_cache and cfg.family != "ssm":
         n = S if cache_len is None else cache_len
         if n < S:
@@ -359,20 +458,20 @@ def lm_forward(model: TransformerLM, tokens: torch.Tensor, *,
                 _put_state(cache["tail"], i, st)
     else:
         if return_cache:
-            shape = kv_cache_shape(cfg, cfg.n_layers, B, n)
-            ck = torch.zeros(shape, dtype=dtype, device=h.device)
-            cv = torch.zeros(shape, dtype=dtype, device=h.device)
-            cache = {"layers": (ck, cv)}
+            cache = _kv_cache(cfg, B, n, h.device)
+        stacks = model.attn_stacks()
         # the rope tables are the same for every layer: computed once
-        rope = model.layers[0].attn.rope(torch.arange(S, device=h.device))
-        for i, layer in enumerate(model.layers):
-            h, (k, v) = layer(h, rope)
-            if cache is not None:
-                ck[i, :, :S] = k
-                cv[i, :, :S] = v
+        rope = stacks[0][1][0].attn.rope(torch.arange(S, device=h.device))
+        for key, layers in stacks:
+            for i, layer in enumerate(layers):
+                h, (k, v), a = layer(h, rope)
+                if a is not None:
+                    aux = aux + a
+                if cache is not None:
+                    cache[key][0][i, :, :S] = k
+                    cache[key][1][i, :, :S] = v
     if logits_at is not None:
         h = h[torch.arange(B, device=h.device), logits_at]
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return model.logits(h), aux, cache
 
 
@@ -392,26 +491,26 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int,
         return _ssm_cache(cfg, batch, device)
     if cfg.family == "hybrid":
         return _hybrid_cache(cfg, batch, max_len, device)
-    shape = kv_cache_shape(cfg, cfg.n_layers, batch, max_len)
-    dtype = dtype_of(cfg)
-    return {"layers": (torch.zeros(shape, dtype=dtype, device=device),
-                       torch.zeros(shape, dtype=dtype, device=device))}
+    return _kv_cache(cfg, batch, max_len, device)
 
 
 def pad_cache(cfg: ModelConfig, cache: Cache, max_len: int) -> Cache:
-    """Grow the seq axis of the KV cache (captured at prefill length) to
-    ``max_len`` with zeros, so decode can append.  SSM states are
-    length-free: left alone."""
+    """Grow the seq axis of every KV cache pair (captured at prefill
+    length) to ``max_len`` with zeros, so decode can append.  SSM states
+    are length-free: left alone."""
+    out = dict(cache)
     if not cache_has_length(cfg):
-        return dict(cache)
-    key = "shared_kv" if cfg.family == "hybrid" else "layers"
-    k, v = cache[key]
-    extra = max_len - k.shape[2]
-    if extra <= 0:
-        return dict(cache)
-    pad = (0, 0, 0, 0, 0, extra)          # last three axes: D, Hkv, S
-    return {**cache, key: (torch.nn.functional.pad(k, pad),
-                           torch.nn.functional.pad(v, pad))}
+        return out
+    keys = (("shared_kv",) if cfg.family == "hybrid" else
+            [key for key, _ in attn_stack_sizes(cfg)])
+    for key in keys:
+        k, v = cache[key]
+        extra = max_len - k.shape[2]
+        if extra > 0:
+            pad = (0, 0, 0, 0, 0, extra)      # last three axes: D, Hkv, S
+            out[key] = (torch.nn.functional.pad(k, pad),
+                        torch.nn.functional.pad(v, pad))
+    return out
 
 
 def lm_decode(model: TransformerLM, token: torch.Tensor, pos: torch.Tensor,
@@ -440,8 +539,10 @@ def lm_decode(model: TransformerLM, token: torch.Tensor, pos: torch.Tensor,
         for i, layer in enumerate(model.tail):
             h = layer.decode(h, {k: v[i] for k, v in cache["tail"].items()})
         return model.logits(h), cache
-    ck, cv = cache["layers"]
-    rope = model.layers[0].attn.rope(pos[:, None])
-    for i, layer in enumerate(model.layers):
-        h = layer.decode(h, ck[i], cv[i], pos, rope)
+    stacks = model.attn_stacks()
+    rope = stacks[0][1][0].attn.rope(pos[:, None])
+    for key, layers in stacks:
+        ck, cv = cache[key]
+        for i, layer in enumerate(layers):
+            h = layer.decode(h, ck[i], cv[i], pos, rope)
     return model.logits(h), cache

@@ -89,7 +89,7 @@ def test_bf16_near_zero_takes_the_absolute_bound(want_v, got_v, ok):
 
 def test_flash_cases_cover_the_kernel_contract():
     cases = flash_check.CASES
-    assert len(cases) == 12
+    assert len(cases) == 22
     assert {c[1] for c in cases} == {torch.float32, torch.bfloat16}
     # the prefill's call, a ragged edge, queries at the end of the keys,
     # kv_valid masking, non-causal, rows with no key
@@ -101,6 +101,13 @@ def test_flash_cases_cover_the_kernel_contract():
     for dt in (torch.float32, torch.bfloat16):
         assert ("D112 S500 causal", dt, 500, 500, True, 0,
                 flash_check.HYBRID_HEADS) in cases
+    # deepseek-moe-16b's head dim 128 at its prefill, and every other
+    # head-dim-128 layout of the configs, in both dtypes
+    for dt in (torch.float32, torch.bfloat16):
+        assert ("D128 S500 causal", dt, 500, 500, True, 0,
+                flash_check.MOE_HEADS) in cases
+        for heads in flash_check.D128_LAYOUTS.values():
+            assert any(c[1] == dt and c[6] == heads for c in cases)
     assert any(c[2] < c[3] and c[4] for c in cases)
     assert any(c[5] for c in cases) and any(not c[4] for c in cases)
     assert any(c[2] > c[3] and c[4] for c in cases)
@@ -129,6 +136,11 @@ def test_decode_cases_cover_the_kernel_contract():
     assert any(c[3] // c[4] == MAX_GROUP for c in cases)
     for _, b, S, Hq, Hkv, D, kv_len in cases:
         assert len(kv_len) == b and max(kv_len) <= S and Hq % Hkv == 0
+    # every head-dim-128 layout at the serving call's lengths
+    assert decode_check.MOE_CASE[3:6] == flash_check.MOE_HEADS
+    assert {c[3:6] for c in decode_check.D128_CASES} == \
+        {flash_check.MOE_HEADS, *flash_check.D128_LAYOUTS.values()}
+    assert decode_check.HYBRID_CASE[5] == 112
     q, k, v, kv = decode_check.case_operands(cases[1], torch.bfloat16, "cpu",
                                              seed=0)
     assert q.shape == (4, 14, 64) and k.shape == v.shape == (4, 1024, 2, 64)

@@ -12,8 +12,9 @@ JAX:
 The shapes, operands and tolerances are the kernels' ``check`` modules'
 (``repro_torch.kernels.<name>.check``), the same ``chip_smoke.py`` holds
 the kernels to, at every instance the configs serve (the attention
-kernels at head dims 64 and 112, the scan at (P, N) = (64, 128) and (64,
-64)), with refusals of unbuilt ones: ``ssd_scan``'s f32 y and final
+kernels at head dims 64, 112 and 128, the last at each of the configs'
+head layouts, the scan at (P, N) = (64, 128) and (64, 64)), with
+refusals of unbuilt ones (head dims 32 and 96): ``ssd_scan``'s f32 y and final
 state within 1e-4 of max |plain|, bf16 y within 2 bf16 ulps of the
 plain version's f32 result on the same (bf16-valued) inputs, f32 at a
 ragged S with no padding copy,
@@ -46,7 +47,8 @@ dispatch spans give an exact window ledger.  Two hold the
 training and tuning path: the proxy's 3 training steps on the card
 against the CPU (``repro_torch.core.train_check``), and a CUDA bank's
 window times, taken over a batch of 16 on the device, larger for a
-larger window.
+larger window.  One holds the MoE block: two card runs equal bit for
+bit, and the card's output the CPU's where the routing agrees.
 """
 import pytest
 
@@ -607,3 +609,43 @@ def test_window_time_on_the_card_times_a_batch(dev, monkeypatch):
                            ((pl.TIMING_BATCH, 544, 960, 3), "cuda")}
     assert 0.0 < small < full
     assert bank.win_times[("ssd-deep", (15, 9))] == small
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_block_on_the_card_matches_the_cpu(dev, dtype):
+    """``MoEBlock`` at deepseek-moe-16b's routing (64 experts, top-6, 2
+    shared; d_model 256, expert_d_ff 64) on a (4, 500) batch: two card
+    runs give the same bits (no scatter-add), and the card's output is
+    the CPU's within 1e-4 (f32) / 2e-2 (bf16) of max(1, max |CPU|) at
+    every token whose routing agrees (``Routing.differs``: at most 1%
+    differ, the router's f32 products summing in another order)."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import build_model
+    cfg = get_config("deepseek-moe-16b")
+    cfg = dataclasses.replace(cfg, dtype=dtype, d_model=256, n_layers=2,
+                              moe=dataclasses.replace(cfg.moe,
+                                                      expert_d_ff=64))
+    params = build_model(cfg).init_params(0, device="cpu")
+    cpu = params.layers[0].moe
+    card = copy.deepcopy(cpu).to(dev)
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((4, 500, 256), generator=gen).to(getattr(torch, dtype))
+    with torch.inference_mode():
+        want, want_aux = cpu(x)
+        want_r = cpu.routing
+        got, aux = card(x.to(dev))
+        got_r = card.routing
+        again, again_aux = card(x.to(dev))
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and torch.equal(aux, again_aux)
+    moved = got_r.differs(want_r).cpu()
+    assert int(moved.sum()) <= 0.01 * moved.numel(), int(moved.sum())
+    rel = 1e-4 if dtype == "float32" else 2e-2
+    tol = rel * max(1.0, float(want.float().abs().max()))
+    err = float((got.cpu().float() - want.float())[~moved].abs().max())
+    assert err <= tol, (err, tol)
+    assert abs(float(aux) - float(want_aux)) <= rel * max(
+        1.0, abs(float(want_aux)))

@@ -314,6 +314,36 @@ def test_hybrid_make_cache_and_pad_cache_match(config):
         assert g.shape[2] == 9 and np.array_equal(f32(g), f32(w))
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_param_dtype_bfloat16_forward_matches_the_reference(dtype):
+    """Weights held in bf16 (``param_dtype``): every parameter is held in
+    bf16; the logits are the reference's, in bf16 activations by the
+    rounding rule of the states (no further, in RMS, from the reference's
+    float32-activation run on the same bf16 weights than twice the
+    reference's own bf16 run: rounding alone puts these logits at the
+    edge of 2e-2 * max|ref|, with float32 weights too)."""
+    logits = {}
+    toks = _tokens(jx_get("zamba2-7b").reduced(), (2, 29), 42)
+    for dt in ("float32", dtype):
+        jc = dataclasses.replace(jx_get("zamba2-7b").reduced(), dtype=dt,
+                                 param_dtype="bfloat16")
+        jm = jx_build(jc)
+        jtree = jm.init_params(0)
+        pc = port_cfg(jc)
+        params = lm_from_params(pc, jax.tree.map(np.asarray, jtree),
+                                device="cpu")
+        assert {p.dtype for p in params.parameters()} == {torch.bfloat16}
+        wl, _, _ = jm.forward(jtree, {"tokens": jnp.asarray(toks,
+                                                            jnp.int32)})
+        gl, _, _ = build_model(pc).forward(params, {"tokens": toks})
+        logits[dt] = (gl, wl)
+    gl, wl = logits[dtype]
+    if dtype == "float32":
+        assert_close(gl, wl, dtype)
+    else:
+        assert_rounding_close(gl, wl, logits["float32"][1])
+
+
 # ---------------------------------------------------------------------------
 # serving
 # ---------------------------------------------------------------------------

@@ -622,6 +622,8 @@ FLASH_CASES = [                  # B, Sq, Skv, Hq, Hkv, D, causal
     (1, 64, 256, 4, 2, 32, True),       # Sq < Skv: queries at the end
     (2, 128, 128, 14, 2, 16, False),    # group 7, non-causal
     (1, 128, 128, 14, 2, 64, True),     # group 7 at qwen2's head dim
+    (1, 128, 128, 4, 4, 128, True),     # deepseek-moe-16b's head dim
+    (1, 128, 128, 7, 1, 128, True),     # deepseek-coder-33b's group 7
 ]
 
 
@@ -706,6 +708,8 @@ DECODE_CASES = [                 # B, S, Hq, Hkv, D, block_k (Pallas)
     (3, 128, 4, 4, 32, 64),      # group 1
     (2, 256, 4, 2, 64, 128),     # group 2
     (4, 96, 14, 2, 16, 32),      # group 7
+    (2, 128, 4, 4, 128, 64),     # deepseek-moe-16b's head dim
+    (2, 128, 6, 1, 128, 64),     # grok-1-314b's group 6 at head dim 128
 ]
 
 

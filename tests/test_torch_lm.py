@@ -130,8 +130,10 @@ def test_registry_holds_qwen2_as_the_reference_does():
     cfg = pt_base.get_config("qwen2-0.5b")
     assert dataclasses.asdict(cfg) == \
         dataclasses.asdict(jx_get("qwen2-0.5b"))
-    assert pt_base.list_archs() == ["mamba2-370m", "qwen2-0.5b",
-                                    "stablelm-1.6b", "zamba2-7b"]
+    assert pt_base.list_archs() == [
+        "deepseek-67b", "deepseek-coder-33b", "deepseek-moe-16b",
+        "grok-1-314b", "mamba2-370m", "qwen2-0.5b", "stablelm-1.6b",
+        "zamba2-7b"]
     with pytest.raises(KeyError):
         pt_base.get_config("pixtral-12b")
     with pytest.raises(ValueError):
@@ -158,8 +160,14 @@ def test_param_specs_are_the_reference_tree(reduced):
     ("deepseek-moe-16b", "moe"), ("pixtral-12b", "vlm"),
     ("whisper-small", "encdec")])
 def test_other_families_raise_naming_the_roadmap(arch, family):
+    """A family not ported yet raises naming its ROADMAP.md item; the moe
+    family, ported since, builds (``tests/test_torch_moe.py``)."""
     cfg = port_cfg(jx_get(arch).reduced())
     assert cfg.family == family
+    if family in tf.PORTED:
+        assert family not in tf.NOT_PORTED
+        assert build_model(cfg).param_count() == cfg.param_count()
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         build_model(cfg)
 
@@ -209,6 +217,76 @@ def test_stablelm_generate_greedy_matches_reference_float32():
     want = JxServe(jm, tree, max_len=48).generate(ps, max_new_tokens=8)
     got = ServeEngine(pm, params, max_len=48).generate(ps, max_new_tokens=8)
     assert got == want
+
+
+# ---------------------------------------------------------------------------
+# deepseek-67b and deepseek-coder-33b: head dim 128, GQA groups of 8 and 7
+# ---------------------------------------------------------------------------
+
+DEEPSEEK_DENSE = ("deepseek-67b", "deepseek-coder-33b")
+
+
+@functools.lru_cache(maxsize=None)
+def dense_pair(arch: str):
+    """``stablelm_pair`` for a dense config reduced at float32."""
+    jc = dataclasses.replace(jx_get(arch).reduced(), dtype="float32")
+    jm = jx_build(jc)
+    tree = jax.tree.map(np.asarray, jm.init_params(0))
+    pc = port_cfg(jc)
+    return jm, tree, build_model(pc), lm_from_params(pc, tree, device="cpu")
+
+
+@pytest.mark.parametrize("arch,count,heads", [
+    ("deepseek-67b", 67_425_001_472, (64, 8)),
+    ("deepseek-coder-33b", 33_342_991_360, (56, 8))])
+def test_registry_holds_the_deepseek_dense_configs(arch, count, heads):
+    cfg = pt_base.get_config(arch)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jx_get(arch))
+    assert (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim) == heads + (128,)
+    assert cfg.param_count() == build_model(cfg).param_count() == count
+
+
+@pytest.mark.parametrize("arch", DEEPSEEK_DENSE)
+def test_deepseek_dense_lm_forward_logits_and_cache_float32(arch):
+    jm, tree, pm, params = dense_pair(arch)
+    toks = np.random.default_rng(41).integers(0, 256, (2, 37))
+    wl, _, wc = jm.forward(tree, {"tokens": jnp.asarray(toks, jnp.int32)},
+                           return_cache=True)
+    gl, _, gc = pm.forward(params, {"tokens": toks}, return_cache=True)
+    assert_close(gl, wl, "float32")
+    for got, want in zip(gc["layers"], wc["layers"]):
+        assert_close(got, want, "float32")
+
+
+@pytest.mark.parametrize("arch", DEEPSEEK_DENSE)
+def test_deepseek_dense_generate_greedy_matches_reference_float32(arch):
+    jm, tree, pm, params = dense_pair(arch)
+    ps = _prompts("long", 256)
+    want = JxServe(jm, tree, max_len=48).generate(ps, max_new_tokens=8)
+    got = ServeEngine(pm, params, max_len=48).generate(ps, max_new_tokens=8)
+    assert got == want
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "mamba2-370m"])
+def test_param_dtype_bfloat16_forward_matches_the_reference(arch, dtype):
+    """Weights held in bf16 (``param_dtype``, the reference's knob) in the
+    dense and ssm families (the hybrid's: ``test_torch_hybrid``): every
+    parameter is held in bf16, and the logits at either activation dtype
+    are the reference's (norm scales, the SSM's dt_bias, A_log and D and
+    the head upcast where it upcasts them)."""
+    jc = dataclasses.replace(jx_get(arch).reduced(), dtype=dtype,
+                             param_dtype="bfloat16")
+    jm = jx_build(jc)
+    jtree = jm.init_params(0)
+    pc = port_cfg(jc)
+    params = lm_from_params(pc, jax.tree.map(np.asarray, jtree),
+                            device="cpu")
+    assert {p.dtype for p in params.parameters()} == {torch.bfloat16}
+    toks = np.random.default_rng(42).integers(0, 256, (2, 29))
+    wl, _, _ = jm.forward(jtree, {"tokens": jnp.asarray(toks, jnp.int32)})
+    gl, _, _ = build_model(pc).forward(params, {"tokens": toks})
+    assert_close(gl, wl, dtype)
 
 
 # ---------------------------------------------------------------------------
