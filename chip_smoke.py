@@ -87,7 +87,32 @@ the prompt tokens whose routing differs between the kernel and plain
 runs and the pairs each layer dropped logged, the decode check held on
 the rows where no run dropped a pair of the row's own tokens, and three
 planted faults (the routed gates renormalised over the top-k, the
-shared experts skipped, decode attending kv_len = pos).  Last the fleet
+shared experts skipped, decode attending kv_len = pos).  Then vision-
+language serving (``run_vlm``): the attention kernels at pixtral-12b's
+32 of 8 heads of 128 (flash at S 1524, its longest prompt, and S 512,
+causal; decode at B 4, S 2048 with kv_len (1, 1085, 1524, 2048)) against
+their plain versions, timed beside SDPA, then ``ServeEngine.generate``
+at full pixtral-12b width (40 layers, d_model 5120, d_ff 14336, vocab
+131,072; 12,247,782,400 parameters held in bf16) on the same 4 prompts,
+each after 1024 image positions whose patch embeddings (drawn from the
+seed on the card) the prefill merges in, ``max_len`` 2048: twice (40
+``flash_attention`` and 1280 ``decode_attention`` launches each), timed,
+profiled, and the serve checks in bf16 and on an f32 copy of 8 of the 40
+layers, with three planted faults (the patch embeddings not merged,
+merged one position late, decode attending kv_len = pos).  Then
+encoder-decoder serving (``run_encdec``): the attention kernels at
+whisper-small's 12 of 12 heads of 64 (flash over the encoder's 1500
+frames non-causal, 500 queries against 1500 keys non-causal, S 500
+causal; decode at B 4, S 1024 and over 1500 frames on every row, that
+call also replayed for 8 steps in a CUDA graph) against their plain
+versions, timed, then ``ServeEngine.generate`` at full whisper-small
+width (12 encoder and 12 decoder layers, d_model 768, f32 masters) on
+the same 4 prompts, each with 1500 audio frames drawn from the seed:
+twice (36 ``flash_attention`` and 768 ``decode_attention`` launches
+each), timed, profiled, and the serve checks in bf16 and f32 with four
+planted faults (the cross decode masked by pos instead of the frames,
+the encoder without its sinusoidal positions, erf GELU for the tanh
+approximation, decode attending kv_len = pos).  Last the fleet
 (``run_fleet``, after every phase that
 reads the profiler, at the video cell's θ): caldot1 test clips 0-2 at 16
 frames, round-robin over concurrent streams, each stream's tracks held
@@ -243,6 +268,8 @@ from repro_torch.query.ref import reference_query  # noqa: E402
 from repro_torch.stream import SegmentIngestor, StandingQuery  # noqa: E402
 from repro_torch.kernels.ssd_scan import check as ssd_check  # noqa: E402
 from repro_torch.models import attention as lm_attention  # noqa: E402
+from repro_torch.models import encdec as lm_encdec  # noqa: E402
+from repro_torch.models import layers as lm_layers  # noqa: E402
 from repro_torch.models import moe as lm_moe  # noqa: E402
 from repro_torch.models import ssm as lm_ssm  # noqa: E402
 from repro_torch.models import transformer as lm_transformer  # noqa: E402
@@ -345,6 +372,25 @@ MOE_CFG = dataclasses.replace(get_config("deepseek-moe-16b"),
 MOE_F32_LAYERS = 14
 # the MoE cell's serve checks, by the same rule (PERF.md)
 MOE_LOGIT_TOL = {"bfloat16": 0.6, "float32": 1e-3}
+# full width, all 40 layers, its weights held in bf16 (22.81 GiB; f32
+# masters and their bf16 copies, 68.4 GiB, leave no room to serve); the
+# f32 check copy at VLM_F32_LAYERS of 40 (its f32 weights 45.63 GiB at
+# full depth, and an f32 prefill of 4 x 1524 tokens through 40 layers
+# seconds long, run some 20 times): the bf16 model is freed first
+VLM_CFG = dataclasses.replace(get_config("pixtral-12b"),
+                              param_dtype="bfloat16")
+VLM_F32_LAYERS = 8
+# the vlm cell's serve checks, by the same rule: its first card run read
+# rounding-only gaps of 0.107-0.110 of the RMS in bf16, 1.1e-5-1.7e-5 in
+# f32, the smallest fault held in bf16 3.46 (PERF.md)
+VLM_LOGIT_TOL = {"bfloat16": 0.3, "float32": 1e-3}
+# full width (12 encoder and 12 decoder layers), bf16 over f32 masters
+ENCDEC_CFG = get_config("whisper-small")
+# by the same rule: rounding-only gaps 0.036-0.039 in bf16, the smallest
+# fault held there 0.736; f32 below the other cells' 1e-3, since erf
+# GELU for tanh moves the logits only 7.1e-4 of their RMS there, against
+# rounding-only gaps of 3.3e-6-9.9e-6 (PERF.md)
+ENCDEC_LOGIT_TOL = {"bfloat16": 0.2, "float32": 1e-4}
 
 
 def log(*args) -> None:
@@ -3546,10 +3592,12 @@ def check_flash_attention(heads=(flash_check.HQ, flash_check.HKV,
     500, and Sq 512 > Skv 256 causal, whose first 256 rows see no key
     (they must be 0); then that each dtype runs its own kernel and the
     wrapper's refusals.  At zamba2-7b's (32, 32, 112): S 500 and 512,
-    causal.  Timed at the ``timed`` cases, both dtypes, beside SDPA (its
-    device time: every kernel the call launches).  -> {case: record}."""
+    causal; at whisper-small's (12, 12, 64) and pixtral-12b's (32, 8,
+    128), ``flash_check.SERVE_CASES``.  Timed at the ``timed`` cases,
+    both dtypes, beside SDPA (its device time: every kernel the call
+    launches).  -> {case: record}."""
     rows = {}
-    for i, case in enumerate(flash_check.CASES):
+    for i, case in enumerate(flash_check.CASES + flash_check.SERVE_CASES):
         name, dt, Sq, Skv, causal, kv_valid, case_heads = case
         if case_heads != tuple(heads):
             continue
@@ -3588,7 +3636,8 @@ def check_flash_attention(heads=(flash_check.HQ, flash_check.HKV,
                                                reps=20),
                            plain_ms=event_ms(plain, reps=5),
                            library_ms=event_ms(sdpa, reps=20)
-                           if Sq == Skv and not kv_valid else None,
+                           if (Sq == Skv or not causal) and not kv_valid
+                           else None,
                            library_device_ms=op_device_ms(
                                sdpa, "aten::scaled_dot_product_attention"),
                            bound_ms=b_ms, bound_by=b_by,
@@ -3719,6 +3768,10 @@ class ServeCell:
     # (model, params, prompts, out, logs) -> the decode check's gap;
     # None: ``decode_gap`` over ``rows``
     decode: Optional[Callable] = None
+    # rows -> the batch's frontend embeddings of those rows (the vlm
+    # cell's patch_embeds, the encdec cell's audio_embeds), beside the
+    # tokens of every generate and fresh prefill; {} for a text-only cell
+    extras: Callable[[Any], Dict[str, Any]] = lambda rows: {}
 
     def counts(self) -> Dict[str, int]:
         return {n: fn.launches for n, (fn, _) in self.kernels.items()}
@@ -3745,11 +3798,12 @@ def routing_recording(store: dict):
     return wrap
 
 
-def served(eng, prompts, n_new, plain=()):
+def served(eng, prompts, n_new, plain=(), extras=None):
     """One generate with the prefill and decode logits recorded (and an
     MoE model's prefill routing); each ``(owner, attr, plain_fn)`` of
     ``plain`` swaps a kernel's wrapper for its plain version for this
-    run.  -> (tokens, {"prefill": [..], "decode": [..]})."""
+    run; ``extras``: the prompts' frontend embeddings.  -> (tokens,
+    {"prefill": [..], "decode": [..]})."""
     logs = {}
     with contextlib.ExitStack() as hooks:
         hooks.enter_context(wrapped(Model, "forward",
@@ -3760,7 +3814,7 @@ def served(eng, prompts, n_new, plain=()):
                                     recording(logs, "decode")))
         for owner, attr, fn in plain:
             hooks.enter_context(wrapped(owner, attr, lambda _, f=fn: f))
-        out = eng.generate(prompts, n_new)
+        out = eng.generate(prompts, n_new, extras)
     torch.cuda.synchronize()
     return out, logs
 
@@ -3805,25 +3859,29 @@ def tokens_agree(a, b, lens, logits, tol: float) -> int:
     return compared
 
 
-def prefill_logits(model, params, seqs):
+def prefill_logits(model, params, seqs, extras=None):
     """Logits at the last token of each of ``seqs`` from one fresh
-    forward over them, right-padded."""
+    forward over them, right-padded; ``extras``: their frontend
+    embeddings."""
     width = max(map(len, seqs))
     logits, _, _ = model.forward(
         params, {"tokens": np.array([s + [0] * (width - len(s))
-                                     for s in seqs])},
+                                     for s in seqs]), **(extras or {})},
         logits_at=np.array([len(s) - 1 for s in seqs]))
     return logits.float()
 
 
-def decode_gap(model, params, prompts, out, logs, rows) -> float:
+def decode_gap(model, params, prompts, out, logs, rows,
+               extras=lambda rows: {}) -> float:
     """The first and the last decode step's logits of ``rows`` against a
-    fresh prefill over the same tokens: the larger ``logit_gap``."""
+    fresh prefill over the same tokens (and ``extras(rows)``, their
+    frontend embeddings): the larger ``logit_gap``."""
     gaps = []
     for s in (0, len(logs["decode"]) - 1):
         seqs = [out[i][:len(prompts[i]) + s + 1] for i in rows]
         gaps.append(logit_gap(logs["decode"][s][list(rows)],
-                              prefill_logits(model, params, seqs)))
+                              prefill_logits(model, params, seqs,
+                                             extras(list(rows)))))
     return max(gaps)
 
 
@@ -4089,6 +4147,104 @@ def moe_f32_copy(cfg):
                                n_layers=MOE_F32_LAYERS)
 
 
+def _patches_not_merged(fn):
+    def wrapper(h, patch_embeds):
+        return h
+    return wrapper
+
+
+def _patches_one_late(fn):
+    def wrapper(h, patch_embeds):
+        P = patch_embeds.shape[1]
+        merged = fn(h, patch_embeds)
+        return torch.cat([h[:, :1], merged[:, :P], h[:, P + 1:]], dim=1)
+    return wrapper
+
+
+VLM_FAULTS = (
+    ("patch embeds not merged", lm_transformer, "merge_patches",
+     _patches_not_merged, "prefill", True),
+    ("patch embeds merged one position late", lm_transformer,
+     "merge_patches", _patches_one_late, "prefill", True),
+    ("decode attends kv_len = pos", lm_attention, "decode_attention",
+     _decode_kv_len_is_pos, "decode", False),
+)
+
+
+def vlm_cell(cfg, prompts) -> ServeCell:
+    """pixtral-12b: ``flash_attention`` once a layer in the prefill,
+    ``decode_attention`` once a layer every decode step; every row is
+    exact (kv_len masking), so each is held alone and against a fresh
+    prefill, with its own patch embeddings."""
+    return ServeCell(
+        cfg, {"flash_attention": (flash_attention, cfg.n_layers),
+              "decode_attention": (decode_attention,
+                                   cfg.n_layers * LM_NEW_TOKENS)},
+        ((lm_attention, "flash_attention", flash_attention_ref),
+         (lm_attention, "decode_attention", decode_attention_ref)),
+        None, VLM_FAULTS, VLM_LOGIT_TOL,
+        FLASH_KERNEL_NAMES + DECODE_KERNEL_NAMES,
+        extras=frontend_embeds(cfg, "patch_embeds", len(prompts),
+                               cfg.frontend.n_embeds))
+
+
+def vlm_f32_copy(cfg):
+    """The vlm cell's f32 check copy: f32 activations over f32 weights
+    at ``VLM_F32_LAYERS`` layers (the full width)."""
+    return dataclasses.replace(cfg, dtype="float32", param_dtype="float32",
+                               n_layers=VLM_F32_LAYERS)
+
+
+def _cross_decode_masked_by_pos(fn):
+    def wrapper(self, h, self_k, self_v, pos, cross_k, cross_v, n_frames):
+        return fn(self, h, self_k, self_v, pos, cross_k, cross_v, pos)
+    return wrapper
+
+
+def _encoder_without_positions(fn):
+    def wrapper(n, dim, device=None):
+        return torch.zeros_like(fn(n, dim, device))
+    return wrapper
+
+
+def _erf_gelu(fn):
+    def wrapper(x, approximate="none"):
+        return fn(x)
+    return wrapper
+
+
+ENCDEC_FAULTS = (
+    ("cross decode masked by pos, not the frames", lm_encdec.DecoderLayer,
+     "decode", _cross_decode_masked_by_pos, "decode", True),
+    ("encoder without sinusoidal positions", lm_encdec,
+     "sinusoidal_positions", _encoder_without_positions, "prefill", True),
+    ("erf GELU for the tanh approximation", lm_layers.F, "gelu", _erf_gelu,
+     "prefill", False),
+    ("decode attends kv_len = pos", lm_attention, "decode_attention",
+     _decode_kv_len_is_pos, "decode", False),
+)
+
+
+def encdec_cell(cfg, prompts) -> ServeCell:
+    """whisper-small: ``flash_attention`` at each encoder layer
+    (bidirectional, 1500 frames) and twice a decoder layer (causal
+    self-attention, cross-attention to the frames) in the prefill, 36 a
+    generate; ``decode_attention`` twice a decoder layer every decode
+    step (self and cross), 24 a step.  Every row is exact, so each is
+    held alone and against a fresh prefill, with its own audio."""
+    n_attn = cfg.n_encoder_layers + 2 * cfg.n_layers
+    return ServeCell(
+        cfg, {"flash_attention": (flash_attention, n_attn),
+              "decode_attention": (decode_attention,
+                                   2 * cfg.n_layers * LM_NEW_TOKENS)},
+        ((lm_attention, "flash_attention", flash_attention_ref),
+         (lm_attention, "decode_attention", decode_attention_ref)),
+        None, ENCDEC_FAULTS, ENCDEC_LOGIT_TOL,
+        FLASH_KERNEL_NAMES + DECODE_KERNEL_NAMES,
+        extras=frontend_embeds(cfg, "audio_embeds", len(prompts),
+                               cfg.frontend.n_embeds))
+
+
 def serve_checks(eng, prompts, cell: ServeCell) -> dict:
     """The serving path held to itself at ``eng``'s dtype: the kernels
     against their plain versions (prefill logits and greedy tokens),
@@ -4103,12 +4259,13 @@ def serve_checks(eng, prompts, cell: ServeCell) -> dict:
     rows = cell.rows or tuple(range(len(prompts)))
     dt = model.cfg.dtype
     tol = cell.tol[dt]
+    extras = cell.extras(list(range(len(prompts))))
     cell.reset()
-    out_k, logs_k = served(eng, prompts, n_new)
+    out_k, logs_k = served(eng, prompts, n_new, extras=extras)
     if cell.counts() != cell.want():
         raise AssertionError(f"serve checks ({dt}): launches "
                              f"{cell.counts()}, expected {cell.want()}")
-    out_p, logs_p = served(eng, prompts, n_new, cell.plain)
+    out_p, logs_p = served(eng, prompts, n_new, cell.plain, extras)
     r = dict(dtype=dt, tol=tol, out=out_k)
     r["plain"] = logits_close(logs_k["prefill"][0], logs_p["prefill"][0],
                               f"{dt} prefill, kernels against plain "
@@ -4121,7 +4278,7 @@ def serve_checks(eng, prompts, cell: ServeCell) -> dict:
         for lg in logs_k["prefill"] + logs_k["decode"])
     r["batch1"] = 0.0
     for i in rows:
-        _, logs1 = served(eng, [prompts[i]], 1)
+        _, logs1 = served(eng, [prompts[i]], 1, extras=cell.extras([i]))
         r["batch1"] = max(r["batch1"], logits_close(
             logs1["prefill"][0][0], logs_k["prefill"][0][i],
             f"{dt} prompt {i} served alone against in the batch", tol))
@@ -4131,7 +4288,8 @@ def serve_checks(eng, prompts, cell: ServeCell) -> dict:
     def decode_check(out, logs):
         if cell.decode is not None:
             return cell.decode(model, params, prompts, out, logs)
-        return decode_gap(model, params, prompts, out, logs, rows)
+        return decode_gap(model, params, prompts, out, logs, rows,
+                          cell.extras)
     r["decode_vs_prefill"] = decode_check(out_k, logs_k)
     if r["decode_vs_prefill"] > tol:
         raise AssertionError(f"{dt} decode step against a fresh prefill: "
@@ -4153,7 +4311,7 @@ def serve_checks(eng, prompts, cell: ServeCell) -> dict:
     r["faults"] = {}
     for fname, owner, attr, wrap, check, in_bf16 in cell.faults:
         with wrapped(owner, attr, wrap):
-            out_f, logs_f = served(eng, prompts, n_new)
+            out_f, logs_f = served(eng, prompts, n_new, extras=extras)
         gap = (decode_check(out_f, logs_f) if check == "decode" else
                logit_gap(logs_f["prefill"][0], logs_k["prefill"][0]))
         held = dt == "float32" or in_bf16
@@ -4168,41 +4326,82 @@ def serve_checks(eng, prompts, cell: ServeCell) -> dict:
     return r
 
 
-def serve_busy(eng, prompts, activities=None, kernel_names=()) -> dict:
+def trace_sums(prof):
+    """From a finished profile's raw events (``kineto_results``, not
+    ``events()`` / ``key_averages()``, whose Python parse of a generate's
+    few hundred thousand events took most of each LM phase's wall): ({a
+    device event's name: its summed device us} over every kernel, copy
+    and set the card ran, the kernel launches the host made, [(self us,
+    name, calls)] of each ``aten::`` op, self time being its duration
+    less that of the host events nested directly in it on its thread,
+    as ``FunctionEvent.self_cpu_time_total``, and an op whose one child
+    is the same op counted once, as ``EventList._remove_dup_nodes``)."""
+    from torch.autograd import DeviceType
+    per_name, launches, spans = {}, 0, []
+    for ev in prof.profiler.kineto_results.events():
+        name = ev.name()
+        if ev.device_type() == DeviceType.CUDA:
+            per_name[name] = per_name.get(name, 0.0) \
+                + ev.duration_ns() / 1e3
+            continue
+        if name.startswith(("cudaLaunchKernel", "cuLaunchKernel")):
+            # cudaLaunchKernel, cudaLaunchKernelExC (a cluster launch),
+            # cuLaunchKernel, cuLaunchKernelEx
+            launches += 1
+        spans.append((ev.start_thread_id(), ev.start_ns(), ev.end_ns(),
+                      name))
+    spans.sort(key=lambda e: (e[0], e[1], -e[2]))
+    host: Dict[str, list] = {}
+    # [thread, end, name, duration, children's duration, children, the
+    # first child's name]
+    stack: list = []
+
+    def close():
+        thread, _, name, dur, children, n_children, first = stack.pop()
+        if stack and stack[-1][0] == thread:
+            parent = stack[-1]
+            parent[4] += dur
+            parent[5] += 1
+            if parent[5] == 1:
+                parent[6] = name
+        if name.startswith("aten::"):
+            tally = host.setdefault(name, [0.0, 0])
+            tally[0] += (dur - children) / 1e3
+            tally[1] += 0 if n_children == 1 and first == name else 1
+    for thread, start, end, name in spans:
+        while stack and (stack[-1][0] != thread or stack[-1][1] <= start):
+            close()
+        stack.append([thread, end, name, end - start, 0, 0, None])
+    while stack:
+        close()
+    top_host = sorted(((us, name, n) for name, (us, n) in host.items()),
+                      reverse=True)
+    return per_name, launches, top_host
+
+
+def serve_busy(eng, prompts, activities=None, kernel_names=(),
+               extras=None) -> dict:
     """One more generate under the profiler: the device's busy time
     summed over every kernel and copy it ran, against the wall time (an
     upper bound on the idle share: the profiler slows the host), the
     part of it in the kernels whose names contain ``kernel_names``, and
     the host's side: kernel launches a token step (prefill included,
     over ``LM_NEW_TOKENS + 1`` steps) and the host ops that took the
-    most self time."""
-    from torch.autograd import DeviceType
+    most self time (``trace_sums``)."""
     from torch.profiler import ProfilerActivity, profile
     if activities is None:
         activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with profile(activities=activities) as prof:
         t0 = time.perf_counter()
-        eng.generate(prompts, LM_NEW_TOKENS)
+        eng.generate(prompts, LM_NEW_TOKENS, extras)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    per_name = {}
-    launches = 0
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
-            per_name[ev.name] = per_name.get(ev.name, 0.0) \
-                + ev.time_range.elapsed_us()
-        elif ev.name.startswith(("cudaLaunchKernel", "cuLaunchKernel")):
-            # cudaLaunchKernel, cudaLaunchKernelExC (a cluster launch),
-            # cuLaunchKernel, cuLaunchKernelEx
-            launches += 1
+    per_name, launches, host = trace_sums(prof)
     busy = sum(per_name.values()) / 1e6
     kern = sum(us for k, us in per_name.items()
                if any(n in k for n in kernel_names)) / 1e6
     top = sorted(((us, k) for k, us in per_name.items()), reverse=True)
-    host = sorted(((ev.self_cpu_time_total, ev.key, ev.count)
-                   for ev in prof.key_averages()
-                   if ev.key.startswith("aten::")), reverse=True)
     steps = LM_NEW_TOKENS + 1
     log(f"device busy (profiled generate, {eng.model.cfg.name}, "
         f"{eng.model.cfg.dtype}): "
@@ -4220,11 +4419,54 @@ def serve_busy(eng, prompts, activities=None, kernel_names=()) -> dict:
                 kernels_busy_s=kern, launches_per_step=launches / steps)
 
 
+def image_positions(cfg) -> int:
+    """The positions a vlm config's patch embeddings take at the start of
+    each prompt (0 for the other families)."""
+    return cfg.frontend.n_embeds if cfg.family == "vlm" else 0
+
+
 def lm_prompts(cfg):
-    """The serving cells' 4 prompts (``LM_PROMPT_LENS`` tokens), seeded."""
+    """The serving cells' 4 prompts (``LM_PROMPT_LENS`` tokens, after a
+    vlm config's ``image_positions`` placeholder ids), seeded."""
     rng = np.random.default_rng(SEED)
-    return [[int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+    return [[int(t) for t in rng.integers(0, cfg.vocab_size,
+                                           image_positions(cfg) + n)]
             for n in LM_PROMPT_LENS]
+
+
+def serve_max_len(cfg) -> int:
+    """``LM_MAX_LEN``, and room for a vlm config's image positions."""
+    return LM_MAX_LEN + image_positions(cfg)
+
+
+def frontend_embeds(cfg, key: str, batch: int, n: int):
+    """``extras`` for a cell whose prompts come with ``n`` frontend
+    embeddings a row under batch key ``key``: N(0, 1), drawn in f32 from
+    ``SEED`` on the card, then cast to the config's activation dtype (the
+    f32 check copy sees the values the bf16 cell rounds)."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED)
+    x = torch.randn((batch, n, cfg.d_model), generator=gen, device=DEVICE)
+    x = x.to(getattr(torch, cfg.dtype))
+
+    def extras(rows):
+        return {key: x[torch.as_tensor(rows, device=DEVICE)]}
+    return extras
+
+
+def decode_step_bytes(params) -> int:
+    """The weight bytes one decode step must read: every weight but the
+    embedding table (a row a token); for the encdec family the decoder's
+    layers, its final norm and the tied table (the head reads it whole),
+    not the encoder's layers nor ``dec_pos`` (a row a token)."""
+    def n_bytes(module):
+        return sum(p.numel() * p.element_size()
+                   for p in module.parameters())
+    table = params.embed.table
+    if params.cfg.family == "encdec":
+        return n_bytes(params.decoder) + n_bytes(params.ln_final) \
+            + table.numel() * table.element_size()
+    return n_bytes(params) - table.numel() * table.element_size()
 
 
 def f32_copy(cfg):
@@ -4240,10 +4482,22 @@ def run_serving(cfg, cell_of, f32_of=f32_copy) -> dict:
     timed run (prefill against decode, and the decode step against its
     weights' bound), ``serve_checks``, a profiled run, then
     ``serve_checks`` again on the f32 copy ``f32_of(cfg)``.
-    ``cell_of(cfg, prompts)`` gives the cell for a config.  -> {"launches":
-    the cold run's counts, "perf": the timed run's readings}."""
+    ``cell_of(cfg, prompts)`` gives the cell for a config, its ``extras``
+    (frontend embeddings) the hook every generate takes them from.  ->
+    {"launches": the cold run's counts, "perf": the timed run's
+    readings}."""
+    walls = {}
+    t_part = time.perf_counter()
+
+    def part(name):
+        nonlocal t_part
+        now = time.perf_counter()
+        walls[name] = round(now - t_part, 1)
+        t_part = now
     prompts = lm_prompts(cfg)
     cell = cell_of(cfg, prompts)
+    extras = cell.extras(list(range(len(prompts))))
+    max_len = serve_max_len(cfg)
     model = build_model(cfg)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -4258,7 +4512,7 @@ def run_serving(cfg, cell_of, f32_of=f32_copy) -> dict:
         f"max_memory_allocated at init "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     lens = [len(p) for p in prompts]
-    eng = ServeEngine(model, params, max_len=LM_MAX_LEN)
+    eng = ServeEngine(model, params, max_len=max_len)
     n_new = LM_NEW_TOKENS
 
     runs = []
@@ -4266,7 +4520,7 @@ def run_serving(cfg, cell_of, f32_of=f32_copy) -> dict:
         cell.reset()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = eng.generate(prompts, n_new)
+        out = eng.generate(prompts, n_new, extras)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = cell.counts()
@@ -4279,7 +4533,7 @@ def run_serving(cfg, cell_of, f32_of=f32_copy) -> dict:
                                  "output")
         runs.append((out, launches))
         log(f"serve {cfg.name} ({label}): {len(prompts)} prompts of {lens}"
-            f" tokens, {n_new} new each, max_len {LM_MAX_LEN}: {wall:.3f} "
+            f" tokens, {n_new} new each, max_len {max_len}: {wall:.3f} "
             f"s wall; launches {launches}")
     if runs[0] != runs[1]:
         raise AssertionError(f"{cfg.name}: two generates of the same "
@@ -4302,16 +4556,15 @@ def run_serving(cfg, cell_of, f32_of=f32_copy) -> dict:
     with wrapped(Model, "forward", timed):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        eng.generate(prompts, n_new)
+        eng.generate(prompts, n_new, extras)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     pre = spent["prefill"]
     dec = wall - pre
-    # a decode step reads every weight but the embedding table (a row a
-    # token) once: the reference's dispatch runs all experts every step
-    step_bytes = weight_bytes - params.embed.table.numel() \
-        * params.embed.table.element_size()
+    # a decode step reads its weights once (``decode_step_bytes``): the
+    # reference's dispatch runs all experts every step
+    step_bytes = decode_step_bytes(params)
     perf = dict(prefill_s=pre, prefill_tok_s=sum(lens) / pre,
                 prefill_padded_tok_s=len(lens) * max(lens) / pre,
                 decode_ms_per_step=dec / n_new * 1e3,
@@ -4330,26 +4583,35 @@ def run_serving(cfg, cell_of, f32_of=f32_copy) -> dict:
     # the kernels against their plain versions, batch 1, decode against
     # prefill and the planted faults: in the config's bf16, then in f32,
     # where rounding is far below what each fault moves
+    part("init and timed runs")
     chk = serve_checks(eng, prompts, cell)
     if chk["out"] != runs[0][0]:
         raise AssertionError("recorded generate differs from the first")
-    busy = serve_busy(eng, prompts, kernel_names=cell.device_names)
-    del eng, params
+    part("serve checks")
+    busy = serve_busy(eng, prompts, kernel_names=cell.device_names,
+                      extras=extras)
+    part("profiled run")
+    del eng, params, extras, cell
     torch.cuda.empty_cache()
     cfg32 = f32_of(cfg)
     model32 = build_model(cfg32)
     torch.cuda.reset_peak_memory_stats()
     eng32 = ServeEngine(model32, model32.init_params(seed=SEED,
                                                      device=DEVICE),
-                        max_len=LM_MAX_LEN)
+                        max_len=max_len)
     log(f"lm: {cfg32.name} f32 check copy ({cfg32.n_layers} layers, "
         f"{model32.param_count()} parameters held in "
         f"{cfg32.param_dtype}); max_memory_allocated at init "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    chk32 = serve_checks(eng32, prompts, cell_of(cfg32, prompts))
-    busy32 = serve_busy(eng32, prompts, kernel_names=cell.device_names)
+    cell32 = cell_of(cfg32, prompts)
+    chk32 = serve_checks(eng32, prompts, cell32)
+    part("f32 copy: init and serve checks")
+    busy32 = serve_busy(eng32, prompts, kernel_names=cell32.device_names,
+                        extras=cell32.extras(list(range(len(prompts)))))
+    part("f32 copy: profiled run")
     del eng32
     torch.cuda.empty_cache()
+    log(f"serve {cfg.name}: wall s by part {json.dumps(walls)}")
     log(f"lm serving {cfg.name}: " + json.dumps(dict(
         perf, **busy, **{f"float32_{k}": v for k, v in busy32.items()},
         **{f"{c['dtype']}_{k}": c[k]
@@ -4528,6 +4790,58 @@ def run_ssm() -> list:
         float32={k: sc[("prefill B4 S500", "float32")][k] for k in keys})]
 
 
+def lm_phase(name: str, run, *args):
+    """``run(*args)``, its wall time logged as the phase's."""
+    t0 = time.perf_counter()
+    out = run(*args)
+    log(f"{name} phase: {time.perf_counter() - t0:.1f} s wall")
+    return out
+
+
+CELL_KEYS = ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
+             "bound_by", "bound_f32_core_ms", "max_abs_err")
+
+
+def cell_entry(rows, case: str, shape: str) -> dict:
+    """A kernels-line entry of one timed case: its record's numbers in
+    both dtypes, SDPA's device time (flash) or the launch's thread blocks
+    (decode, bf16) beside them."""
+    entry = {dt: {k: rows[(case, dt)].get(k) for k in CELL_KEYS}
+             for dt in ("bfloat16", "float32")}
+    for dt in entry:
+        if "library_device_ms" in rows[(case, dt)]:
+            entry[dt]["library_device_ms"] = \
+                rows[(case, dt)]["library_device_ms"]
+    if "blocks" in rows[(case, "bfloat16")]:
+        entry["bfloat16"]["blocks"] = rows[(case, "bfloat16")]["blocks"]
+    return dict(shape=shape, **entry)
+
+
+def add_cell(kernels: list, key: str, served_run: dict, entries) -> None:
+    """Each ``(name, rows, {sub-entry: (case, shape)})`` of ``entries``
+    gives kernel ``name``'s record a ``key`` entry (the first sub-entry
+    at its top, the rest under their names), ``launches_<key>`` (the
+    cold generate's count) and the largest error of ``rows``; the decode
+    record also the cell's timed decode step beside its weights'
+    bound."""
+    by_name = {k["name"]: k for k in kernels}
+    perf = served_run["perf"]
+    for name, rows, subs in entries:
+        rec = by_name[name]
+        (_, (case, shape)), *rest = subs.items()
+        entry = cell_entry(rows, case, shape)
+        for sub, (sub_case, sub_shape) in rest:
+            entry[sub] = cell_entry(rows, sub_case, sub_shape)
+        if name == "decode_attention":
+            entry["serve_decode_ms_per_step"] = perf["decode_ms_per_step"]
+            entry["serve_decode_weight_bound_ms"] = \
+                perf["decode_weight_bound_ms"]
+        rec[key] = entry
+        rec[f"launches_{key}"] = served_run["launches"][name]
+        rec["max_abs_err"] = max(rec["max_abs_err"],
+                                 max(r["max_abs_err"] for r in rows.values()))
+
+
 def run_hybrid(kernels: list) -> None:
     """Zamba2 serving at full zamba2-7b width and ``HYBRID_GROUPS`` of its
     13 groups (33 of 81 layers: 5 groups of 5 Mamba2 layers and a shared
@@ -4545,31 +4859,16 @@ def run_hybrid(kernels: list) -> None:
                                 timed=(decode_check.HYBRID_CASE[0],))
     sc = check_ssd_scan(64, timed=(ssd_check.HYBRID_CASE[0],))
     served_run = run_serving(HYBRID_CFG, hybrid_cell)
-    by_name = {k["name"]: k for k in kernels}
-    keys = ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
-            "bound_by", "bound_f32_core_ms", "max_abs_err")
-    for name, rows, main_case, shape in (
-            ("flash_attention", fa, "D112 S500 causal",
-             "B 4, S 500, Hq 32, Hkv 32, D 112, causal"),
-            ("decode_attention", da, decode_check.HYBRID_CASE[0],
-             "B 4, S 1024, Hq 32, Hkv 32, D 112, kv_len (1, 61, 512, "
-             "1024)"),
-            ("ssd_scan", sc, ssd_check.HYBRID_CASE[0],
-             "B 4, S 500, H 112, P 64, N 64, chunk 128")):
-        rec = by_name[name]
-        hyb = {dt: {k: rows[(main_case, dt)].get(k) for k in keys}
-               for dt in ("bfloat16", "float32")}
-        if name == "flash_attention":
-            for dt in hyb:
-                hyb[dt]["library_device_ms"] = \
-                    rows[(main_case, dt)]["library_device_ms"]
-        if name == "decode_attention":
-            hyb["bfloat16"]["blocks"] = rows[(main_case, "bfloat16")][
-                "blocks"]
-        rec["hybrid"] = dict(shape=shape, **hyb)
-        rec["launches_hybrid"] = served_run["launches"][name]
-        rec["max_abs_err"] = max(rec["max_abs_err"],
-                                 max(r["max_abs_err"] for r in rows.values()))
+    add_cell(kernels, "hybrid", served_run, (
+        ("flash_attention", fa, {"S500": (
+            "D112 S500 causal",
+            "B 4, S 500, Hq 32, Hkv 32, D 112, causal")}),
+        ("decode_attention", da, {"S1024": (
+            decode_check.HYBRID_CASE[0], "B 4, S 1024, Hq 32, Hkv 32, D "
+            "112, kv_len (1, 61, 512, 1024)")}),
+        ("ssd_scan", sc, {"S500": (
+            ssd_check.HYBRID_CASE[0],
+            "B 4, S 500, H 112, P 64, N 64, chunk 128")})))
 
 
 def run_moe(kernels: list) -> None:
@@ -4594,33 +4893,80 @@ def run_moe(kernels: list) -> None:
     da = check_decode_attention(decode_check.D128_CASES,
                                 timed=(decode_check.MOE_CASE[0],))
     served_run = run_serving(MOE_CFG, moe_cell, f32_of=moe_f32_copy)
-    by_name = {k["name"]: k for k in kernels}
-    keys = ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
-            "bound_by", "bound_f32_core_ms", "max_abs_err")
-    perf = served_run["perf"]
-    for name, rows, main_case, shape in (
-            ("flash_attention", fa, "D128 S500 causal",
-             "B 4, S 500, Hq 16, Hkv 16, D 128, causal"),
-            ("decode_attention", da, decode_check.MOE_CASE[0],
-             "B 4, S 1024, Hq 16, Hkv 16, D 128, kv_len (1, 61, 512, "
-             "1024)")):
-        rec = by_name[name]
-        entry = {dt: {k: rows[(main_case, dt)].get(k) for k in keys}
-                 for dt in ("bfloat16", "float32")}
-        if name == "flash_attention":
-            for dt in entry:
-                entry[dt]["library_device_ms"] = \
-                    rows[(main_case, dt)]["library_device_ms"]
-        else:
-            entry["bfloat16"]["blocks"] = rows[(main_case, "bfloat16")][
-                "blocks"]
-            entry["serve_decode_ms_per_step"] = perf["decode_ms_per_step"]
-            entry["serve_decode_weight_bound_ms"] = \
-                perf["decode_weight_bound_ms"]
-        rec["moe"] = dict(shape=shape, **entry)
-        rec["launches_moe"] = served_run["launches"][name]
-        rec["max_abs_err"] = max(rec["max_abs_err"],
-                                 max(r["max_abs_err"] for r in rows.values()))
+    add_cell(kernels, "moe", served_run, (
+        ("flash_attention", fa, {"S500": (
+            "D128 S500 causal",
+            "B 4, S 500, Hq 16, Hkv 16, D 128, causal")}),
+        ("decode_attention", da, {"S1024": (
+            decode_check.MOE_CASE[0], "B 4, S 1024, Hq 16, Hkv 16, D 128, "
+            "kv_len (1, 61, 512, 1024)")})))
+
+
+def run_vlm(kernels: list) -> None:
+    """pixtral-12b serving at full width (40 layers, d_model 5120, 32 of 8
+    heads of 128, d_ff 14336, vocab 131,072; its weights held in bf16;
+    1024 patch embeddings a prompt, drawn from ``SEED``): the attention
+    kernels' instances at its shapes against their plain versions (flash
+    at S 1524, its longest prompt, and S 512, causal; decode at B 4, S
+    2048 with its prompts' lengths), timed beside SDPA, then the vlm
+    serving cell, whose f32 check copy has ``VLM_F32_LAYERS`` layers.
+    Each of ``kernels``' flash_attention and decode_attention records
+    gains a ``vlm`` entry and ``launches_vlm``."""
+    torch.cuda.empty_cache()
+    long_case = "D128 pixtral-12b S1524 causal"
+    fa = check_flash_attention(flash_check.PIXTRAL_HEADS,
+                               timed=(long_case,
+                                      "D128 pixtral-12b S512 causal"))
+    da = check_decode_attention((decode_check.VLM_CASE,),
+                                timed=(decode_check.VLM_CASE[0],))
+    served_run = run_serving(VLM_CFG, vlm_cell, f32_of=vlm_f32_copy)
+    add_cell(kernels, "vlm", served_run, (
+        ("flash_attention", fa, {"S1524": (
+            long_case, "B 4, S 1524, Hq 32, Hkv 8, D 128, causal")}),
+        ("decode_attention", da, {"S2048": (
+            decode_check.VLM_CASE[0], "B 4, S 2048, Hq 32, Hkv 8, D 128, "
+            "kv_len (1, 1085, 1524, 2048)")})))
+
+
+def run_encdec(kernels: list) -> None:
+    """whisper-small serving at full width (12 encoder and 12 decoder
+    layers, d_model 768, 12 of 12 heads of 64, QKV bias, tied
+    embeddings; 1500 audio frames a prompt, drawn from ``SEED``): the
+    attention kernels' instances at its shapes against their plain
+    versions (flash: the encoder's 1500 keys non-causal, the
+    cross-attention's 500 queries against 1500 keys, the decoder's S 500
+    causal; decode: its self-attention at the serving lengths and its
+    cross-attention over all 1500 frames, and an 8-step CUDA-graph
+    replay of the latter), timed beside SDPA, then the encdec serving
+    cell.  Each of ``kernels``' flash_attention and decode_attention
+    records gains an ``encdec`` entry (the encoder's and the cross call
+    at its top, the others under their names) and ``launches_encdec``."""
+    torch.cuda.empty_cache()
+    enc, cross, dec = ("D64 MHA12 S1500 non-causal",
+                       "D64 MHA12 Sq500 Skv1500 non-causal",
+                       "D64 MHA12 S500 causal")
+    fa = check_flash_attention(flash_check.WHISPER_HEADS,
+                               timed=(enc, cross, dec))
+    da = check_decode_attention(
+        (decode_check.ENCDEC_CASE, decode_check.CROSS_CASE),
+        timed=(decode_check.ENCDEC_CASE[0], decode_check.CROSS_CASE[0]))
+    err = decode_check.check_cross_graph_replay(DEVICE, SEED + 31)
+    log(f"decode_attention: the cross call captured in a CUDA graph and "
+        f"replayed for 8 steps with a new query each, max |d| {err!r} "
+        "(within tolerance)")
+    served_run = run_serving(ENCDEC_CFG, encdec_cell)
+    heads = "Hq 12, Hkv 12, D 64"
+    add_cell(kernels, "encdec", served_run, (
+        ("flash_attention", fa, {
+            "encoder": (enc, f"B 4, S 1500, {heads}, non-causal"),
+            "cross": (cross, f"B 4, Sq 500, Skv 1500, {heads}, "
+                             "non-causal"),
+            "decoder_self": (dec, f"B 4, S 500, {heads}, causal")}),
+        ("decode_attention", da, {
+            "cross": (decode_check.CROSS_CASE[0],
+                      f"B 4, S 1500, {heads}, kv_len 1500 every row"),
+            "self": (decode_check.ENCDEC_CASE[0],
+                     f"B 4, S 1024, {heads}, kv_len (1, 61, 512, 1024)")})))
 
 
 def main() -> int:
@@ -4635,10 +4981,13 @@ def main() -> int:
         f"{torch.version.cuda}, nvcc: {nvcc}")
     t_script = time.perf_counter()
     build_kernels()
+    t_video = time.perf_counter()
     video, bank, params, untrained = run_video()
-    kernels = video + run_lm() + run_ssm()
-    run_hybrid(kernels)
-    run_moe(kernels)
+    log(f"video phase: {time.perf_counter() - t_video:.1f} s wall")
+    kernels = video + lm_phase("lm", run_lm) + lm_phase("ssm", run_ssm)
+    for name, run in (("hybrid", run_hybrid), ("moe", run_moe),
+                      ("vlm", run_vlm), ("encdec", run_encdec)):
+        lm_phase(name, run, kernels)
     # the fleet last: after its stream threads, the profiler's traces
     # held no device kernel for the rest of the process (twice), and
     # every phase before it reads the profiler

@@ -6,9 +6,10 @@ tiny same-family config the CPU tests run, and ``param_count()`` the
 analytic parameter count.  Configs are pure data.  The registry holds
 the configurations the port has copied so far (``deepseek_67b``,
 ``deepseek_coder_33b``, ``deepseek_moe_16b``, ``grok_1_314b``,
-``mamba2_370m``, ``qwen2_0_5b``, ``stablelm_1_6b``, ``zamba2_7b``); the
-models it serves are the ``dense``, ``moe``, ``ssm`` and ``hybrid``
-families (``repro_torch.models``).
+``mamba2_370m``, ``pixtral_12b``, ``qwen2_0_5b``, ``stablelm_1_6b``,
+``whisper_small``, ``zamba2_7b``); the models it serves are the
+``dense``, ``moe``, ``ssm``, ``hybrid``, ``vlm`` and ``encdec`` families
+(``repro_torch.models``).
 """
 from __future__ import annotations
 
@@ -297,7 +298,8 @@ def _load_all() -> None:
     """Import every per-arch module once (each registers its config)."""
     from repro_torch.configs import (  # noqa: F401
         deepseek_67b, deepseek_coder_33b, deepseek_moe_16b, grok_1_314b,
-        mamba2_370m, qwen2_0_5b, stablelm_1_6b, zamba2_7b)
+        mamba2_370m, pixtral_12b, qwen2_0_5b, stablelm_1_6b, whisper_small,
+        zamba2_7b)
 
 
 def register(cfg: ModelConfig) -> ModelConfig:

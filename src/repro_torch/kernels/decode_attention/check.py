@@ -39,7 +39,19 @@ MOE_CASE = ("D128 MHA16 B4 S1024 kv_len (1, 61, 512, 1024)", 4, 1024, 16,
 D128_CASES = (MOE_CASE,) + tuple(
     (f"D128 {arch} B4 S1024 kv_len (1, 61, 512, 1024)", 4, 1024, hq, hkv,
      d, (1, 61, 512, 1024)) for arch, (hq, hkv, d) in D128_LAYOUTS.items())
-CASES = LM_CASES + (HYBRID_CASE,) + D128_CASES
+# the encdec cell's calls (whisper-small, MHA, 12 of 12 of 64): the
+# decoder's self-attention at the serving lengths and its cross-attention,
+# every row over all 1500 frames (whose last 64-key tile holds 28 keys,
+# 1500 = 23 x 64 + 28, in a 16-block cluster's split); the vlm cell's
+# (pixtral-12b, 32 of 8 of 128) at max_len 2048 with its prompts' lengths
+ENCDEC_CASE = ("D64 MHA12 B4 S1024 kv_len (1, 61, 512, 1024)", 4, 1024, 12,
+               12, 64, (1, 61, 512, 1024))
+CROSS_CASE = ("D64 MHA12 cross B4 S1500 kv_len 1500", 4, 1500, 12, 12, 64,
+              (1500,) * 4)
+VLM_CASE = ("D128 pixtral-12b B4 S2048 kv_len (1, 1085, 1524, 2048)", 4,
+            2048, 32, 8, 128, (1, 1085, 1524, 2048))
+SERVE_CASES = (ENCDEC_CASE, CROSS_CASE, VLM_CASE)
+CASES = LM_CASES + (HYBRID_CASE,) + D128_CASES + SERVE_CASES
 DTYPES = (torch.bfloat16, torch.float32)
 
 
@@ -119,4 +131,31 @@ def check_graph_replay(device, seed: int) -> float:
             errs.append(kernel_agrees(
                 out, decode_attention_ref(q, k, v, kv_len),
                 f"decode_attention graph replay, kv_len {lens}"))
+    return max(errs)
+
+
+def check_cross_graph_replay(device, seed: int, steps: int = 8) -> float:
+    """The cross-attention decode (``CROSS_CASE``, every row over all
+    1500 frames) captured once in a CUDA graph, then replayed for
+    ``steps`` decode steps, a new query copied in place before each (the
+    frames and their kv_len stay), each step against the plain version.
+    -> max |d|."""
+    q, k, v, kv_len = case_operands(CROSS_CASE, torch.bfloat16, device,
+                                    seed)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 1)
+    errs = []
+    with torch.inference_mode():
+        decode_attention(q, k, v, kv_len)   # built and set up before it
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = decode_attention(q, k, v, kv_len)
+        for step in range(steps):
+            q.copy_(torch.randn(q.shape, generator=gen, device=device))
+            graph.replay()
+            torch.cuda.synchronize()
+            errs.append(kernel_agrees(
+                out, decode_attention_ref(q, k, v, kv_len),
+                f"decode_attention cross graph replay, step {step}"))
     return max(errs)

@@ -67,6 +67,27 @@ CASES = (("S512 causal", torch.bfloat16, 512, 512, True, 0, (HQ, HKV, D)),
          ) + tuple((f"D128 {arch} S512 causal", dt, 512, 512, True, 0, heads)
                    for arch, heads in D128_LAYOUTS.items()
                    for dt in (torch.bfloat16, torch.float32))
+# whisper-small's heads (MHA, 12 of 12 of 64) and pixtral-12b's (32 of 8
+# of 128, a group of 4)
+WHISPER_HEADS = (12, 12, 64)
+PIXTRAL_HEADS = (32, 8, 128)
+# the encdec and vlm cells' calls, both dtypes: whisper's encoder (S 1500
+# = 11 x 128 + 92 keys, non-causal), its cross-attention (Sq 500 against
+# Skv 1500, non-causal: the queries-at-the-end shift must mask nothing),
+# its decoder's self-attention (S 500, causal); pixtral's longest prompt
+# (S 1524, causal) and S 512.  Kept apart from CASES, whose f32 cases
+# tests/test_torch_tf32_design.py models whole on the CPU (these it
+# models at one row and one KV head's group: SERVE_CASES there)
+SERVE_CASES = tuple(
+    (name, dt, Sq, Skv, causal, 0, heads)
+    for name, Sq, Skv, causal, heads in (
+        ("D64 MHA12 S1500 non-causal", 1500, 1500, False, WHISPER_HEADS),
+        ("D64 MHA12 Sq500 Skv1500 non-causal", 500, 1500, False,
+         WHISPER_HEADS),
+        ("D64 MHA12 S500 causal", 500, 500, True, WHISPER_HEADS),
+        ("D128 pixtral-12b S1524 causal", 1524, 1524, True, PIXTRAL_HEADS),
+        ("D128 pixtral-12b S512 causal", 512, 512, True, PIXTRAL_HEADS))
+    for dt in (torch.bfloat16, torch.float32))
 # head dims the wrapper must refuse on a CUDA tensor: no kernel build
 UNBUILT_HEAD_DIMS = (32, 96)
 
@@ -140,7 +161,8 @@ def check_flash(q, k, v, causal: bool, kv_valid: int, label: str) -> float:
 
 
 def check_case(case, device, seed: int) -> float:
-    """``check_flash`` on one of ``CASES``.  -> max |d|."""
+    """``check_flash`` on one of ``CASES`` or ``SERVE_CASES``.  -> max
+    |d|."""
     name, _, _, _, causal, kv_valid, _ = case
     q, k, v = case_operands(case, device, seed)
     return check_flash(q, k, v, causal, kv_valid,

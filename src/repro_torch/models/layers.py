@@ -7,15 +7,17 @@ not fit the card otherwise), each module built with ``dtype=``; compute
 follows the activations (bf16 at the configs' default), with each weight
 cast to the activation dtype at use; norms run in f32 (their scales
 upcast) and logits come out in f32 (the tied table or the head upcast).
-``Linear`` and ``SwiGLU`` keep each weight's copy in the activation
-dtype beside it when the two dtypes differ, made once when the weight
-is written (``TransformerLM.load_``): the bits of a cast at every use.
+``Linear``, ``SwiGLU`` and ``GeluMLP`` keep each weight's copy in the
+activation dtype beside it when the two dtypes differ, made once when
+the weight is written (``LMWeights.load_``): the bits of a cast at
+every use.
 
 ``Linear`` keeps the reference's weight layout, ``w`` of shape
 (d_in, d_out), so ``params.lm_from_params`` copies it as it is.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -75,6 +77,31 @@ class RMSNorm(nn.Module):
         return rmsnorm(x, self.scale, self.eps)
 
 
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float) -> torch.Tensor:
+    """``layernorm``: computed in f32 (scale and bias upcast), returned in
+    the input's dtype."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    """``layernorm`` with its scale and bias as parameters (the
+    encoder-decoder family's norm)."""
+
+    def __init__(self, dim: int, eps: float, device=None, dtype=None):
+        super().__init__()
+        self.eps = eps
+        self.scale = empty_param((dim,), device, dtype)
+        self.bias = empty_param((dim,), device, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layernorm(x, self.scale, self.bias, self.eps)
+
+
 class Linear(CastWeights):
     """``linear``: y = x @ w (+ b), weight (d_in, d_out), both cast to
     x's dtype."""
@@ -121,6 +148,20 @@ def rope_tables(positions: torch.Tensor, head_dim: int, theta: float
     return torch.cos(ang), torch.sin(ang)
 
 
+def sinusoidal_positions(n: int, dim: int, device=None) -> torch.Tensor:
+    """Whisper's fixed sinusoidal position embeddings (n, dim), f32: the
+    sines of dim // 2 frequencies, then their cosines (not interleaved),
+    the frequencies exp(-i log(10000) / (dim // 2 - 1))."""
+    half = dim // 2
+    step = torch.tensor(math.log(10_000.0), dtype=torch.float32,
+                        device=device) / max(half - 1, 1)
+    freqs = torch.exp(-torch.arange(half, dtype=torch.float32,
+                                    device=device) * step)
+    ang = torch.arange(n, dtype=torch.float32, device=device)[:, None] \
+        * freqs[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
                ) -> torch.Tensor:
     """x: (B, S, H, D); cos/sin: (B, S, D//2) or (S, D//2).  Half-split
@@ -151,3 +192,24 @@ class SwiGLU(CastWeights):
         g = torch.matmul(x, self.weight("w_gate", x.dtype))
         u = torch.matmul(x, self.weight("w_up", x.dtype))
         return torch.matmul(F.silu(g) * u, self.weight("w_down", x.dtype))
+
+
+class GeluMLP(CastWeights):
+    """``mlp_gelu``: gelu(x @ w_in + b_in) @ w_out + b_out, as
+    ``def_mlp_gelu``.  ``jax.nn.gelu`` is the tanh approximation by
+    default, so this is ``approximate="tanh"``, not torch's default
+    erf."""
+
+    def __init__(self, d_model: int, d_ff: int, device=None, dtype=None):
+        super().__init__()
+        self.w_in = empty_param((d_model, d_ff), device, dtype)
+        self.b_in = empty_param((d_ff,), device, dtype)
+        self.w_out = empty_param((d_ff, d_model), device, dtype)
+        self.b_out = empty_param((d_model,), device, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = torch.matmul(x, self.weight("w_in", x.dtype)) \
+            + self.weight("b_in", x.dtype)
+        h = F.gelu(h, approximate="tanh")
+        return torch.matmul(h, self.weight("w_out", x.dtype)) \
+            + self.weight("b_out", x.dtype)

@@ -1,9 +1,10 @@
 """The Model API (the port's counterpart of the JAX package's
-``models/model.py``), dense, moe, ssm and hybrid families.
+``models/model.py``), every LM family: dense, vlm, moe, ssm, hybrid
+and encdec.
 
 ``build_model(cfg)`` returns a ``Model`` exposing:
 
-  init_params(seed, device=)  -> TransformerLM (weights in the config's
+  init_params(seed, device=)  -> the weights module (in the config's
                                  param_dtype: f32 masters by default)
   param_specs() / param_count()
   forward(params, batch, return_cache=)  -> (logits, aux, cache | None)
@@ -12,8 +13,13 @@
   make_cache(batch, max_len, device=)    -> cache
 
 Where the reference passes a parameter pytree, the port passes the
-``TransformerLM`` module that holds the weights.  ``loss`` (training)
-is not ported yet.
+module that holds the weights (``TransformerLM``; for the encdec
+family ``encdec.EncDecLM``).  Batches are dicts: every family reads
+``tokens``, the vlm family also ``patch_embeds`` (optional, as the
+reference's ``batch.get``) and the encdec family ``audio_embeds``
+(required); each as a numpy array or a tensor, moved to the weights'
+device.  A key the family does not read raises ValueError.  ``loss``
+(training) is not ported yet.
 """
 from __future__ import annotations
 
@@ -25,9 +31,13 @@ import torch
 
 from repro_torch import Device, resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import transformer as tf_mod
 from repro_torch.models.common import init_tensor
-from repro_torch.models.transformer import TransformerLM
+from repro_torch.models.transformer import LMWeights
+
+# the frontend embeddings each family reads beside ``tokens``
+FRONTEND_KEYS = {"vlm": "patch_embeds", "encdec": "audio_embeds"}
 
 
 def _tokens(batch: Dict[str, Any], device: torch.device) -> torch.Tensor:
@@ -37,12 +47,36 @@ def _tokens(batch: Dict[str, Any], device: torch.device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(toks, np.int64), device=device)
 
 
+def _embeds(x, device: torch.device) -> torch.Tensor:
+    """Frontend embeddings as a tensor on ``device`` (numpy arrays as
+    f32; the model casts them to its activation dtype)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    return torch.from_numpy(np.asarray(x, np.float32)).to(device)
+
+
+def lm_param_specs(cfg: ModelConfig):
+    """The parameter specs of any LM family."""
+    tf_mod.check_family(cfg)
+    if cfg.family == "encdec":
+        return encdec_mod.param_specs(cfg)
+    return tf_mod.param_specs(cfg)
+
+
+def new_lm(cfg: ModelConfig, device: torch.device) -> LMWeights:
+    """The empty weights module of any LM family on ``device``."""
+    tf_mod.check_family(cfg)
+    if cfg.family == "encdec":
+        return encdec_mod.EncDecLM(cfg, device)
+    return tf_mod.TransformerLM(cfg, device)
+
+
 @dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
 
     def param_specs(self):
-        return tf_mod.param_specs(self.cfg)
+        return lm_param_specs(self.cfg)
 
     def param_count(self) -> int:
         return sum(s.numel for s in self.param_specs())
@@ -54,34 +88,49 @@ class Model:
         return tf_mod.cache_has_length(self.cfg)
 
     def init_params(self, seed: int = 0, device: Device = "cuda"
-                    ) -> TransformerLM:
+                    ) -> LMWeights:
         """Weights drawn by name from ``seed`` (``models.common``), on
         ``device``: the port's own init, not the reference's numbers.
         Each is drawn in f32 and held in its spec's dtype or the config's
         ``param_dtype``; one parameter's f32 draw lives at a time."""
         dev = resolve_device(device)
-        model = TransformerLM(self.cfg, dev)
+        model = new_lm(self.cfg, dev)
         for spec in self.param_specs():
             model.load_(spec.path, init_tensor(spec, seed, dev,
                                                self.cfg.param_dtype))
         return model.eval()
 
-    def forward(self, params: TransformerLM, batch: Dict[str, Any],
+    def forward(self, params: LMWeights, batch: Dict[str, Any],
                 return_cache: bool = False, cache_len: Optional[int] = None,
                 logits_at=None):
-        if set(batch) - {"tokens"}:
-            raise NotImplementedError(
-                f"batch keys {sorted(set(batch) - {'tokens'})}: frontend "
-                "embeddings belong to families not ported yet")
-        toks = _tokens(batch, params.device)
+        cfg = self.cfg
+        frontend = FRONTEND_KEYS.get(cfg.family)
+        unread = set(batch) - {"tokens", frontend}
+        if unread:
+            raise ValueError(f"batch keys {sorted(unread)}: the "
+                             f"{cfg.family} family reads tokens"
+                             + (f" and {frontend}" if frontend else ""))
+        dev = params.device
+        toks = _tokens(batch, dev)
         if logits_at is not None:
-            logits_at = torch.as_tensor(logits_at, device=params.device)
+            logits_at = torch.as_tensor(logits_at, device=dev)
+        embeds = batch.get(frontend) if frontend else None
         with torch.inference_mode():
-            return tf_mod.lm_forward(params, toks, return_cache=return_cache,
+            if embeds is not None:
+                embeds = _embeds(embeds, dev)
+            if cfg.family == "encdec":
+                if embeds is None:
+                    raise ValueError("the encdec family needs "
+                                     "audio_embeds")
+                return encdec_mod.encdec_forward(
+                    params, embeds, toks, return_cache=return_cache,
+                    cache_len=cache_len, logits_at=logits_at)
+            return tf_mod.lm_forward(params, toks, patch_embeds=embeds,
+                                     return_cache=return_cache,
                                      cache_len=cache_len,
                                      logits_at=logits_at)
 
-    def prefill(self, params: TransformerLM, batch: Dict[str, Any],
+    def prefill(self, params: LMWeights, batch: Dict[str, Any],
                 max_len: Optional[int] = None):
         """Logits at the last (padded) position and the cache, grown to
         ``max_len`` when given (a KV cache; SSM states have no length)."""
@@ -92,17 +141,25 @@ class Model:
             cache_len=max(S, max_len or 0), logits_at=last)
         return logits, cache
 
-    def decode_step(self, params: TransformerLM, token, pos, cache):
+    def decode_step(self, params: LMWeights, token, pos, cache):
         """token: (B, 1); pos: (B,) int32 on the params' device (not
         read by the ssm family; the hybrid family's attention sites read
-        it).  The cache is updated in place and returned."""
+        it; the encdec family's self-attention).  The cache is updated in
+        place and returned."""
         with torch.inference_mode():
-            logits, cache = tf_mod.lm_decode(params, token, pos, cache)
+            if self.cfg.family == "encdec":
+                logits, cache = encdec_mod.encdec_decode(params, token, pos,
+                                                         cache)
+            else:
+                logits, cache = tf_mod.lm_decode(params, token, pos, cache)
         return logits[:, 0], cache
 
     def make_cache(self, batch: int, max_len: int, device: Device = "cuda"):
-        return tf_mod.make_cache(self.cfg, batch, max_len,
-                                 resolve_device(device))
+        dev = resolve_device(device)
+        if self.cfg.family == "encdec":
+            return encdec_mod.make_encdec_cache(self.cfg, batch, max_len,
+                                                dev)
+        return tf_mod.make_cache(self.cfg, batch, max_len, dev)
 
 
 def build_model(cfg: ModelConfig) -> Model:

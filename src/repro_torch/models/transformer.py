@@ -1,14 +1,15 @@
-"""Decoder-only LM assembly, dense, moe, ssm and hybrid families (the port's
-counterpart of the JAX package's ``models/transformer.py``): parameter
-specs, the full-sequence forward with cache capture (prefill), caches,
-and the single-token decode.
+"""Decoder-only LM assembly, dense, vlm, moe, ssm and hybrid families (the
+port's counterpart of the JAX package's ``models/transformer.py``):
+parameter specs, the full-sequence forward with cache capture (prefill),
+caches, and the single-token decode.
 
 The reference stacks each layer's parameters on leading axes and runs
 ``lax.scan`` over them; the port keeps one module per layer in an
 ``nn.ModuleList`` and loops.  The specs keep the stacked paths and
 shapes, so a stacked tensor (the reference's, or the port's own init) is
 split over the layers when it is loaded.  The caches are the reference's
-trees: for the dense family one (L, B, S, Hkv, D) K/V tensor pair; for
+trees: for the dense and vlm families one (L, B, S, Hkv, D) K/V tensor
+pair; for
 the moe family one pair a stack, ``dense_layers`` (the first
 ``dense_first_n`` layers, whose MLP is a SwiGLU of ``dense_d_ff``) and
 ``layers`` (the rest, whose MLP is a ``moe.MoEBlock``); for the ssm
@@ -26,8 +27,11 @@ and ``tail/...`` (tail_ssm); its cache holds ``groups`` (the SSM states,
 (n_groups, ssm_per_group, B, ...)), ``shared_kv`` (one K/V pair a site,
 (n_groups, B, S, Hkv, D)) and ``tail``.
 
-The other families raise NotImplementedError naming the ``ROADMAP.md``
-item that ports them.
+The vlm family (Pixtral) is the dense stack whose first ``n_embeds``
+positions take precomputed patch embeddings in place of the token
+embeddings (the vision frontend is a stub, as in the reference).  The
+encoder-decoder family (Whisper) is ``models/encdec.py``; it shares
+``LMWeights`` (the loading of stacked parameters) and ``pad_cache``.
 """
 from __future__ import annotations
 
@@ -46,23 +50,12 @@ from repro_torch.models.ssm import (SSMBlock, dims as ssm_dims,
                                    init_ssm_state, proj_dim)
 
 Cache = Dict[str, Any]
-PORTED = ("dense", "moe", "ssm", "hybrid")
-
-# families still to port, and the ROADMAP.md queue 1 item that will
-NOT_PORTED = {
-    "vlm": "queue 1 item 12e (vision frontend)",
-    "encdec": "queue 1 item 12f (encoder-decoder, cross-attention)",
-}
+PORTED = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
 
 
 def check_family(cfg: ModelConfig) -> None:
-    if cfg.family in PORTED:
-        return
-    if cfg.family in NOT_PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-            f"(ROADMAP.md {NOT_PORTED[cfg.family]})")
-    raise ValueError(f"{cfg.name}: family {cfg.family!r} has no LM")
+    if cfg.family not in PORTED:
+        raise ValueError(f"{cfg.name}: family {cfg.family!r} has no LM")
 
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
@@ -143,10 +136,13 @@ def attn_stack_sizes(cfg: ModelConfig) -> List[Tuple[str, int]]:
 
 
 def param_specs(cfg: ModelConfig) -> List[ParamSpec]:
-    """``def_lm_params`` for the dense, moe, ssm and hybrid families:
-    paths, shapes and dtype overrides of the reference's parameter tree,
-    layers stacked."""
+    """``def_lm_params`` for the dense, vlm, moe, ssm and hybrid
+    families: paths, shapes and dtype overrides of the reference's
+    parameter tree, layers stacked."""
     check_family(cfg)
+    if cfg.family == "encdec":
+        raise ValueError(f"{cfg.name}: the encdec family's specs are "
+                         "models.encdec.param_specs")
     L, d = cfg.n_layers, cfg.d_model
     specs = [ParamSpec("embed/table", (cfg.vocab_size, d), scale=1.0)]
     if cfg.family == "ssm":
@@ -259,10 +255,51 @@ class SSMLayer(nn.Module):
         return h + self.ssm.decode(self.ln(h), state)
 
 
-class TransformerLM(nn.Module):
+class LMWeights(nn.Module):
+    """An LM's weights, one module per layer, loaded from the reference's
+    stacked parameter paths (``load_``).  Subclasses give ``_stacks``
+    and hold the token table as ``embed``."""
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.table.device
+
+    def _stacks(self) -> Dict[str, tuple]:
+        """Each stacked path prefix -> (the stacked axes, the modules in
+        the order of the stack, flattened)."""
+        raise NotImplementedError
+
+    @torch.no_grad()
+    def load_(self, path: str, value: torch.Tensor) -> None:
+        """Copy the parameter at reference path ``path`` (a stacked path,
+        "layers/...", for the moe family also "dense_layers/...", for the
+        hybrid family "groups/ssm_layers/...", "shared/..." and
+        "tail/...", for the encdec family "encoder/..." and
+        "decoder/...") from ``value``, cast to the parameter's dtype; a
+        layer weight's copy in the activation dtype, where that differs,
+        is made here, once."""
+        for prefix, (lead, modules) in self._stacks().items():
+            if not path.startswith(prefix + "/"):
+                continue
+            if tuple(value.shape[:len(lead)]) != lead:
+                raise ValueError(f"{path}: stacked {tuple(value.shape)}, "
+                                 f"model has {lead} layers")
+            rest = path[len(prefix) + 1:]
+            owner, _, name = rest.replace("/", ".").rpartition(".")
+            flat = value.reshape((-1,) + tuple(value.shape[len(lead):]))
+            for layer, v in zip(modules, flat):
+                module = layer.get_submodule(owner)
+                getattr(module, name).copy_(v)
+                if isinstance(module, CastWeights):
+                    module.keep_cast(name, dtype_of(self.cfg))
+            return
+        self.get_parameter(path.replace("/", ".")).copy_(value)
+
+
+class TransformerLM(LMWeights):
     """The LM's weights (in ``cfg.param_dtype``: f32 masters by default;
-    the MoE router always f32), one module per layer: ``Block``s (dense)
-    or ``SSMLayer``s (ssm) in ``layers``; for the moe family ``Block``s
+    the MoE router always f32), one module per layer: ``Block``s (dense,
+    vlm) or ``SSMLayer``s (ssm) in ``layers``; for the moe family ``Block``s
     with a SwiGLU of ``dense_d_ff`` in ``dense_layers`` and with an
     ``MoEBlock`` in ``layers``; for the hybrid family ``groups``
     (n_groups lists of ``SSMLayer``s), ``shared`` (``SharedBlock``s) and
@@ -272,6 +309,9 @@ class TransformerLM(nn.Module):
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         check_family(cfg)
+        if cfg.family == "encdec":
+            raise ValueError(f"{cfg.name}: the encdec family's weights are "
+                             "models.encdec.EncDecLM")
         self.cfg = cfg
         dt = param_dtype(cfg)
         self.embed = Embedding(cfg.vocab_size, cfg.d_model, device, dt)
@@ -299,10 +339,6 @@ class TransformerLM(nn.Module):
         self.lm_head = None if cfg.tie_embeddings else Linear(
             cfg.d_model, cfg.vocab_size, False, device, dt)
 
-    @property
-    def device(self) -> torch.device:
-        return self.embed.table.device
-
     def attn_stacks(self) -> List[Tuple[str, nn.ModuleList]]:
         """The dense and moe families' stacks of ``Block``s in order, by
         parameter and cache key (``attn_stack_sizes``)."""
@@ -310,8 +346,6 @@ class TransformerLM(nn.Module):
                 for key, _ in attn_stack_sizes(self.cfg)]
 
     def _stacks(self) -> Dict[str, tuple]:
-        """Each stacked path prefix -> (the stacked axes, the modules in
-        the order of the stack, flattened)."""
         if self.cfg.family == "ssm":
             return {"layers": ((len(self.layers),), list(self.layers))}
         if self.cfg.family != "hybrid":
@@ -322,31 +356,6 @@ class TransformerLM(nn.Module):
                     [layer for group in self.groups for layer in group]),
                 "shared": ((len(self.shared),), list(self.shared)),
                 "tail": ((len(self.tail),), list(self.tail))}
-
-    @torch.no_grad()
-    def load_(self, path: str, value: torch.Tensor) -> None:
-        """Copy the parameter at reference path ``path`` (a stacked path,
-        "layers/...", for the moe family also "dense_layers/...", for the
-        hybrid family "groups/ssm_layers/...", "shared/..." and
-        "tail/...") from ``value``, cast to the parameter's dtype; a
-        layer weight's copy in the activation dtype, where that differs,
-        is made here, once."""
-        for prefix, (lead, modules) in self._stacks().items():
-            if not path.startswith(prefix + "/"):
-                continue
-            if tuple(value.shape[:len(lead)]) != lead:
-                raise ValueError(f"{path}: stacked {tuple(value.shape)}, "
-                                 f"model has {lead} layers")
-            rest = path[len(prefix) + 1:]
-            owner, _, name = rest.replace("/", ".").rpartition(".")
-            flat = value.reshape((-1,) + tuple(value.shape[len(lead):]))
-            for layer, v in zip(modules, flat):
-                module = layer.get_submodule(owner)
-                getattr(module, name).copy_(v)
-                if isinstance(module, CastWeights):
-                    module.keep_cast(name, dtype_of(self.cfg))
-            return
-        self.get_parameter(path.replace("/", ".")).copy_(value)
 
     def logits(self, h: torch.Tensor) -> torch.Tensor:
         """Final norm and the head, logits in f32 (both sides upcast)."""
@@ -403,10 +412,33 @@ def _put_state(stack: Dict[str, torch.Tensor], idx, state) -> None:
         stack[k][idx] = v
 
 
+def merge_patches(h: torch.Tensor, patch_embeds: torch.Tensor
+                  ) -> torch.Tensor:
+    """The vlm family's frontend merge: the (B, P, d) patch embeddings,
+    cast to h's dtype, take the first P of h's S positions (the
+    reference's ``concat([patch_embeds, h[:, P:]])``).  The reference's
+    concat gives P positions, not S, when S < P; the port raises
+    ValueError unless S > P."""
+    B, S, d = h.shape
+    if patch_embeds.ndim != 3 or patch_embeds.shape[0] != B \
+            or patch_embeds.shape[2] != d:
+        raise ValueError(f"patch_embeds {tuple(patch_embeds.shape)} for "
+                         f"tokens of batch {B} at d_model {d}")
+    P = patch_embeds.shape[1]
+    if S <= P:
+        raise ValueError(f"vlm: the longest prompt ({S} tokens) must be "
+                         f"longer than the {P} patch embeddings it starts "
+                         "with")
+    return torch.cat([patch_embeds.to(h.dtype), h[:, P:]], dim=1)
+
+
 def lm_forward(model: TransformerLM, tokens: torch.Tensor, *,
+               patch_embeds: Optional[torch.Tensor] = None,
                return_cache: bool = False, cache_len: Optional[int] = None,
                logits_at: Optional[torch.Tensor] = None):
-    """tokens: (B, S) -> (logits f32, aux_loss f32, cache | None).
+    """tokens: (B, S) -> (logits f32, aux_loss f32, cache | None);
+    ``patch_embeds`` (B, P, d), the vlm family's, take the first P
+    positions (``merge_patches``).
 
     Logits are (B, S, V), or (B, V) at one position per row when
     ``logits_at`` (B,) is given (the same numbers up to the head
@@ -423,6 +455,8 @@ def lm_forward(model: TransformerLM, tokens: torch.Tensor, *,
     dtype = dtype_of(cfg)
     B, S = tokens.shape
     h = model.embed.embed(tokens, dtype)
+    if patch_embeds is not None:
+        h = merge_patches(h, patch_embeds)
     cache: Optional[Cache] = None
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if return_cache and cfg.family != "ssm":
@@ -477,8 +511,9 @@ def lm_forward(model: TransformerLM, tokens: torch.Tensor, *,
 
 def cache_has_length(cfg: ModelConfig) -> bool:
     """Whether the decode cache holds ``max_len`` positions (a KV cache,
-    which a generate past ``max_len`` overflows) rather than a state
-    with no length (ssm)."""
+    which a generate past ``max_len`` overflows; for the encdec family
+    its self-attention cache) rather than a state with no length
+    (ssm)."""
     check_family(cfg)
     return cfg.family != "ssm"
 
@@ -486,7 +521,8 @@ def cache_has_length(cfg: ModelConfig) -> bool:
 def make_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: torch.device) -> Cache:
     """Zero caches of ``max_len`` positions (the reference's mode
-    'init'); the ssm family's states have no length."""
+    'init'); the ssm family's states have no length.  The encdec
+    family's is ``encdec.make_encdec_cache``."""
     if not cache_has_length(cfg):
         return _ssm_cache(cfg, batch, device)
     if cfg.family == "hybrid":
@@ -497,11 +533,13 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int,
 def pad_cache(cfg: ModelConfig, cache: Cache, max_len: int) -> Cache:
     """Grow the seq axis of every KV cache pair (captured at prefill
     length) to ``max_len`` with zeros, so decode can append.  SSM states
-    are length-free: left alone."""
+    are length-free: left alone; the encdec family's cross cache keeps
+    its frames (the reference pads ``cache["self"]`` only)."""
     out = dict(cache)
     if not cache_has_length(cfg):
         return out
     keys = (("shared_kv",) if cfg.family == "hybrid" else
+            ("self",) if cfg.family == "encdec" else
             [key for key, _ in attn_stack_sizes(cfg)])
     for key in keys:
         k, v = cache[key]

@@ -20,9 +20,10 @@ HWIO), so a bank the port trains loads into either package.  Both
 directions are copies: a round trip is bit for bit.
 
 ``lm_from_params`` does the same for the language model: it carries the
-reference's ``Model.init_params`` tree (layers stacked; the dense, ssm
-or hybrid family, through the family's ``param_specs``) over into the
-port's ``TransformerLM``, whose own init is ``Model.init_params(seed)``.
+reference's ``Model.init_params`` tree (layers stacked; any LM family,
+through the family's ``param_specs``) over into the port's
+``TransformerLM`` (``EncDecLM`` for the encdec family), whose own init
+is ``Model.init_params(seed)``.
 """
 from __future__ import annotations
 
@@ -39,7 +40,8 @@ from repro_torch.core.baselines.blazeit import FrameScorer
 from repro_torch.core.detector import DetectorNet, SameConv2d
 from repro_torch.core.proxy import ProxyEncoder
 from repro_torch.core.tracker import HEAD_SCOPES, CropCNN
-from repro_torch.models.transformer import TransformerLM, param_specs
+from repro_torch.models.model import lm_param_specs, new_lm
+from repro_torch.models.transformer import LMWeights
 
 
 def _f32(a) -> torch.Tensor:
@@ -172,21 +174,23 @@ def _leaf_paths(tree: Mapping, prefix: str = ""):
 
 
 def lm_from_params(cfg: ModelConfig, tree: Mapping,
-                   device: Device = "cuda") -> TransformerLM:
+                   device: Device = "cuda") -> LMWeights:
     """The reference's ``Model.init_params`` tree (any leaves
     ``np.asarray`` accepts; layer parameters stacked on leading axes:
-    ``(n_layers,)``, or for the hybrid family ``(n_groups,
+    ``(n_layers,)``, for the hybrid family ``(n_groups,
     ssm_per_group)`` under ``groups/ssm_layers`` and one axis under
-    ``shared`` and ``tail``) -> the port's ``TransformerLM`` on ``device``.
-    Every parameter's shape is checked against the port's specs, and a
-    leaf the specs do not know raises."""
+    ``shared`` and ``tail``, for the encdec family ``(n_encoder_layers,)``
+    under ``encoder`` and ``(n_layers,)`` under ``decoder``) -> the
+    port's weights module on ``device``.  Every parameter's shape is
+    checked against the port's specs, and a leaf the specs do not know
+    raises."""
     dev = resolve_device(device)
-    specs = param_specs(cfg)
+    specs = lm_param_specs(cfg)
     extra = sorted(set(_leaf_paths(tree)) - {s.path for s in specs})
     if extra:
         raise ValueError(f"parameters the {cfg.name} model does not have: "
                          f"{extra}")
-    model = TransformerLM(cfg, dev)
+    model = new_lm(cfg, dev)
     for spec in specs:
         value = _f32(_leaf(tree, spec.path))
         if tuple(value.shape) != spec.shape:

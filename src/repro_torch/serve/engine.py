@@ -4,10 +4,14 @@ decode (the port's counterpart of the JAX package's ``serve/engine.py``).
 As in the reference, this serves the auxiliary language models, not the
 video pipeline.  Prompts are right-padded to a common length L; per-row
 true lengths drive (a) the first token, taken from each row's last REAL
-position, and (b) for the dense and hybrid families the ``kv_len = pos +
-1`` masking of every decode step, so padding never leaks into attention
+position, and (b) for the attention families the ``kv_len = pos + 1``
+masking of every decode step, so padding never leaks into attention
 (causal prefill never reads it, and decode overwrites it before
-reading).
+reading).  ``extras`` (the vlm family's ``patch_embeds``, the encdec
+family's ``audio_embeds``) go into the prefill's batch beside the
+tokens.  For the encdec family the self-attention cache is written at
+``max_len`` and the cross cache holds the encoder's frames, which every
+decode step reads whole (the reference pads ``cache["self"]`` only).
 ``max_new_tokens`` decode steps follow, each appending the token sampled
 by the one before.
 
@@ -26,6 +30,12 @@ Differences from the reference, all deliberate:
     write silently), as do an empty prompt and a token id outside the
     vocabulary (JAX clamps the gather; on the card it would be a
     device-side fault);
+  * for the encdec family, ``max(lens) + max_new_tokens`` past the
+    decoder's position table (``encdec.MAX_DEC_POS`` rows) raises
+    ValueError (JAX clamps the gather);
+  * for the vlm family, a longest prompt not longer than the patch
+    embeddings raises ValueError (``transformer.merge_patches``; the
+    reference's concat changes the sequence length);
   * for the ssm and hybrid families, a batch whose longest prompt is
     shorter than d_conv - 1 tokens raises ValueError naming that limit
     (the reference's conv tail is then shorter than its cache, and its
@@ -49,14 +59,15 @@ import numpy as np
 import torch
 
 from repro_torch.models.common import name_seed
+from repro_torch.models.encdec import MAX_DEC_POS
 from repro_torch.models.model import Model
-from repro_torch.models.transformer import TransformerLM
+from repro_torch.models.transformer import LMWeights
 
 
 @dataclass
 class ServeEngine:
     model: Model
-    params: TransformerLM
+    params: LMWeights
     max_len: int
     temperature: float = 0.0
     seed: int = 0
@@ -87,6 +98,11 @@ class ServeEngine:
             raise ValueError(
                 f"longest prompt {L} + max_new_tokens {max_new_tokens} > "
                 f"max_len {self.max_len}: the cache has no room")
+        if self.model.cfg.family == "encdec" \
+                and L + max_new_tokens > MAX_DEC_POS:
+            raise ValueError(
+                f"longest prompt {L} + max_new_tokens {max_new_tokens} > "
+                f"{MAX_DEC_POS}: the decoder's position table has no row")
         toks = np.zeros((B, L), np.int64)
         for i, p in enumerate(prompts):
             toks[i, :len(p)] = p

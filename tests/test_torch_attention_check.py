@@ -114,6 +114,37 @@ def test_flash_cases_cover_the_kernel_contract():
     assert len({flash_check.case_id(c) for c in cases}) == len(cases)
 
 
+def test_serve_cases_cover_the_encdec_and_vlm_calls():
+    """The flash cases of the encdec and vlm cells, each in both dtypes:
+    whisper's encoder (1500 keys: no multiple of 64 or 128, non-causal),
+    its cross-attention (fewer queries than keys, non-causal), its
+    decoder's self-attention at MHA 12 of 12 of 64, and pixtral's
+    longest prompt at 32 of 8 of 128; the decode cases of both cells,
+    the cross call every row at 1500 frames.  Apart from ``CASES``."""
+    cases = flash_check.SERVE_CASES
+    assert not set(cases) & set(flash_check.CASES)
+    assert len(cases) == 10
+    assert len({flash_check.case_id(c) for c in cases}) == len(cases)
+    whisper, pixtral = flash_check.WHISPER_HEADS, flash_check.PIXTRAL_HEADS
+    for dt in (torch.float32, torch.bfloat16):
+        assert ("D64 MHA12 S1500 non-causal", dt, 1500, 1500, False, 0,
+                whisper) in cases
+        assert ("D64 MHA12 Sq500 Skv1500 non-causal", dt, 500, 1500, False,
+                0, whisper) in cases
+        assert ("D64 MHA12 S500 causal", dt, 500, 500, True, 0,
+                whisper) in cases
+        assert ("D128 pixtral-12b S1524 causal", dt, 1524, 1524, True, 0,
+                pixtral) in cases
+    assert 1500 % 64 and 1500 % 128 and 1524 % 64
+    assert whisper == (12, 12, 64) and pixtral == (32, 8, 128)
+    cross = decode_check.CROSS_CASE
+    assert cross[1:6] == (4, 1500) + whisper and cross[6] == (1500,) * 4
+    assert decode_check.VLM_CASE[3:6] == pixtral
+    assert decode_check.VLM_CASE[6] == (1, 1085, 1524, 2048)
+    assert decode_check.ENCDEC_CASE[3:6] == whisper
+    assert set(decode_check.SERVE_CASES) <= set(decode_check.CASES)
+
+
 def test_flash_case_operands_are_seeded_and_shaped():
     case = flash_check.CASES[4]
     q, k, v = flash_check.case_operands(case, "cpu", seed=3)
@@ -177,3 +208,46 @@ def test_grid_blocks_counts_each_matching_launch_of_a_trace(monkeypatch):
     assert smoke.grid_blocks(trace, names) == [128, 8]
     assert smoke.grid_blocks(trace, ("ssd_scan_kernel",)) == []
     assert smoke.grid_blocks({}, names) == []
+
+
+def test_trace_sums_match_the_parsed_profile(monkeypatch):
+    """``chip_smoke.trace_sums`` reads a profile's raw events where the
+    serve phases used ``events()`` / ``key_averages()`` (a Python parse
+    that took most of each phase's wall): on a CPU profile of a reduced
+    generate, each ``aten::`` op's self time and calls are
+    ``key_averages()``'s (within 1e-6 of its time: the sums' order), an
+    op whose one child is itself counted once, no device time and no
+    launch.  On the card the device sums and launch count read equal
+    too, and each op's self time within 0.3% (PERF.md, PR 30)."""
+    import importlib.util
+    import sys
+    from pathlib import Path
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.serve import ServeEngine
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    monkeypatch.setitem(sys.modules, "chip_smoke", smoke)  # its dataclasses
+    spec.loader.exec_module(smoke)
+    model = build_model(get_config("qwen2-0.5b").reduced())
+    eng = ServeEngine(model, model.init_params(0, device="cpu"), max_len=32)
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            eng.generate([[1, 2, 3, 4, 5], [6, 7]], 6)
+    finally:
+        torch.set_num_threads(n)
+    per_name, launches, host = smoke.trace_sums(prof)
+    assert per_name == {} and launches == 0
+    want = {ev.key: (ev.self_cpu_time_total, ev.count)
+            for ev in prof.key_averages() if ev.key.startswith("aten::")}
+    got = {name: (us, calls) for us, name, calls in host}
+    assert set(got) == set(want) and len(got) > 10
+    for name, (us, calls) in got.items():
+        assert calls == want[name][1], name
+        assert abs(us - want[name][0]) <= 1e-6 * max(us, 1.0), name
+    assert [h[0] for h in host] == sorted((h[0] for h in host),
+                                          reverse=True)

@@ -13,7 +13,11 @@ The shapes, operands and tolerances are the kernels' ``check`` modules'
 (``repro_torch.kernels.<name>.check``), the same ``chip_smoke.py`` holds
 the kernels to, at every instance the configs serve (the attention
 kernels at head dims 64, 112 and 128, the last at each of the configs'
-head layouts, the scan at (P, N) = (64, 128) and (64, 64)), with
+head layouts; whisper-small's encoder, cross- and self-attention (1500
+keys non-causal, 500 queries against 1500 keys, MHA 12 of 12) and
+pixtral-12b's prompts (32 of 8 at S 1524) in ``SERVE_CASES``, with an
+8-step CUDA-graph replay of the 1500-frame cross decode; the scan at
+(P, N) = (64, 128) and (64, 64)), with
 refusals of unbuilt ones (head dims 32 and 96): ``ssd_scan``'s f32 y and final
 state within 1e-4 of max |plain|, bf16 y within 2 bf16 ulps of the
 plain version's f32 result on the same (bf16-valued) inputs, f32 at a
@@ -131,9 +135,9 @@ def test_ssd_scan_kernel_refuses_what_it_was_not_built_for(dev):
     check.check_refusals(dev)
 
 
-@pytest.mark.parametrize("case", flash_check.CASES,
-                         ids=[flash_check.case_id(c)
-                              for c in flash_check.CASES])
+@pytest.mark.parametrize("case", flash_check.CASES + flash_check.SERVE_CASES,
+                         ids=[flash_check.case_id(c) for c in
+                              flash_check.CASES + flash_check.SERVE_CASES])
 def test_flash_attention_kernel_matches_plain_version(dev, case):
     flash_check.check_case(case, dev, seed=0)
 
@@ -167,6 +171,10 @@ def test_decode_attention_kernel_refuses_what_it_was_not_built_for(dev):
 
 def test_decode_attention_kernel_replays_in_a_cuda_graph(dev):
     decode_check.check_graph_replay(dev, seed=0)
+
+
+def test_cross_decode_replays_eight_steps_in_a_cuda_graph(dev):
+    decode_check.check_cross_graph_replay(dev, seed=0, steps=8)
 
 
 @pytest.mark.parametrize("case", assign_check.CASES,

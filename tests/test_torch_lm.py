@@ -127,15 +127,19 @@ def test_config_copy_counts_parameters_like_the_reference(arch):
 
 
 def test_registry_holds_qwen2_as_the_reference_does():
+    """The registry holds every LM configuration the reference registers
+    (all of ``ASSIGNED_ARCHS``); the reference's ``multiscope``
+    placeholder (family "pipeline", no LM) is not copied."""
     cfg = pt_base.get_config("qwen2-0.5b")
     assert dataclasses.asdict(cfg) == \
         dataclasses.asdict(jx_get("qwen2-0.5b"))
     assert pt_base.list_archs() == [
         "deepseek-67b", "deepseek-coder-33b", "deepseek-moe-16b",
-        "grok-1-314b", "mamba2-370m", "qwen2-0.5b", "stablelm-1.6b",
-        "zamba2-7b"]
+        "grok-1-314b", "mamba2-370m", "pixtral-12b", "qwen2-0.5b",
+        "stablelm-1.6b", "whisper-small", "zamba2-7b"]
+    assert pt_base.list_archs() == sorted(ASSIGNED_ARCHS)
     with pytest.raises(KeyError):
-        pt_base.get_config("pixtral-12b")
+        pt_base.get_config("multiscope")
     with pytest.raises(ValueError):
         dataclasses.replace(cfg, n_kv_heads=3)
 
@@ -160,16 +164,25 @@ def test_param_specs_are_the_reference_tree(reduced):
     ("deepseek-moe-16b", "moe"), ("pixtral-12b", "vlm"),
     ("whisper-small", "encdec")])
 def test_other_families_raise_naming_the_roadmap(arch, family):
-    """A family not ported yet raises naming its ROADMAP.md item; the moe
-    family, ported since, builds (``tests/test_torch_moe.py``)."""
+    """Every family is ported now, so none raises naming a ROADMAP.md
+    item: the moe, vlm and encdec families build
+    (``tests/test_torch_moe.py``, ``test_torch_vlm.py``,
+    ``test_torch_encdec.py``), and only a family with no LM (the
+    pipeline's) raises.  Their specs hold ``cfg.param_count()``
+    parameters; for encdec, plus the LayerNorm and GELU-MLP biases the
+    analytic count leaves out (``test_torch_encdec``)."""
     cfg = port_cfg(jx_get(arch).reduced())
-    assert cfg.family == family
-    if family in tf.PORTED:
-        assert family not in tf.NOT_PORTED
-        assert build_model(cfg).param_count() == cfg.param_count()
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_model(cfg)
+    assert cfg.family == family and family in tf.PORTED
+    with pytest.raises(ValueError, match="has no LM"):
+        tf.check_family(dataclasses.replace(cfg, family="pipeline"))
+    extra = 0
+    if family == "encdec":
+        d = cfg.d_model
+        extra = (2 * cfg.n_encoder_layers + 3 * cfg.n_layers + 2) * d \
+            + (cfg.n_encoder_layers + cfg.n_layers) * (cfg.d_ff + d)
+    assert build_model(cfg).param_count() == cfg.param_count() + extra
+    assert build_model(cfg).param_count() == \
+        jx_build(jx_get(arch).reduced()).param_count()
 
 
 # ---------------------------------------------------------------------------

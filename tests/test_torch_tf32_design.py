@@ -32,7 +32,11 @@ f32, and runs the online softmax over tiles of 64 keys with a masked
 key's p exactly 0; each tile's P V is summed in its own accumulator and
 added as O = alpha O + P V in f32.
 
-The model holds at every f32 case of both card checks; one tf32 product
+The model holds at every f32 case of both card checks (the flash
+kernel's ``SERVE_CASES``, whose full size would take many minutes here,
+at batch row 0 and the query heads of KV head 0: the kernel computes
+each (row, head) on its own, so their rounding is the full case's);
+one tf32 product
 per operand (truncated or rounded to nearest) fails the check at the
 prefill's scan and at S 512 causal attention: the split is needed.  At a
 small case the model agrees with the JAX package's Pallas kernels in
@@ -300,6 +304,27 @@ def test_attention_model_holds_the_card_tolerance(name):
     _, Sq, Skv, causal = FLASH_F32[name][1:5]
     if causal and Sq > Skv:
         assert not got[:, :Sq - Skv].any()       # no visible key: 0
+
+
+SERVE_F32 = {c[0]: c for c in flash_check.SERVE_CASES
+             if c[1] == torch.float32}
+
+
+@pytest.mark.parametrize("name", list(SERVE_F32))
+def test_attention_model_holds_the_card_tolerance_at_serve_cases(name):
+    """The encdec and vlm cells' f32 cases (up to 1524 keys, 24 tiles of
+    O = alpha O + P V) at the card check's own operands, batch row 0 and
+    KV head 0 with its group of query heads."""
+    case = SERVE_F32[name]
+    _, _, Sq, Skv, causal, kv_valid, (hq, hkv, d) = case
+    q, k, v = flash_check.case_operands(
+        case, "cpu", FLASH_SEED + 40 + list(SERVE_F32).index(name))
+    q, k, v = q[:1, :, :hq // hkv], k[:1, :, :1], v[:1, :, :1]
+    with torch.inference_mode():
+        want = flash_attention_ref(q, k, v, causal=causal,
+                                   kv_valid=kv_valid)
+        got = flash_model(q, k, v, causal, kv_valid)
+    flash_check.kernel_agrees(got, want, name)
 
 
 @pytest.mark.parametrize("rounding", ["trunc", "rna"])
