@@ -112,7 +112,24 @@ twice (36 ``flash_attention`` and 768 ``decode_attention`` launches
 each), timed, profiled, and the serve checks in bf16 and f32 with four
 planted faults (the cross decode masked by pos instead of the frames,
 the encoder without its sinusoidal positions, erf GELU for the tanh
-approximation, decode attending kv_len = pos).  Last the fleet
+approximation, decode attending kv_len = pos).  Then LM training
+(``run_train``): ``flash_attention_bwd`` against its plain backward
+(``torch.autograd.grad`` of the plain forward) over
+``flash_check.BWD_CASES`` in both dtypes (f32 within 1e-5 of max
+|plain|, bf16 one ulp at max), three planted faults on the kernel's
+plain model and Di dropped in the kernel itself, timed at S 500 and at
+the train step's call beside SDPA's forward and backward; full-width,
+full-depth ``qwen2-0.5b`` (f32 masters, ``cast_bf16``, ``TokenPipeline``
+batches from the seed) 3 steps at B 4, S 1024 through the kernels held
+to the same 3 steps with attention through its plain version under
+autograd (losses, first-step gradients leaf by leaf through
+``lm_to_params``; a backward that drops dK must fail), then 3 timed
+steps at S 4096 with B 4 as ``accum`` 4 (step s, tokens/s, peak GiB,
+96 forward and 96 backward launches a step); one step each of
+``deepseek-moe-16b``, ``pixtral-12b`` and ``whisper-small`` at full
+width and 2 layers, held the same way; ``mamba2-370m`` and
+``zamba2-7b`` must raise under autograd on the card (no scan backward
+yet, ROADMAP item 12g.1b).  Last the fleet
 (``run_fleet``, after every phase that
 reads the profiler, at the video cell's θ): caldot1 test clips 0-2 at 16
 frames, round-robin over concurrent streams, each stream's tracks held
@@ -247,9 +264,12 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     check as decode_check)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention, flash_attention_ref)
+    flash_attention, flash_attention_bwd, flash_attention_bwd_ref,
+    flash_attention_ref)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     check as flash_check)
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    ops as flash_attention_ops)
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref  # noqa: E402
 from repro_torch import obs  # noqa: E402
 from repro_torch.obs import REGISTRY, TRACER, interp_quantile  # noqa: E402
@@ -274,6 +294,11 @@ from repro_torch.models import moe as lm_moe  # noqa: E402
 from repro_torch.models import ssm as lm_ssm  # noqa: E402
 from repro_torch.models import transformer as lm_transformer  # noqa: E402
 from repro_torch.models.model import Model, build_model  # noqa: E402
+from repro_torch.data.tokens import TokenPipeline  # noqa: E402
+from repro_torch.configs.shapes import TRAIN_4K  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.params import lm_to_params  # noqa: E402
+from repro_torch.train import build_train_step  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
 
 DEVICE = "cuda"
@@ -4968,6 +4993,423 @@ def run_encdec(kernels: list) -> None:
             "self": (decode_check.ENCDEC_CASE[0],
                      f"B 4, S 1024, {heads}, kv_len (1, 61, 512, 1024)")})))
 
+# ---------------------------------------------------------------------------
+# LM training: Model.loss and TrainStep through flash_attention and its
+# backward kernel
+# ---------------------------------------------------------------------------
+
+# qwen2-0.5b at full width and depth (24 layers, d 896, vocab 151,936),
+# f32 masters with cast_bf16, on TokenPipeline batches (seed SEED): the
+# held steps at B 4, S 1024, then train_4k's sequence length with B 4 as
+# accum 4 (train_4k's global batch of 256 cut to 4 for one card and the
+# script's time)
+TRAIN_CFG = LM_CFG
+TRAIN_STEPS = 3
+TRAIN_BATCH, TRAIN_SEQ = 4, 1024
+TRAIN_LONG_SEQ, TRAIN_LONG_ACCUM = TRAIN_4K.seq_len, 4
+TRAIN_LR = 1e-4
+# the kernel route's steps against the plain route's (attention through
+# flash_attention_ref under autograd) on the same weights and batches:
+# each step's loss within TRAIN_LOSS_RTOL of the plain one, and each
+# leaf of the first step's gradient within TRAIN_GRAD_RTOL of the plain
+# leaf in relative L2 (bf16 activations: the kernels round where the
+# plain version does not); a planted fault (the backward's dK dropped)
+# must break the gradient check.  A leaf whose plain gradient is below
+# TRAIN_GRAD_FLOOR of the whole gradient's norm is held to that instead
+# of its own norm: the key biases of attention without rope (whisper's)
+# have a true gradient of 0, since the softmax ignores a shift common to
+# a row's scores, and both routes give rounding noise there (its
+# relative gap read 7.0 on the card)
+TRAIN_LOSS_RTOL = 2e-3
+TRAIN_GRAD_RTOL = 5e-2
+TRAIN_GRAD_FLOOR = 1e-4
+# the other attention families at full width, cut to 2 layers (the
+# encdec family 2 encoder and 2 decoder layers): one step each at
+# (batch, sequence), held to the plain route the same way
+TRAIN_FAMILIES = (
+    (dataclasses.replace(get_config("deepseek-moe-16b"), n_layers=2),
+     2, 1024),
+    (dataclasses.replace(get_config("pixtral-12b"), n_layers=2), 2, 1536),
+    (dataclasses.replace(get_config("whisper-small"), n_layers=2,
+                         n_encoder_layers=2), 2, 448))
+# the SSD families raise on the card under grad (ROADMAP item 12g.1b)
+TRAIN_RAISES = (
+    dataclasses.replace(get_config("mamba2-370m"), n_layers=2),
+    dataclasses.replace(
+        get_config("zamba2-7b"), n_layers=3,
+        hybrid=dataclasses.replace(get_config("zamba2-7b").hybrid,
+                                   n_groups=1, ssm_per_group=1,
+                                   tail_ssm=1)))
+
+
+def bwd_bound(q, k, causal: bool, kv_valid: int):
+    """(bytes, operations) of one backward call: q, k, v, o, dO, dQ, dK
+    and dV each moved once; 10 D flops for each visible (query, key)
+    pair of each query head (the recomputed Q K^T, dP = dO V^T, dV, dQ,
+    dK: 2.5 times the forward's 4 D)."""
+    Bq, Sq, Hq, D = q.shape
+    Skv = k.shape[1]
+    n_valid = kv_valid or Skv
+    qpos = np.arange(Sq) + (Skv - Sq)
+    seen = np.clip(np.minimum(qpos + 1, n_valid) if causal
+                   else np.full(Sq, n_valid), 0, None)
+    n_ops = Bq * Hq * 10 * D * int(seen.sum())
+    n_bytes = (4 * q.numel() + 4 * k.numel()) * q.element_size()
+    return n_bytes, n_ops
+
+
+def sdpa_backward_device_ms(fn, reps: int = 10):
+    """Device time per call of the SDPA backward op (``aten::
+    _scaled_dot_product_*_backward``, children included) inside ``fn``;
+    None if the profiler attributed none to it."""
+    for ev in profiled_cold(fn, reps).key_averages():
+        if ev.key.startswith("aten::_scaled_dot_product") \
+                and ev.key.endswith("_backward") and ev.count:
+            total = device_us(ev)
+            return total / ev.count / 1e3 if total else None
+    return None
+
+
+def time_bwd(q, k, v, o, dout, causal: bool, kv_valid: int = 0) -> dict:
+    """The backward kernel at one shape: events and device ms, the plain
+    backward, SDPA forward + backward under ``torch.autograd.grad``
+    (``enable_gqa``; its backward's device ms alone) and the bound."""
+    n_bytes, n_ops = bwd_bound(q, k, causal, kv_valid)
+    b_ms, b_by, f32_ms = attn_bound(n_bytes, n_ops, q.dtype)
+
+    def kern():
+        return flash_attention_bwd(q, k, v, o, dout, causal=causal,
+                                   kv_valid=kv_valid)
+
+    def plain():
+        return flash_attention_bwd_ref(q, k, v, o, dout, causal=causal,
+                                       kv_valid=kv_valid)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    dt = dout.transpose(1, 2)
+
+    def sdpa():
+        with torch.enable_grad():
+            out = F.scaled_dot_product_attention(qt, kt, vt,
+                                                 is_causal=causal,
+                                                 enable_gqa=True)
+            return torch.autograd.grad(out, (qt, kt, vt), dt)
+    lib = None if kv_valid or (causal and q.shape[1] != k.shape[1]) \
+        else sdpa
+    # both kernels from one trace, or None (a trace late in the process
+    # can drop one of them: a sum of the other alone would read short)
+    by_kernel = device_ms_by_kernel(kern, flash_check.BWD_KERNEL_NAMES,
+                                    reps=10)
+    return dict(ms=event_ms(kern, reps=10, warmup=2),
+                device_ms=None if None in by_kernel.values()
+                else sum(by_kernel.values()),
+                device_ms_by_kernel=by_kernel,
+                plain_ms=event_ms(plain, reps=3, warmup=1),
+                library_ms=event_ms(lib, reps=10, warmup=2)
+                if lib else None,
+                library_backward_device_ms=sdpa_backward_device_ms(lib)
+                if lib else None,
+                bound_ms=b_ms, bound_by=b_by, bound_f32_core_ms=f32_ms,
+                flops=n_ops, bytes=n_bytes)
+
+
+def check_flash_attention_bwd() -> dict:
+    """The backward kernel against its plain version on the card over
+    ``flash_check.BWD_CASES`` (both dtypes; head dims 64, 112, 128), the
+    planted faults on the qwen2-0.5b S 500 case in both dtypes, then
+    timed at the S 500 case and at the train step's call (B 1, S 4096,
+    Hq 14, Hkv 2, D 64, causal, bf16).  -> {"cases": {...}, "main":
+    record, "s500": {dtype: record}}."""
+    cases = {}
+    for i, case in enumerate(flash_check.BWD_CASES):
+        err, rel = flash_check.check_bwd_case(case, DEVICE, SEED + 50 + i)
+        cases[flash_check.case_id(case)] = dict(max_abs_err=err,
+                                                max_rel_err=rel)
+        log(f"flash_attention_bwd {flash_check.case_id(case)}: max |d| "
+            f"{err!r}, max |d| / max |plain| {rel!r} (within tolerance)")
+    s500 = {}
+    for case in flash_check.BWD_CASES:
+        if case[0] != "S500 causal":
+            continue
+        reads = flash_check.check_bwd_faults(case, DEVICE, SEED)
+        log(f"flash_attention_bwd planted faults "
+            f"{flash_check.case_id(case)} (max |d| / max |plain|, each "
+            f"outside the tolerance): {json.dumps(reads)}")
+        q, k, v, o, dout = flash_check.bwd_case_operands(case, DEVICE, SEED)
+        row = time_bwd(q, k, v, o, dout, True)
+        s500[str(case[1]).split(".")[-1]] = row
+        log(f"flash_attention_bwd {flash_check.case_id(case)} timed: "
+            f"{json.dumps(row)}")
+    Hq, Hkv, D = flash_check.HQ, flash_check.HKV, flash_check.D
+    q, k, v, dout = flash_check.operands(
+        [(1, TRAIN_LONG_SEQ, Hq, D), (1, TRAIN_LONG_SEQ, Hkv, D),
+         (1, TRAIN_LONG_SEQ, Hkv, D), (1, TRAIN_LONG_SEQ, Hq, D)],
+        torch.bfloat16, DEVICE, SEED + 90)
+    with torch.inference_mode():
+        o = flash_attention(q, k, v)
+    err, rel = flash_check.check_bwd(q, k, v, o.clone(), dout, True, 0,
+                                     "flash_attention_bwd train call")
+    main = time_bwd(q, k, v, o.clone(), dout, True)
+    main.update(max_abs_err=err, max_rel_err=rel)
+    log(f"flash_attention_bwd train call B 1, S {TRAIN_LONG_SEQ}, Hq {Hq}, "
+        f"Hkv {Hkv}, D {D}, causal, bf16: {json.dumps(main)}")
+    return {"cases": cases, "main": main, "s500": s500}
+
+
+def train_batch(cfg, batch: int, seq: int, step: int, pipe=None) -> dict:
+    """``TokenPipeline`` tokens (seed ``SEED``) and the frontend
+    embeddings the family reads (drawn from ``SEED`` + step on the
+    card)."""
+    pipe = pipe or TokenPipeline(cfg.vocab_size, batch, seq, seed=SEED)
+    out = pipe.batch_at(step)
+    key = {"vlm": "patch_embeds", "encdec": "audio_embeds"}.get(cfg.family)
+    if key:
+        gen = torch.Generator(device=DEVICE)
+        gen.manual_seed(SEED + step)
+        out[key] = torch.randn((batch, cfg.frontend.n_embeds, cfg.d_model),
+                               generator=gen, device=DEVICE)
+    return out
+
+
+def attention_plain():
+    """The attention of every layer through the plain version under
+    autograd (the script routes it; the package has no switch)."""
+    return wrapped(lm_attention, "flash_attention",
+                   lambda _: flash_attention_ref)
+
+
+def _bwd_drops_dk(fn):
+    def wrapper(ctx, dout):
+        dq, dk, dv, *rest = fn(ctx, dout)
+        return (dq, torch.zeros_like(dk), dv, *rest)
+    return wrapper
+
+
+def train_route(cfg, batches: list, plain: bool, fault=None,
+                accum: int = 1, held: Optional[str] = "params") -> dict:
+    """Fresh weights (seed ``SEED``) trained one step a batch through the
+    kernels (or the plain route): the first batch's gradients, with
+    ``held`` "params" as the reference's leaves (``lm_to_params``, on the
+    host), with "device" one f32 tensor a parameter left on the card
+    (no host copy of a model of billions of weights); each step's
+    metrics, wall seconds and peak memory, the kernels' launches of the
+    steps and the route's wall."""
+    t_route = time.perf_counter()
+    torch.cuda.empty_cache()
+    model = build_model(cfg)
+    weights = model.init_params(SEED, device=DEVICE)
+    opt = adamw(weights.parameters(), lr=TRAIN_LR)
+    ts = build_train_step(model, opt, accum=accum, cast_bf16=True)
+    routes = [attention_plain()] if plain else []
+    if fault is not None:
+        routes.append(wrapped(flash_attention_ops.FlashAttentionFn,
+                              "backward", fault))
+    with contextlib.ExitStack() as stack:
+        for r in routes:
+            stack.enter_context(r)
+        grads = None
+        if held == "device":
+            g, _ = ts.grads(weights, batches[0])
+            grads = {name: x for (name, _), x in
+                     zip(weights.named_parameters(), g)}
+        elif held == "params":
+            g, _ = ts.grads(weights, batches[0])
+            with torch.no_grad():
+                for p, x in zip(ts._params(), g):
+                    p.grad = x.to(p.dtype)
+            grads = lm_to_params(weights, grads=True)
+            del g
+            for p in ts._params():
+                p.grad = None
+        steps = []
+        flash_attention.launches = flash_attention_bwd.launches = 0
+        for b in batches:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            metrics = ts(weights, b)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            steps.append(dict(
+                {k: float(v) for k, v in metrics.items()}, seconds=wall,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30))
+        launches = {"flash_attention": flash_attention.launches,
+                    "flash_attention_bwd": flash_attention_bwd.launches}
+    del weights, opt, ts
+    torch.cuda.empty_cache()
+    return dict(grads=grads, steps=steps, launches=launches,
+                seconds=time.perf_counter() - t_route)
+
+
+def _leaves(tree, prefix=""):
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            yield from _leaves(val, f"{prefix}{key}/")
+        else:
+            yield f"{prefix}{key}", val
+
+
+def _norm(x) -> float:
+    if isinstance(x, torch.Tensor):
+        return float(torch.linalg.vector_norm(x))
+    return float(np.linalg.norm(x))
+
+
+def grads_gap(got: dict, want: dict) -> Tuple[float, str]:
+    """The largest relative L2 gap of a gradient leaf (against the
+    larger of its plain norm and TRAIN_GRAD_FLOOR of the whole plain
+    gradient's), and its path; leaves numpy (the reference's tree) or
+    tensors (one a parameter)."""
+    want_leaves = dict(_leaves(want))
+    whole = math.sqrt(sum(_norm(w) ** 2 for w in want_leaves.values()))
+    worst, at = 0.0, ""
+    for path, g in _leaves(got):
+        w = want_leaves[path]
+        norm = max(_norm(w), TRAIN_GRAD_FLOOR * whole)
+        gap = _norm(g - w) / norm
+        if gap > worst:
+            worst, at = gap, path
+    return worst, at
+
+
+def held_to_plain(label: str, kern: dict, plain: dict) -> dict:
+    """The kernel route's losses and first gradients against the plain
+    route's; raises outside TRAIN_LOSS_RTOL / TRAIN_GRAD_RTOL."""
+    gap, at = grads_gap(kern["grads"], plain["grads"])
+    losses = [(s["loss"], p["loss"]) for s, p in zip(kern["steps"],
+                                                     plain["steps"])]
+    loss_gap = max(abs(a - b) / abs(b) for a, b in losses)
+    log(f"train {label}: losses kernel/plain {losses}, largest relative "
+        f"gap {loss_gap!r}; first-step gradients: largest leaf relative L2 "
+        f"gap {gap!r} at {at}; routes {kern['seconds']:.1f} s / "
+        f"{plain['seconds']:.1f} s wall")
+    if loss_gap > TRAIN_LOSS_RTOL or gap > TRAIN_GRAD_RTOL:
+        raise AssertionError(f"train {label}: kernel route off the plain "
+                             f"route (loss {loss_gap!r}, gradient {gap!r} "
+                             f"at {at})")
+    return dict(loss_gap=loss_gap, grad_gap=gap, grad_gap_at=at,
+                losses=losses)
+
+
+def run_train(kernels: list) -> None:
+    """The LM train step on the card: the backward kernel against its
+    plain version (``check_flash_attention_bwd``), qwen2-0.5b at full
+    width and depth, the other attention families at full width and 2
+    layers, and the SSD families' refusal.  Adds the
+    ``flash_attention_bwd`` record to ``kernels`` and ``launches_train``
+    to the forward's."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    bwd = check_flash_attention_bwd()
+    log(f"train: the backward kernel's checks and timings "
+        f"{time.perf_counter() - t0:.1f} s wall")
+    cfg = TRAIN_CFG
+    pipe = TokenPipeline(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=SEED)
+    batches = [pipe.batch_at(i) for i in range(TRAIN_STEPS)]
+    plain = train_route(cfg, batches, plain=True)
+    kern = train_route(cfg, batches, plain=False)
+    held = held_to_plain(f"{cfg.name} B {TRAIN_BATCH} S {TRAIN_SEQ}", kern,
+                         plain)
+    n_layers = cfg.n_layers
+    want = {"flash_attention": TRAIN_STEPS * n_layers,
+            "flash_attention_bwd": TRAIN_STEPS * n_layers}
+    if kern["launches"] != want or plain["launches"] != {
+            "flash_attention": 0, "flash_attention_bwd": 0}:
+        raise AssertionError(f"train launches: kernel route "
+                             f"{kern['launches']} (want {want}), plain "
+                             f"route {plain['launches']}")
+    faulty = train_route(cfg, batches[:1], plain=False, fault=_bwd_drops_dk)
+    fault_gap, fault_at = grads_gap(faulty["grads"], plain["grads"])
+    log(f"train planted fault (the backward's dK dropped): leaf relative "
+        f"L2 gap {fault_gap!r} at {fault_at}")
+    if fault_gap <= TRAIN_GRAD_RTOL:
+        raise AssertionError("train: the gradient check misses a backward "
+                             "that drops dK")
+    del faulty, plain
+    # train_4k's sequence length, B 4 as accum 4
+    long_pipe = TokenPipeline(cfg.vocab_size, TRAIN_BATCH, TRAIN_LONG_SEQ,
+                              seed=SEED)
+    long = train_route(cfg, [long_pipe.batch_at(i)
+                             for i in range(TRAIN_STEPS)],
+                       plain=False, accum=TRAIN_LONG_ACCUM, held=None)
+    per_step = {k: n // TRAIN_STEPS for k, n in long["launches"].items()}
+    if per_step != {k: n_layers * TRAIN_LONG_ACCUM for k in per_step}:
+        raise AssertionError(f"train S {TRAIN_LONG_SEQ}: launches a step "
+                             f"{per_step}")
+    tokens = TRAIN_BATCH * TRAIN_LONG_SEQ
+    long_steps = [dict(s, tokens_per_s=tokens / s["seconds"])
+                  for s in long["steps"]]
+    for i, s in enumerate(long_steps):
+        log(f"train {cfg.name} S {TRAIN_LONG_SEQ} B {TRAIN_BATCH} (accum "
+            f"{TRAIN_LONG_ACCUM}) step {i}: {s['seconds']:.3f} s, "
+            f"{s['tokens_per_s']:.0f} tokens/s, peak "
+            f"{s['peak_gib']:.2f} GiB, loss {s['loss']:.4f}, grad norm "
+            f"{s['grad_norm']:.4f}; launches a step {per_step} ("
+            f"{n_layers} and {n_layers} a microbatch)")
+    for s in kern["steps"]:
+        log(f"train {cfg.name} S {TRAIN_SEQ} B {TRAIN_BATCH}: "
+            f"{s['seconds']:.3f} s, peak {s['peak_gib']:.2f} GiB, loss "
+            f"{s['loss']:.4f}")
+    families = {}
+    for fcfg, fb, fs in TRAIN_FAMILIES:
+        fbatch = [train_batch(fcfg, fb, fs, 0)]
+        f_plain = train_route(fcfg, fbatch, plain=True, held="device")
+        f_kern = train_route(fcfg, fbatch, plain=False, held="device")
+        label = f"{fcfg.name} ({fcfg.n_layers} layers) B {fb} S {fs}"
+        families[fcfg.name] = dict(
+            held_to_plain(label, f_kern, f_plain),
+            launches=f_kern["launches"], step=f_kern["steps"][0])
+        if not f_kern["launches"]["flash_attention_bwd"]:
+            raise AssertionError(f"train {label}: no backward launch")
+        del f_plain, f_kern
+    for rcfg in TRAIN_RAISES:
+        torch.cuda.empty_cache()
+        model = build_model(rcfg)
+        weights = model.init_params(SEED, device=DEVICE)
+        ts = build_train_step(model, adamw(weights.parameters()),
+                              cast_bf16=True)
+        try:
+            ts(weights, train_batch(rcfg, 1, 256, 0))
+        except NotImplementedError as e:
+            if "12g.1b" not in str(e):
+                raise
+            log(f"train {rcfg.name}: raises on the card under grad: {e}")
+        else:
+            raise AssertionError(f"train {rcfg.name}: trained on the card "
+                                 "without an ssd_scan backward")
+        del model, weights, ts
+    torch.cuda.empty_cache()
+
+    main = bwd["main"]
+    by_name = {k["name"]: k for k in kernels}
+    by_name["flash_attention"]["launches_train"] = kern["launches"][
+        "flash_attention"]
+    kernels.append(dict(
+        name="flash_attention_bwd", route="cuda",
+        source="src/repro_torch/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:98",
+        replaces_note="no Pallas backward: the reference differentiates "
+                      "this forward; the port's gradient of it",
+        design="two kernels, no atomics: dQ a (query tile, head, row) "
+               "block; dK and dV a (key tile, KV head, row) block summing "
+               "the group; f32 FMAs on CUDA cores out of shared memory",
+        launches=kern["launches"]["flash_attention_bwd"],
+        max_abs_err=max(c["max_abs_err"] for c in bwd["cases"].values()),
+        max_rel_err=max(c["max_rel_err"] for c in bwd["cases"].values()),
+        ms=main["ms"], plain_ms=main["plain_ms"],
+        bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+        library_ms=main["library_ms"], device_ms=main["device_ms"],
+        device_ms_by_kernel=main["device_ms_by_kernel"],
+        library_backward_device_ms=main["library_backward_device_ms"],
+        bound_f32_core_ms=main["bound_f32_core_ms"],
+        shape=f"B 1, S {TRAIN_LONG_SEQ}, Hq 14, Hkv 2, D 64, causal, bf16",
+        s500=bwd["s500"],
+        train=dict(
+            cfg=cfg.name, held=held, fault_gap=fault_gap,
+            steps_s1024=kern["steps"],
+            steps_s4096=long_steps, launches_s4096_per_step=per_step,
+            families=families)))
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -4986,7 +5428,8 @@ def main() -> int:
     log(f"video phase: {time.perf_counter() - t_video:.1f} s wall")
     kernels = video + lm_phase("lm", run_lm) + lm_phase("ssm", run_ssm)
     for name, run in (("hybrid", run_hybrid), ("moe", run_moe),
-                      ("vlm", run_vlm), ("encdec", run_encdec)):
+                      ("vlm", run_vlm), ("encdec", run_encdec),
+                      ("train", run_train)):
         lm_phase(name, run, kernels)
     # the fleet last: after its stream threads, the profiler's traces
     # held no device kernel for the rest of the process (twice), and

@@ -3,14 +3,15 @@
 The port runs the pipeline's main path (one clip through
 ``core.executor.ClipExecutor``: decode -> proxy -> detect -> track) on an
 NVIDIA GPU, with TRACK on the host or on the device, the per-frame engine
-and the unfused proxy path, and the serving path of the dense,
-mixture-of-experts, Mamba2 and Zamba2 language models
-(``serve.ServeEngine`` over ``models``: ragged prefill, then decode).
-Its nine kernels, ``kernels.proxy_plan``,
+and the unfused proxy path, and the serving path of every language-model
+family (``serve.ServeEngine`` over ``models``: ragged prefill, then
+decode) and their training step (``Model.loss``, ``train.TrainStep``).
+Its kernels, ``kernels.proxy_plan``,
 ``kernels.proxy_score``, ``kernels.window_gather`` (two),
-``kernels.assign``, ``kernels.track_step``, ``kernels.flash_attention``,
-``kernels.decode_attention`` and ``kernels.ssd_scan``, are hand-written
-CUDA; everything else is ordinary PyTorch or host numpy.  It imports nothing of JAX and nothing
+``kernels.assign``, ``kernels.track_step``, ``kernels.flash_attention``
+(and its backward), ``kernels.decode_attention`` and
+``kernels.ssd_scan``, are hand-written CUDA; everything else is
+ordinary PyTorch or host numpy.  It imports nothing of JAX and nothing
 of ``repro``; the tests hold it against ``repro`` on the CPU.
 
 Entry points run on the card unless the caller asks for the CPU

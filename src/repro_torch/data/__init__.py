@@ -1,1 +1,2 @@
-"""Synthetic video data of the PyTorch port."""
+"""Synthetic data of the PyTorch port: video clips (``video_synth``) and
+LM token batches (``tokens``)."""

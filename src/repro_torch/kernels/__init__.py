@@ -12,6 +12,11 @@ Every kernel has, in its ``ops.py``:
   * a ``launches`` counter on the wrapper: a plain integer, raised by one
     where the kernel is launched and nowhere else.
 
+Under autograd (grad mode on, an input that requires grad) a CUDA call
+differentiates (``flash_attention``, through its backward kernel) or
+raises (``ssd_scan``, ``decode_attention``): no wrapper hands back an
+output with no graph.
+
 Kernels (sources in ``repro_torch/csrc/``, built by ``_build``):
   proxy_plan    — fused proxy head + threshold + detector-grid mapping +
                   per-frame plan stats, one block per frame: the frame's
@@ -47,7 +52,12 @@ Kernels (sources in ``repro_torch/csrc/``, built by ``_build``):
                   on tensor cores (wgmma fed by TMA), f32 as 3xTF32
                   (replaces
                   ``kernels/flash_attention``'s ``flash_attention_pallas``;
-                  the LM prefill).
+                  the LM prefill and the train step's forward).
+  flash_attention_bwd — its gradient, dQ then dK and dV (the group of
+                  query heads summed inside a block, no atomics), f32
+                  FMAs on CUDA cores (replaces no TPU kernel: the
+                  reference differentiates its forward; the LM train
+                  step's backward, through ``FlashAttentionFn``).
   decode_attention — one query token per row against a KV cache masked
                   by kv_len, a KV head's query heads packed together,
                   the keys split over a cluster of 16 blocks (replaces
@@ -160,6 +170,21 @@ _NUMPY_DTYPES = {torch.float32: np.dtype(np.float32),
                  torch.int32: np.dtype(np.int32),
                  torch.int8: np.dtype(np.int8),
                  torch.uint8: np.dtype(np.uint8)}
+
+
+def refuse_grad(name: str, *args, why: str = "the kernel has no "
+                "backward") -> None:
+    """Raise NotImplementedError when grad mode is on and a tensor among
+    ``args`` (or among a dict's values) requires grad: a kernel's output
+    has no autograd graph, so its inputs would silently get no gradient.
+    Called on CUDA tensors only, after the dispatch rule."""
+    if not torch.is_grad_enabled():
+        return
+    for a in args:
+        for t in (a.values() if isinstance(a, dict) else (a,)):
+            if isinstance(t, torch.Tensor) and t.requires_grad:
+                raise NotImplementedError(
+                    f"{name} on {t.device} under autograd: {why}")
 
 
 def check_launch(err: int, lib: ctypes.CDLL, name: str) -> None:

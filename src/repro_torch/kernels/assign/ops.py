@@ -26,7 +26,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import (check_launch, device_guard, on_cuda, ptr,
-                                  stream_of)
+                                  refuse_grad, stream_of)
 from repro_torch.kernels._build import library
 
 MAX_N = 2048        # the solve's scratch stays under 48 KB of shared memory
@@ -134,6 +134,7 @@ def assign_batch(costs: torch.Tensor, eff_n: Optional[int] = None,
     check_err(err, costs, "assign_batch")
     if not on_cuda(costs):
         return assign_batch_ref(costs, eff_n, err)
+    refuse_grad("assign_batch", costs)
     K, N, _ = costs.shape
     eff = N if eff_n is None else max(0, min(int(eff_n), N))
     if N > MAX_N:

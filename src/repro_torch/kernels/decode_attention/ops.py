@@ -17,7 +17,9 @@ the JAX package's ``_jnp_fallback`` (``kernels/decode_attention/ops.py``):
 one masked softmax over the cache.  As in ``flash_attention``, masked
 keys weigh exactly 0, so a row with kv_len 0 gives 0 (the Pallas
 kernel's answer; ``_jnp_fallback`` averages V over the whole cache
-there).
+there).  Under autograd (grad mode on and an input that requires grad) a
+CUDA call raises NotImplementedError: the kernel has no backward, and
+training never decodes.
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import (check_launch, device_guard, on_cuda, ptr,
-                                  stream_of)
+                                  refuse_grad, stream_of)
 from repro_torch.kernels._build import library
 from repro_torch.kernels.flash_attention.ops import _check_operands
 
@@ -90,6 +92,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         sm_scale = 1.0 / math.sqrt(D)
     if not on_cuda(q):
         return decode_attention_ref(q, k, v, kv_len, sm_scale)
+    refuse_grad("decode_attention", q, k, v,
+                why="the decode kernel has no backward (decoding serves; "
+                "training runs flash_attention)")
     _check_operands("decode_attention", q, k, v)
     if kv_len.device != q.device or kv_len.dtype != torch.int32 \
             or not kv_len.is_contiguous():

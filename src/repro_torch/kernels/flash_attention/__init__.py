@@ -1,3 +1,4 @@
-"""Flash attention (prefill) kernel; see ``ops``."""
+"""Flash attention (prefill and training) kernels; see ``ops``."""
 from repro_torch.kernels.flash_attention.ops import (  # noqa: F401
-    flash_attention, flash_attention_ref)
+    flash_attention, flash_attention_bwd, flash_attention_bwd_ref,
+    flash_attention_ref)

@@ -1,12 +1,29 @@
 """The ``flash_attention`` kernel against its plain version on the card:
 the cases, the operands, the comparison and the refusals, one copy for
-``chip_smoke.py`` and ``tests/test_torch_cuda.py``.
+``chip_smoke.py`` and ``tests/test_torch_cuda.py``; the same for its
+backward, ``flash_attention_bwd`` (``BWD_CASES``, ``check_bwd_case``).
 
 Tolerance (``kernel_agrees``, which ``decode_attention.check`` shares):
 f32 max |d| at most ``ATTN_F32_ATOL``; bf16 at most one bf16 value
 apart from the plain version's bf16 result, except near zero, where a
 bf16 ulp is finer than f32 rounding of O(1) sums and the f32 bound
 applies.
+
+Tolerance of the backward (``grads_agree``), per gradient (dq, dk, dv)
+against ``flash_attention_bwd_ref`` (``torch.autograd.grad`` of the plain
+version) on the same inputs: f32 max |d| at most ``GRAD_F32_RTOL`` times
+the plain gradient's max |value| (gradients are not O(1): sums over up
+to 1500 keys or queries in another order, with exp in f32, move them
+about 1e-6 of that); bf16 at most one bf16 value apart, except where
+|d| is at most ``GRAD_BF16_RTOL`` (one bf16 ulp at the largest
+magnitude) times that max: near zero, and where the kernel's Di =
+rowsum(dO * O) reads the forward's output rounded to bf16 (the plain
+version's own output is f32 inside its graph): at D 128 that moves Di by
+up to a few hundredths and dq two bf16 values at a few elements (0.0041
+of max |dq| at one element of the D 128 S 512 case on the card).
+Planted faults (``BWD_FAULTS``, applied to
+``flash_attention_bwd_model``, the kernel's algorithm in plain PyTorch,
+and Di dropped in the kernel itself) read 0.4 to 2.8 of max |plain|.
 """
 from __future__ import annotations
 
@@ -14,9 +31,13 @@ import time
 
 import torch
 
+import math
+from typing import Optional, Tuple
+
 from repro_torch.kernels import bf16_steps
-from repro_torch.kernels.flash_attention.ops import (flash_attention,
-                                                     flash_attention_ref)
+from repro_torch.kernels.flash_attention.ops import (
+    NEG_INF, flash_attention, flash_attention_bwd, flash_attention_bwd_ref,
+    flash_attention_ref)
 
 ATTN_F32_ATOL = 1e-5
 B = 4
@@ -208,3 +229,195 @@ def check_refusals(device) -> None:
             else:
                 raise AssertionError(f"flash_attention took head dim {d} "
                                      f"in {dtype}")
+
+
+# -- the backward -----------------------------------------------------------
+
+GRAD_F32_RTOL = 1e-5
+GRAD_BF16_RTOL = 2.0 ** -7
+# the forward's cases the backward is held to: qwen2-0.5b's heads at S
+# 512 and 500 (the ragged edge), Sq 128 < Skv 512 causal, non-causal,
+# kv_valid 500, Sq 512 > Skv 256 causal (rows < 256 see no key: zero
+# gradients), D 112 (32 of 32), D 128 (16 of 16 and pixtral-12b's 32 of
+# 8), whisper-small's 1500-key encoder and its Sq 500 against 1500
+# cross-attention; each in both dtypes
+_BWD_SHAPES = (
+    ("S512 causal", 512, 512, True, 0, (HQ, HKV, D)),
+    ("S500 causal", 500, 500, True, 0, (HQ, HKV, D)),
+    ("Sq128 Skv512 causal", 128, 512, True, 0, (HQ, HKV, D)),
+    ("S512 non-causal", 512, 512, False, 0, (HQ, HKV, D)),
+    ("S512 kv_valid 500 non-causal", 512, 512, False, 500, (HQ, HKV, D)),
+    ("Sq512 Skv256 causal (no key for rows < 256)", 512, 256, True, 0,
+     (HQ, HKV, D)),
+    ("D112 S500 causal", 500, 500, True, 0, HYBRID_HEADS),
+    ("D128 S512 causal", 512, 512, True, 0, MOE_HEADS),
+    ("D128 pixtral-12b S512 causal", 512, 512, True, 0, PIXTRAL_HEADS),
+    ("D64 MHA12 S1500 non-causal", 1500, 1500, False, 0, WHISPER_HEADS),
+    ("D64 MHA12 Sq500 Skv1500 non-causal", 500, 1500, False, 0,
+     WHISPER_HEADS))
+BWD_CASES = tuple((name, dt, Sq, Skv, causal, kv_valid, heads)
+                  for name, Sq, Skv, causal, kv_valid, heads in _BWD_SHAPES
+                  for dt in (torch.bfloat16, torch.float32))
+BWD_KERNEL_NAMES = ("flash_attention_bwd_dq_kernel",
+                    "flash_attention_bwd_dkdv_kernel")
+# planted faults of flash_attention_bwd_model; each must fail grads_agree
+BWD_FAULTS = ("Di dropped", "causal mask one off",
+              "dK without the sum over the group")
+
+
+def bwd_case_operands(case, device, seed: int) -> list:
+    """q, k, v of the case, the plain forward's output o (in the case's
+    dtype) and dout ~ N(0, 1), drawn from ``seed``."""
+    _, dtype, Sq, Skv, causal, kv_valid, (hq, _, d) = case
+    q, k, v = case_operands(case, device, seed)
+    with torch.inference_mode():
+        o = flash_attention_ref(q, k, v, causal=causal, kv_valid=kv_valid)
+    (dout,) = operands([(B, Sq, hq, d)], dtype, device, seed + 1)
+    return [q, k, v, o.clone(), dout]
+
+
+def grads_agree(got, want, label: str) -> Tuple[float, float]:
+    """dq, dk, dv against the plain backward's, each within the stated
+    tolerance (module docstring).  Raises AssertionError outside it.
+    -> (the largest max |d| of the three, the largest max |d| / max
+    |plain|)."""
+    worst = worst_abs = 0.0
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{label} {name}: {tuple(g.shape)} "
+                                 f"{g.dtype} against {tuple(w.shape)} "
+                                 f"{w.dtype}")
+        diff = (g.float() - w.float()).abs()
+        top = float(w.float().abs().max())
+        if not torch.isfinite(g.float()).all():
+            raise AssertionError(f"{label} {name}: not finite")
+        rtol = GRAD_BF16_RTOL if g.dtype == torch.bfloat16 \
+            else GRAD_F32_RTOL
+        bad = diff > rtol * top
+        if g.dtype == torch.bfloat16:
+            bad &= bf16_steps(g, w) > 1
+        rel = float(diff.max()) / top if top else float(diff.max())
+        worst = max(worst, rel)
+        worst_abs = max(worst_abs, float(diff.max()))
+        if bad.any():
+            at = tuple(int(i) for i in bad.nonzero()[0])
+            raise AssertionError(
+                f"{label} {name}: kernel != plain backward at "
+                f"{int(bad.sum())} elements, first {at}: {float(g[at])!r} "
+                f"against {float(w[at])!r} (max |d| / max |plain| {rel!r})")
+    return worst_abs, worst
+
+
+def flash_attention_bwd_model(q, k, v, o, dout, causal: bool = True,
+                              sm_scale: Optional[float] = None,
+                              kv_valid: int = 0,
+                              fault: Optional[str] = None):
+    """The backward kernel's algorithm in plain PyTorch, f32: each row's
+    log-sum-exp over its visible keys, Di = rowsum(dO * O), P = exp(S -
+    lse), dS = P (dP - Di), dQ = scale dS K, and per KV head dV = P^T dO
+    and dK = scale dS^T Q summed over its group of query heads.
+    ``fault``: one of ``BWD_FAULTS``, planted.  -> (dq, dk, dv) in q's
+    dtype."""
+    Bq, Sq, Hq, Dh = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(Dh)
+    n_valid = kv_valid if 0 < kv_valid < Skv else Skv
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    of, dof = o.float(), dout.float()
+    kr = kf.repeat_interleave(G, dim=2)             # (B, Skv, Hq, D)
+    vr = vf.repeat_interleave(G, dim=2)
+    qpos = torch.arange(Sq, device=q.device) + (Skv - Sq)
+    kpos = torch.arange(Skv, device=q.device)
+    vis = (kpos < n_valid)[None, :].expand(Sq, Skv)
+    if causal:
+        reach = 1 if fault == "causal mask one off" else 0
+        vis = vis & (kpos[None, :] <= qpos[:, None] + reach)
+    vis = vis[None, None]                            # (1, 1, Sq, Skv)
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kr) * scale
+    lse = torch.logsumexp(torch.where(vis, s, NEG_INF), dim=-1,
+                          keepdim=True)
+    seen = vis.any(dim=-1, keepdim=True)
+    p = torch.where(vis & seen, torch.exp(s - lse), 0.0)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vr)
+    di = (dof * of).sum(-1).transpose(1, 2)[..., None]   # (B, Hq, Sq, 1)
+    if fault == "Di dropped":
+        di = torch.zeros_like(di)
+    ds = p * (dp - di)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kr) * scale
+    dk_h = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    dv_h = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dk_h = dk_h.reshape(Bq, Skv, Hkv, G, Dh)
+    dv_h = dv_h.reshape(Bq, Skv, Hkv, G, Dh)
+    if fault == "dK without the sum over the group":
+        dk = dk_h[:, :, :, 0]
+    else:
+        dk = dk_h.sum(3)
+    dv = dv_h.sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def check_bwd(q, k, v, o, dout, causal: bool, kv_valid: int, label: str
+              ) -> Tuple[float, float]:
+    """One ``flash_attention_bwd`` call (two kernels, one counted launch)
+    on CUDA tensors against ``flash_attention_bwd_ref`` on the same
+    inputs (``grads_agree``); rows that see no key must have zero dq.
+    -> (max |d|, max |d| / max |plain|), the worst of dq, dk, dv."""
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, o, dout, causal=causal,
+                              kv_valid=kv_valid)
+    want = flash_attention_bwd_ref(q, k, v, o, dout, causal=causal,
+                                   kv_valid=kv_valid)
+    torch.cuda.synchronize()
+    if flash_attention_bwd.launches != before + 1:
+        raise AssertionError(f"{label}: "
+                             f"{flash_attention_bwd.launches - before} "
+                             "launches")
+    err = grads_agree(got, want, label)
+    Sq, Skv = q.shape[1], k.shape[1]
+    if causal and Sq > Skv and got[0][:, :Sq - Skv].any():
+        raise AssertionError(f"{label}: a row with no visible key has a "
+                             "nonzero dq")
+    return err
+
+
+def check_bwd_case(case, device, seed: int) -> Tuple[float, float]:
+    """``check_bwd`` on one of ``BWD_CASES``.  -> (max |d|, max |d| /
+    max |plain|)."""
+    _, _, _, _, causal, kv_valid, _ = case
+    q, k, v, o, dout = bwd_case_operands(case, device, seed)
+    return check_bwd(q, k, v, o, dout, causal, kv_valid,
+                     f"flash_attention_bwd {case_id(case)}")
+
+
+def check_bwd_faults(case, device, seed: int) -> dict:
+    """The plain model of the kernel's algorithm agrees with the plain
+    backward on ``case``, and each of ``BWD_FAULTS`` planted in it reads
+    above the tolerance; so does the kernel itself given O = 0 (its Di
+    dropped).  -> {fault: its max |d| / max |plain|}."""
+    _, _, _, _, causal, kv_valid, _ = case
+    q, k, v, o, dout = bwd_case_operands(case, device, seed)
+    want = flash_attention_bwd_ref(q, k, v, o, dout, causal=causal,
+                                   kv_valid=kv_valid)
+    label = f"flash_attention_bwd model {case_id(case)}"
+    grads_agree(flash_attention_bwd_model(q, k, v, o, dout, causal,
+                                          kv_valid=kv_valid), want, label)
+    faults = {f: flash_attention_bwd_model(q, k, v, o, dout, causal,
+                                           kv_valid=kv_valid, fault=f)
+              for f in BWD_FAULTS}
+    if q.is_cuda:
+        faults["kernel with Di dropped (O = 0)"] = flash_attention_bwd(
+            q, k, v, torch.zeros_like(o), dout, causal=causal,
+            kv_valid=kv_valid)
+    read = {}
+    for name, got in faults.items():
+        try:
+            grads_agree(got, want, f"{label} {name}")
+        except AssertionError:
+            read[name] = max(
+                float((g.float() - w.float()).abs().max()
+                      / w.float().abs().max()) for g, w in zip(got, want))
+        else:
+            raise AssertionError(f"{label}: planted fault {name!r} passes "
+                                 "the tolerance")
+    return read

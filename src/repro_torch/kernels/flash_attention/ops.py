@@ -20,6 +20,17 @@ exactly 0 there too, so a query with no visible key gives 0, as the
 Pallas kernel's finalize (``l == 0 -> 0``) intends, where
 ``_chunked_jnp`` (and the Pallas kernel on a tile it does not skip)
 averages V over the masked keys.  Rows that see a key are unaffected.
+
+Training: when grad mode is on and q, k or v requires grad, a CUDA call
+goes through ``FlashAttentionFn``, whose forward launches the same
+forward kernel and whose backward launches ``flash_attention_bwd``
+(``csrc/flash_attention_bwd.cu``: dQ, dK and dV, each sum in f32); every
+other call (serving) launches the forward kernel as before.  On a CPU
+tensor ``flash_attention_ref`` runs under autograd, and its own graph is
+the gradient: the reference differentiates ``_chunked_jnp`` off the TPU,
+with the one difference above (a query that sees no key gives 0 and
+zero gradients).  ``flash_attention_bwd_ref``, the plain backward, is
+``torch.autograd.grad`` of ``flash_attention_ref``.
 """
 from __future__ import annotations
 
@@ -46,6 +57,11 @@ DTYPES = (torch.float32, torch.bfloat16)
 #                        causal, sm_scale, bf16, stream)
 LAUNCH_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 8
                    + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
+# flash_attention_bwd_launch(q, k, v, o, dout, dq, dk, dv, lse, di, B, Sq,
+#                            Skv, Hq, Hkv, D, kv_valid, causal, sm_scale,
+#                            bf16, stream)
+BWD_LAUNCH_ARGTYPES = ((ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 8
+                       + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -114,11 +130,119 @@ def _check_operands(name, q, k, v):
                                   f"kernel build (built for {HEAD_DIMS})")
 
 
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            dout: torch.Tensor, causal: bool = True,
+                            sm_scale: Optional[float] = None,
+                            kv_valid: int = 0):
+    """Plain backward: ``torch.autograd.grad`` of ``flash_attention_ref``
+    at (q, k, v) against ``dout`` -> (dq, dk, dv) in the inputs' dtypes.
+    ``o`` (the forward's output, which the kernel reads) is not read: the
+    plain version recomputes its own."""
+    del o
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = flash_attention_ref(*leaves, causal=causal, sm_scale=sm_scale,
+                                  kv_valid=kv_valid)
+        return torch.autograd.grad(out, leaves, dout)
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_launcher():
+    lib = library("flash_attention_bwd")
+    fn = lib.flash_attention_bwd_launch
+    fn.argtypes = list(BWD_LAUNCH_ARGTYPES)
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, dout: torch.Tensor,
+                        causal: bool = True,
+                        sm_scale: Optional[float] = None,
+                        kv_valid: int = 0):
+    """The gradient of ``flash_attention(q, k, v, causal, sm_scale,
+    kv_valid)``, whose output was ``o``, against ``dout`` (both (B, Sq,
+    Hq, D)) -> (dq, dk, dv) in q's dtype.  On a CUDA tensor it launches
+    ``csrc/flash_attention_bwd.cu`` (two kernels a call, one launch
+    counted); on a CPU tensor it runs ``flash_attention_bwd_ref``."""
+    B, Sq, Hq, D = q.shape
+    if k.ndim != 4 or k.shape != v.shape or k.shape[0] != B \
+            or k.shape[3] != D or Hq % k.shape[2] \
+            or o.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"flash_attention_bwd: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}, o "
+                         f"{tuple(o.shape)}, dout {tuple(dout.shape)}")
+    Skv, Hkv = k.shape[1], k.shape[2]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(D)
+    if not on_cuda(q):
+        return flash_attention_bwd_ref(q, k, v, o, dout, causal, sm_scale,
+                                       kv_valid)
+    _check_operands("flash_attention_bwd", q, k, v)
+    _check_operands("flash_attention_bwd", q, o, dout)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if not B or not Hq or not D:
+        return dq, dk, dv
+    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    di = torch.empty_like(lse)
+    lib, fn = _bwd_launcher()
+    with device_guard(q):
+        err = fn(ptr(q), ptr(k), ptr(v), ptr(o), ptr(dout), ptr(dq),
+                 ptr(dk), ptr(dv), ptr(lse), ptr(di), B, Sq, Skv, Hq, Hkv,
+                 D, int(kv_valid), int(bool(causal)), float(sm_scale),
+                 int(q.dtype == torch.bfloat16), stream_of(q))
+    check_launch(err, lib, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+def _forward_kernel(q, k, v, causal, sm_scale, kv_valid) -> torch.Tensor:
+    """One launch of the forward kernel on CUDA tensors."""
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    _check_operands("flash_attention", q, k, v)
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    lib, fn = _launcher()
+    with device_guard(q):
+        err = fn(ptr(q), ptr(k), ptr(v), ptr(out), B, Sq, Skv, Hq, Hkv, D,
+                 int(kv_valid), int(bool(causal)), float(sm_scale),
+                 int(q.dtype == torch.bfloat16), stream_of(q))
+    check_launch(err, lib, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """The forward kernel with ``flash_attention_bwd`` as its gradient
+    (CUDA tensors under grad)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale, kv_valid):
+        out = _forward_kernel(q, k, v, causal, sm_scale, kv_valid)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.args = (causal, sm_scale, kv_valid)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out,
+                                         dout.contiguous().to(q.dtype),
+                                         *ctx.args)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, sm_scale: Optional[float] = None,
                     kv_valid: int = 0) -> torch.Tensor:
     """q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D) -> (B, Sq, Hq, D) in
-    q's dtype."""
+    q's dtype; differentiable on both devices."""
     B, Sq, Hq, D = q.shape
     if k.ndim != 4 or k.shape != v.shape or k.shape[0] != B \
             or k.shape[3] != D or Hq % k.shape[2]:
@@ -135,18 +259,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             "causal attention with ragged Sq != Skv padding")
     if not on_cuda(q):
         return flash_attention_ref(q, k, v, causal, sm_scale, kv_valid)
-    _check_operands("flash_attention", q, k, v)
-    out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
-    lib, fn = _launcher()
-    with device_guard(q):
-        err = fn(ptr(q), ptr(k), ptr(v), ptr(out), B, Sq, Skv, Hq, Hkv, D,
-                 int(kv_valid), int(bool(causal)), float(sm_scale),
-                 int(q.dtype == torch.bfloat16), stream_of(q))
-    check_launch(err, lib, "flash_attention")
-    flash_attention.launches += 1
-    return out
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, causal, sm_scale, kv_valid)
+    return _forward_kernel(q, k, v, causal, sm_scale, kv_valid)
 
 
 flash_attention.launches = 0

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import (check_launch, device_guard, on_cuda, ptr,
-                                  stream_of)
+                                  refuse_grad, stream_of)
 from repro_torch.kernels._build import library
 
 STATS_W = 8     # [count, ymin, ymax, xmin, xmax, 0, 0, 0]
@@ -185,6 +185,7 @@ def proxy_plan(feat: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if not on_cuda(feat):
         sy, sx = _spans_on(feat.device, hc, hp, wc, wp)
         return proxy_plan_ref(feat, w, b, threshold, sy, sx)
+    refuse_grad("proxy_plan", feat, w, b)
     dev = feat.get_device()
     for name, t, shape in (("feat", feat, (B, hp, wp, C)),
                            ("w", w, (C,)), ("b", b, (1,))):

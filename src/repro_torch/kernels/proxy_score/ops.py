@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import (check_launch, device_guard, on_cuda, ptr,
-                                  stream_of)
+                                  refuse_grad, stream_of)
 from repro_torch.kernels._build import library
 
 FLIP_ULPS = 8   # band around the threshold where a cell may flip
@@ -123,6 +123,7 @@ def proxy_score(feat: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     B, Hc, Wc, C = feat.shape
     if not on_cuda(feat):
         return proxy_score_ref(feat, w, b, threshold)
+    refuse_grad("proxy_score", feat, w, b)
     for name, t, shape in (("feat", feat, (B, Hc, Wc, C)),
                            ("w", w, (C,)), ("b", b, (1,))):
         if t.device != feat.device or t.dtype != torch.float32 \

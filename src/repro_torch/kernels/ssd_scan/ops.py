@@ -22,6 +22,11 @@ the state exact: the plain version pads; both kernels do the same
 inside (rows past S load as zeros), so the wrapper copies nothing.  The
 model's prefill (``models.ssm``) calls it once a layer.
 
+Under autograd (grad mode on and an input that requires grad) a CUDA
+call raises NotImplementedError: the scan's backward kernel is ROADMAP
+item 12g.1b, and the kernel's output has no graph.  A CPU call runs
+``ssd_scan_ref`` under autograd, the reference's CPU gradient.
+
 On a CUDA tensor it launches ``csrc/ssd_scan.cu`` (bf16 on tensor cores,
 f32 on tensor cores as 3xTF32, in steps of 64 rows); on a CPU tensor it
 runs ``ssd_scan_ref``, the plain PyTorch version of the JAX package's
@@ -41,7 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import (check_launch, device_guard, on_cuda, ptr,
-                                  stream_of)
+                                  refuse_grad, stream_of)
 from repro_torch.kernels._build import library
 
 MAX_CHUNK = 128                  # the largest Q (the bf16 kernel's tile)
@@ -180,6 +185,10 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError(f"ssd_scan: S {S}, chunk {chunk}")
     if not on_cuda(x):
         return ssd_scan_ref(x, dt, A, B, C, D, chunk)
+    refuse_grad("ssd_scan", x, dt, A, B, C, D,
+                why="no backward kernel on the card yet (ROADMAP item "
+                "12g.1b, the ssd_scan backward kernel): the ssm and hybrid "
+                "families train on the CPU only")
     Q = min(chunk, S)
     if Q > MAX_CHUNK:
         raise NotImplementedError(f"ssd_scan: chunk {Q} > {MAX_CHUNK}, "

@@ -44,7 +44,7 @@ from repro_torch import Device, resolve_device
 from repro_torch.core import fastmath as fm
 from repro_torch.core.hungarian import FORBIDDEN_DEVICE, assoc_side
 from repro_torch.kernels import (check_launch, device_guard, on_cuda, ptr,
-                                  stream_of)
+                                  refuse_grad, stream_of)
 from repro_torch.kernels._build import library
 from repro_torch.kernels.assign.ops import check_err, solve_one_ref
 
@@ -224,6 +224,7 @@ def track_step(h_r, tbox_r, alive_r, te_gap_r, te_match, x, dbox, dvalid,
     if not on_cuda(h_r):
         return track_step_ref(h_r, tbox_r, alive_r, te_gap_r, te_match, x,
                               dbox, dvalid, thr, params, table, err)
+    refuse_grad("track_step", h_r, tbox_r, x, dbox, thr, *params)
     dev = h_r.device
     thr = torch.as_tensor(thr, dtype=torch.float32, device=dev).reshape(1, 1)
     ops = [h_r, tbox_r, alive_r, te_gap_r, te_match, x, dbox, dvalid, thr]

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import (check_launch, device_guard, on_cuda, ptr,
-                                  stream_of)
+                                  refuse_grad, stream_of)
 from repro_torch.kernels._build import library
 
 _MAX_WINDOWS = 65535        # the launch's grid.y limit
@@ -120,6 +120,7 @@ def window_gather_batch(frames: torch.Tensor,
     if not on_cuda(frames):
         return window_gather_batch_ref(frames, table, win_h=win_h,
                                        win_w=win_w, cell=cell)
+    refuse_grad("window_gather_batch", frames)
     n = int(table.shape[0])
     if frames.dtype != torch.float32 or not frames.is_contiguous():
         raise ValueError("window_gather_batch: frames must be a contiguous "
@@ -167,6 +168,7 @@ def window_gather(frame: torch.Tensor,
     if not on_cuda(frame):
         return window_gather_ref(frame, origins, win_h=win_h, win_w=win_w,
                                  cell=cell)
+    refuse_grad("window_gather", frame)
     n = int(origins.shape[0])
     if frame.dtype != torch.float32 or not frame.is_contiguous():
         raise ValueError("window_gather: frame must be a contiguous f32 "

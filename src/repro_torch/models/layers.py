@@ -9,8 +9,11 @@ cast to the activation dtype at use; norms run in f32 (their scales
 upcast) and logits come out in f32 (the tied table or the head upcast).
 ``Linear``, ``SwiGLU`` and ``GeluMLP`` keep each weight's copy in the
 activation dtype beside it when the two dtypes differ, made once when
-the weight is written (``LMWeights.load_``): the bits of a cast at
-every use.
+the weight is written (``LMWeights.load_``, and again by
+``LMWeights.refresh_casts`` after a train step's update): the bits of a
+cast at every use.  The kept copies serve inference only: with grad
+mode on, each weight is cast at use, in the graph, so its gradient
+reaches the master weight.
 
 ``Linear`` keeps the reference's weight layout, ``w`` of shape
 (d_in, d_out), so ``params.lm_from_params`` copies it as it is.
@@ -27,7 +30,8 @@ from torch import nn
 
 def empty_param(shape, device, dtype=None) -> nn.Parameter:
     """A parameter in ``dtype`` (default f32) to be filled by an init or
-    the bridge (serving only: no gradient)."""
+    the bridge.  It asks for no gradient until a trainer turns that on
+    (``requires_grad_``, as ``train.TrainStep`` does)."""
     return nn.Parameter(torch.empty(tuple(shape),
                                     dtype=dtype or torch.float32,
                                     device=device), requires_grad=False)
@@ -39,19 +43,30 @@ class CastWeights(nn.Module):
     non-persistent buffer ``<name>_cast`` (so ``.to()`` moves it and
     ``state_dict`` leaves it out) when the weight is held in another
     dtype, and no second copy when it is held in ``dtype`` already;
-    whoever writes the weight calls it again.  Without a kept copy of
-    that dtype a use casts (a no-op for a weight held in it)."""
+    whoever writes the weight calls it again (an existing copy is
+    overwritten in place).  Without a kept copy of that dtype a use
+    casts (a no-op for a weight held in it).  Kept copies serve only
+    with grad mode off (inference): with it on, ``weight`` casts in the
+    graph, so the gradient reaches the master."""
 
+    @torch.no_grad()
     def keep_cast(self, name: str, dtype: torch.dtype) -> None:
         weight = getattr(self, name)
-        if dtype != weight.dtype:
+        if dtype == weight.dtype:
+            return
+        kept = self._buffers.get(f"{name}_cast")
+        if kept is not None and kept.dtype == dtype \
+                and kept.shape == weight.shape:
+            kept.copy_(weight)
+        else:
             self.register_buffer(f"{name}_cast", weight.detach().to(dtype),
                                  persistent=False)
 
     def weight(self, name: str, dtype: torch.dtype) -> torch.Tensor:
-        kept = self._buffers.get(f"{name}_cast")
-        if kept is not None and kept.dtype == dtype:
-            return kept
+        if not torch.is_grad_enabled():
+            kept = self._buffers.get(f"{name}_cast")
+            if kept is not None and kept.dtype == dtype:
+                return kept
         return getattr(self, name).to(dtype)
 
 

@@ -8,6 +8,7 @@ and encdec.
                                  param_dtype: f32 masters by default)
   param_specs() / param_count()
   forward(params, batch, return_cache=)  -> (logits, aux, cache | None)
+  loss(params, batch)                    -> (scalar f32, metrics dict)
   prefill(params, batch, max_len=)       -> (logits_last (B, V), cache)
   decode_step(params, token, pos, cache) -> (logits (B, V), cache)
   make_cache(batch, max_len, device=)    -> cache
@@ -18,13 +19,18 @@ family ``encdec.EncDecLM``).  Batches are dicts: every family reads
 ``tokens``, the vlm family also ``patch_embeds`` (optional, as the
 reference's ``batch.get``) and the encdec family ``audio_embeds``
 (required); each as a numpy array or a tensor, moved to the weights'
-device.  A key the family does not read raises ValueError.  ``loss``
-(training) is not ported yet.
+device; ``loss`` also reads ``loss_mask``.  A key the family does not
+read raises ValueError.
+
+``forward``, ``prefill`` and ``decode_step`` run under
+``torch.inference_mode`` (serving); ``loss`` runs the same forward with
+grad mode as the caller has it, so ``loss.backward()`` (or
+``train.TrainStep``) reaches every weight that asks for a gradient.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -100,35 +106,72 @@ class Model:
                                                self.cfg.param_dtype))
         return model.eval()
 
-    def forward(self, params: LMWeights, batch: Dict[str, Any],
-                return_cache: bool = False, cache_len: Optional[int] = None,
-                logits_at=None):
-        cfg = self.cfg
-        frontend = FRONTEND_KEYS.get(cfg.family)
-        unread = set(batch) - {"tokens", frontend}
+    def _check_keys(self, batch: Dict[str, Any], extra=()) -> None:
+        frontend = FRONTEND_KEYS.get(self.cfg.family)
+        unread = set(batch) - {"tokens", frontend, *extra}
         if unread:
             raise ValueError(f"batch keys {sorted(unread)}: the "
-                             f"{cfg.family} family reads tokens"
-                             + (f" and {frontend}" if frontend else ""))
+                             f"{self.cfg.family} family reads tokens"
+                             + (f" and {frontend}" if frontend else "")
+                             + (", and loss reads loss_mask" if extra
+                                else ""))
+
+    def _run(self, params: LMWeights, batch: Dict[str, Any],
+             return_cache: bool = False, cache_len: Optional[int] = None,
+             logits_at=None):
+        """The forward of any family, in the caller's grad mode."""
+        cfg = self.cfg
+        frontend = FRONTEND_KEYS.get(cfg.family)
         dev = params.device
         toks = _tokens(batch, dev)
         if logits_at is not None:
             logits_at = torch.as_tensor(logits_at, device=dev)
         embeds = batch.get(frontend) if frontend else None
+        if embeds is not None:
+            embeds = _embeds(embeds, dev)
+        if cfg.family == "encdec":
+            if embeds is None:
+                raise ValueError("the encdec family needs audio_embeds")
+            return encdec_mod.encdec_forward(
+                params, embeds, toks, return_cache=return_cache,
+                cache_len=cache_len, logits_at=logits_at)
+        return tf_mod.lm_forward(params, toks, patch_embeds=embeds,
+                                 return_cache=return_cache,
+                                 cache_len=cache_len, logits_at=logits_at)
+
+    def forward(self, params: LMWeights, batch: Dict[str, Any],
+                return_cache: bool = False, cache_len: Optional[int] = None,
+                logits_at=None):
+        self._check_keys(batch)
         with torch.inference_mode():
-            if embeds is not None:
-                embeds = _embeds(embeds, dev)
-            if cfg.family == "encdec":
-                if embeds is None:
-                    raise ValueError("the encdec family needs "
-                                     "audio_embeds")
-                return encdec_mod.encdec_forward(
-                    params, embeds, toks, return_cache=return_cache,
-                    cache_len=cache_len, logits_at=logits_at)
-            return tf_mod.lm_forward(params, toks, patch_embeds=embeds,
-                                     return_cache=return_cache,
-                                     cache_len=cache_len,
-                                     logits_at=logits_at)
+            return self._run(params, batch, return_cache=return_cache,
+                             cache_len=cache_len, logits_at=logits_at)
+
+    def loss(self, params: LMWeights, batch: Dict[str, Any]
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """``Model.loss``: next-token cross-entropy over an f32
+        ``log_softmax`` of ``logits[:, :-1]``, weighed by ``loss_mask``
+        shifted by one (default all ones) over max(sum of the mask, 1);
+        the moe family adds ``aux_loss_coef`` times the load-balance
+        loss.  -> (total, {"ce", "aux", "tokens"}), all f32 scalars, in
+        the caller's grad mode."""
+        self._check_keys(batch, ("loss_mask",))
+        logits, aux, _ = self._run(params, batch)
+        tokens = _tokens(batch, params.device)
+        targets = tokens[:, 1:]
+        lp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+        nll = -lp.gather(-1, targets[..., None])[..., 0]
+        mask = batch.get("loss_mask")
+        if mask is None:
+            mask = torch.ones(targets.shape, dtype=torch.float32,
+                              device=nll.device)
+        else:
+            mask = torch.as_tensor(mask, device=nll.device)[:, 1:].float()
+        denom = torch.clamp(mask.sum(), min=1.0)
+        ce = (nll * mask).sum() / denom
+        total = ce + self.cfg.moe.aux_loss_coef * aux \
+            if self.cfg.moe.enabled else ce
+        return total, {"ce": ce, "aux": aux, "tokens": mask.sum()}
 
     def prefill(self, params: LMWeights, batch: Dict[str, Any],
                 max_len: Optional[int] = None):

@@ -269,6 +269,19 @@ class LMWeights(nn.Module):
         the order of the stack, flattened)."""
         raise NotImplementedError
 
+    def sites(self, path: str) -> Tuple[Tuple[int, ...], list]:
+        """Where the reference's parameter ``path`` lives in the port: (its
+        stacked axes, () for an unstacked one; a list of (module,
+        attribute name), one per stacked layer in the stack's order)."""
+        for prefix, (lead, modules) in self._stacks().items():
+            if path.startswith(prefix + "/"):
+                owner, _, name = path[len(prefix) + 1:].replace(
+                    "/", ".").rpartition(".")
+                return lead, [(layer.get_submodule(owner), name)
+                              for layer in modules]
+        owner, _, name = path.replace("/", ".").rpartition(".")
+        return (), [(self.get_submodule(owner), name)]
+
     @torch.no_grad()
     def load_(self, path: str, value: torch.Tensor) -> None:
         """Copy the parameter at reference path ``path`` (a stacked path,
@@ -278,22 +291,28 @@ class LMWeights(nn.Module):
         "decoder/...") from ``value``, cast to the parameter's dtype; a
         layer weight's copy in the activation dtype, where that differs,
         is made here, once."""
-        for prefix, (lead, modules) in self._stacks().items():
-            if not path.startswith(prefix + "/"):
+        lead, sites = self.sites(path)
+        if tuple(value.shape[:len(lead)]) != lead:
+            raise ValueError(f"{path}: stacked {tuple(value.shape)}, "
+                             f"model has {lead} layers")
+        flat = value.reshape((-1,) + tuple(value.shape[len(lead):]))
+        for (module, name), v in zip(sites, flat):
+            getattr(module, name).copy_(v)
+            if lead and isinstance(module, CastWeights):
+                module.keep_cast(name, dtype_of(self.cfg))
+
+    @torch.no_grad()
+    def refresh_casts(self) -> None:
+        """Make every kept activation-dtype copy again from its weight, in
+        place (``load_`` makes them; a train step's update changes the
+        weights under them)."""
+        dtype = dtype_of(self.cfg)
+        for module in self.modules():
+            if not isinstance(module, CastWeights):
                 continue
-            if tuple(value.shape[:len(lead)]) != lead:
-                raise ValueError(f"{path}: stacked {tuple(value.shape)}, "
-                                 f"model has {lead} layers")
-            rest = path[len(prefix) + 1:]
-            owner, _, name = rest.replace("/", ".").rpartition(".")
-            flat = value.reshape((-1,) + tuple(value.shape[len(lead):]))
-            for layer, v in zip(modules, flat):
-                module = layer.get_submodule(owner)
-                getattr(module, name).copy_(v)
-                if isinstance(module, CastWeights):
-                    module.keep_cast(name, dtype_of(self.cfg))
-            return
-        self.get_parameter(path.replace("/", ".")).copy_(value)
+            for key in list(module._buffers):
+                if key.endswith("_cast"):
+                    module.keep_cast(key[:-len("_cast")], dtype)
 
 
 class TransformerLM(LMWeights):

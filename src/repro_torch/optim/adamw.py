@@ -13,13 +13,16 @@ The port of the JAX package's ``repro.optim.adamw`` as a
 Its defaults are the reference's (b2 0.95, weight decay 0.1), not
 ``torch.optim.AdamW``'s.  A parameter whose ``grad`` is None is updated
 as with a zero gradient, as the reference updates every leaf.
+``step(grads=...)`` takes the gradients as a list, one a parameter in
+``param_groups`` order, in place of each ``.grad`` (the train step's f32
+gradients: a ``.grad`` is held in its parameter's dtype).
 
 With ``quantize_v`` the second moment is held as int8 with a float32
 absmax scale per row of the last axis, dequantized for each update.
 """
 from __future__ import annotations
 
-from typing import Callable, List, NamedTuple, Union
+from typing import Callable, List, NamedTuple, Optional, Sequence, Union
 
 import torch
 
@@ -62,7 +65,7 @@ class AdamW(torch.optim.Optimizer):
         return torch.tensor(lr, dtype=torch.float32)
 
     @torch.no_grad()
-    def step(self, closure=None):
+    def step(self, closure=None, grads: Optional[Sequence] = None):
         loss = None
         if closure is not None:
             with torch.enable_grad():
@@ -70,23 +73,25 @@ class AdamW(torch.optim.Optimizer):
         self.n_steps += 1
         step = self.n_steps
         step_f = torch.tensor(float(step), dtype=torch.float32)
+        given = iter(grads) if grads is not None else None
         for group in self.param_groups:
             b1, b2 = group["b1"], group["b2"]
             lr = self._lr(group["lr"], step)
             bc1 = 1.0 - torch.tensor(b1, dtype=torch.float32) ** step_f
             bc2 = 1.0 - torch.tensor(b2, dtype=torch.float32) ** step_f
             for p in group["params"]:
-                self._update(p, group, lr, bc1, bc2)
+                g = next(given) if given is not None else p.grad
+                self._update(p, g, group, lr, bc1, bc2)
         return loss
 
-    def _update(self, p, group, lr, bc1, bc2) -> None:
+    def _update(self, p, grad, group, lr, bc1, bc2) -> None:
         b1, b2, eps = group["b1"], group["b2"], group["eps"]
         st = self.state[p]
         if not st:
             st["m"] = torch.zeros_like(p, dtype=torch.float32)
             v0 = torch.zeros_like(p, dtype=torch.float32)
             st["v"] = _quantize_v(v0) if group["quantize_v"] else v0
-        g = (p.grad if p.grad is not None else torch.zeros_like(p)
+        g = (grad if grad is not None else torch.zeros_like(p)
              ).to(torch.float32)
         lr, bc1, bc2 = (t.to(p.device) for t in (lr, bc1, bc2))
         m = b1 * st["m"] + (1 - b1) * g

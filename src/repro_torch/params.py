@@ -23,7 +23,8 @@ directions are copies: a round trip is bit for bit.
 reference's ``Model.init_params`` tree (layers stacked; any LM family,
 through the family's ``param_specs``) over into the port's
 ``TransformerLM`` (``EncDecLM`` for the encdec family), whose own init
-is ``Model.init_params(seed)``.
+is ``Model.init_params(seed)``; ``lm_to_params`` goes the other way, for
+the weights or their gradients (``grads=True``).
 """
 from __future__ import annotations
 
@@ -198,3 +199,27 @@ def lm_from_params(cfg: ModelConfig, tree: Mapping,
                              f"expected {spec.shape}")
         model.load_(spec.path, value.to(dev))
     return model.eval()
+
+
+def lm_to_params(weights: LMWeights, grads: bool = False) -> Dict:
+    """The inverse of ``lm_from_params``: the port's weights module -> the
+    reference's ``Model.init_params`` tree (nested dicts, layers stacked
+    on the leading axes of each path), numpy f32 leaves.  With ``grads``
+    each leaf is the parameters' ``.grad`` instead (zeros where a
+    parameter has none), so gradients compare leaf by leaf with
+    ``jax.grad``'s."""
+    tree: Dict = {}
+    for spec in lm_param_specs(weights.cfg):
+        _, sites = weights.sites(spec.path)
+        parts = []
+        for module, name in sites:
+            p = getattr(module, name)
+            t = p.grad if grads else p
+            parts.append(_np(t) if t is not None
+                         else np.zeros(tuple(p.shape), np.float32))
+        node = tree
+        *heads, last = spec.path.split("/")
+        for part in heads:
+            node = node.setdefault(part, {})
+        node[last] = np.stack(parts).reshape(spec.shape)
+    return tree

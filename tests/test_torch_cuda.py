@@ -157,6 +157,58 @@ def test_flash_attention_kernel_refuses_what_it_was_not_built_for(dev):
     flash_check.check_refusals(dev)
 
 
+# one case a head dim (64, 112, 128), each dtype
+BWD_TEST_CASES = [c for c in flash_check.BWD_CASES
+                  if c[0] in ("S500 causal", "D112 S500 causal",
+                              "D128 S512 causal")]
+
+
+@pytest.mark.parametrize("case", BWD_TEST_CASES,
+                         ids=[flash_check.case_id(c) for c in BWD_TEST_CASES])
+def test_flash_attention_bwd_kernel_matches_plain_version(dev, case):
+    flash_check.check_bwd_case(case, dev, seed=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_flash_attention_differentiates_through_its_kernels(dev, dtype):
+    """Under grad on the card, ``flash_attention`` launches the forward
+    kernel once and, at ``backward``, the backward kernel once; the
+    gradients are the plain backward's.  Without grad it launches the
+    forward only and its output has no graph."""
+    case = next(c for c in flash_check.BWD_CASES
+                if c[0] == "S500 causal" and c[1] == dtype)
+    q, k, v, _, dout = flash_check.bwd_case_operands(case, dev, seed=3)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    fwd, bwd = flash_check.flash_attention, flash_check.flash_attention_bwd
+    f0, b0 = fwd.launches, bwd.launches
+    out = fwd(*leaves)
+    out.backward(dout)
+    assert (fwd.launches - f0, bwd.launches - b0) == (1, 1)
+    want = flash_check.flash_attention_bwd_ref(q, k, v, out.detach(), dout)
+    flash_check.grads_agree([t.grad for t in leaves], want, "autograd")
+    with torch.no_grad():
+        assert fwd(*leaves).grad_fn is None
+
+
+def test_decode_and_scan_refuse_autograd_on_the_card(dev):
+    """``decode_attention`` and ``ssd_scan`` have no backward kernel: under
+    grad with an input that requires it they raise, never hand back an
+    output with no graph (the scan's names ROADMAP item 12g.1b)."""
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    q, k, v, kv_len = decode_check.case_operands(
+        decode_check.CASES[0], torch.bfloat16, dev, seed=0)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        decode_check.decode_attention(q.requires_grad_(True), k, v, kv_len)
+    name, b, S, H, P, N, chunk = check.CASES[0]
+    args = check.operands(b, S, H, P, N, torch.bfloat16, dev, seed=0)
+    args[0].requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="12g.1b"):
+        ssd_scan(*args, chunk=chunk)
+    with torch.no_grad():
+        ssd_scan(*args, chunk=chunk)
+
+
 @pytest.mark.parametrize("dtype", decode_check.DTYPES,
                          ids=["bfloat16", "float32"])
 @pytest.mark.parametrize("case", decode_check.CASES,

@@ -365,6 +365,8 @@ LAUNCHERS = [
      "repro_torch.kernels.track_step.ops", "LAUNCH_ARGTYPES"),
     ("flash_attention.cu", "flash_attention_launch",
      "repro_torch.kernels.flash_attention.ops", "LAUNCH_ARGTYPES"),
+    ("flash_attention_bwd.cu", "flash_attention_bwd_launch",
+     "repro_torch.kernels.flash_attention.ops", "BWD_LAUNCH_ARGTYPES"),
     ("decode_attention.cu", "decode_attention_launch",
      "repro_torch.kernels.decode_attention.ops", "LAUNCH_ARGTYPES"),
     ("ssd_scan.cu", "ssd_scan_launch", "repro_torch.kernels.ssd_scan.ops",

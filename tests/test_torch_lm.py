@@ -366,7 +366,9 @@ def test_swiglu_and_linear_match(dtype):
 def test_weight_casts_are_kept_once_at_load(dtype):
     """A layer weight's copy in the activation dtype is made when it is
     loaded, equals a cast, follows a later load, moves with ``.to()``
-    and stays out of ``state_dict``; in f32 there is no copy."""
+    and stays out of ``state_dict``; in f32 there is no copy.  Uses read
+    the kept copy with grad mode off (serving); with it on, a weight is
+    cast at use (in the graph), to the same bits."""
     *_, params = pair(dtype)
     act = getattr(torch, dtype)
     mlp, wq = params.layers[1].mlp, params.layers[1].attn.wq
@@ -379,8 +381,12 @@ def test_weight_casts_are_kept_once_at_load(dtype):
     # of every layer; nothing of the embedding or the head
     assert len(kept) == len(params.layers) * 10
     for m, name in ((mlp, "w_up"), (wq, "w"), (wq, "b")):
-        assert m.weight(name, act) is getattr(m, f"{name}_cast")
+        with torch.no_grad():
+            assert m.weight(name, act) is getattr(m, f"{name}_cast")
+        assert m.weight(name, act) is not getattr(m, f"{name}_cast")
         assert torch.equal(m.weight(name, act), getattr(m, name).to(act))
+        assert torch.equal(getattr(m, f"{name}_cast"),
+                           getattr(m, name).to(act))
     fresh = tf.TransformerLM(params.cfg, "cpu")
     fresh.load_state_dict(params.state_dict())
     assert not [k for k, _ in fresh.named_buffers()]     # not loaded:

@@ -25,6 +25,7 @@ import dataclasses
 import json
 import socket
 import threading
+import time
 import urllib.error
 import urllib.request
 from collections import Counter as Tally
@@ -76,6 +77,18 @@ def _error(url, timeout=5.0):
     with pytest.raises(urllib.error.HTTPError) as ei:
         _get(url, timeout)
     return ei.value.code, ei.value.read().decode()
+
+
+def _await_requests(server, n, timeout=5.0):
+    """``server.stats()`` once it counts ``n`` requests, or after
+    ``timeout`` seconds: a handler counts its request after the reply's
+    bytes have gone out, so a client can read the count one short."""
+    deadline = time.monotonic() + timeout
+    stats = server.stats()
+    while stats["requests"] < n and time.monotonic() < deadline:
+        time.sleep(0.005)
+        stats = server.stats()
+    return stats
 
 
 # ---------------------------------------------------------------------------
@@ -162,7 +175,7 @@ def test_handler_error_is_a_500_and_the_server_lives_on():
             status, _, text = _get(server.url + "/metrics")
             assert status == 200 and "query_count 2" in text
             assert server._thread.is_alive()
-            stats = server.stats()
+            stats = _await_requests(server, 2)
             assert stats["requests"] == 2
             assert stats["handler_cpu_seconds"] >= 0.0
     finally:
@@ -225,6 +238,8 @@ def test_server_matches_reference_server():
         validate_health(health)
         assert health["status"] == "warn"
         assert health["slo"]["append_latency"]["state"] != "ok"
+        for s in (ts, js):
+            _await_requests(s, 2)
         tsnap, jsnap = (json.loads(_get(s.url + "/snapshot")[2])
                         for s in (ts, js))
         assert tsnap.pop("serve")["requests"] == 2
