@@ -116,9 +116,12 @@ approximation, decode attending kv_len = pos).  Then LM training
 (``run_train``): ``flash_attention_bwd`` against its plain backward
 (``torch.autograd.grad`` of the plain forward) over
 ``flash_check.BWD_CASES`` in both dtypes (f32 within 1e-5 of max
-|plain|, bf16 one ulp at max), three planted faults on the kernel's
-plain model and Di dropped in the kernel itself, timed at S 500 and at
-the train step's call beside SDPA's forward and backward; full-width,
+|plain|, bf16 one ulp at max; two bf16 calls give the same bits), three
+planted faults on the kernel's plain model and Di dropped in the kernel
+itself, the kernels each dtype launches by profiler name (bf16: dQ, dK/dV
+and, with Hq > Hkv, the partials' sum, on tensor cores), timed by kernel
+at S 500 and at the train step's call beside SDPA's forward and backward
+and its backward alone; full-width,
 full-depth ``qwen2-0.5b`` (f32 masters, ``cast_bf16``, ``TokenPipeline``
 batches from the seed) 3 steps at B 4, S 1024 through the kernels held
 to the same 3 steps with attention through its plain version under
@@ -4749,18 +4752,18 @@ def check_ssd_scan(n_state=128, timed=(ssd_check.CASES[0][0],)):
                     return ssd_scan_ref(*(a.float() for a in args),
                                         chunk=chunk)
                 b_ms, b_by, f32_ms = attn_bound(n_bytes, n_ops, dt)
+                # from the first trace that holds the kernel: one trace in
+                # a whole run held none (hybrid, N 64); raises after
+                # TRACE_TRIES empty traces
                 with torch.inference_mode():
                     row.update(ms=event_ms(kern, reps=20),
-                               device_ms=device_ms(
+                               device_ms=traced(lambda: device_ms(
                                    kern, ssd_check.KERNEL_NAMES, reps=20),
+                                   label),
                                plain_ms=event_ms(plain, reps=5),
                                library_ms=None, bound_ms=b_ms, bound_by=b_by,
                                bound_f32_core_ms=f32_ms, flops=n_ops,
                                bytes=n_bytes)
-                if row["device_ms"] is None:
-                    raise AssertionError(f"{label}: the profiler recorded "
-                                         "no device time of "
-                                         f"{ssd_check.KERNEL_NAMES}")
                 log(f"{label}: max |d| {err!r}; kernel {row['ms']:.4f} "
                     f"ms/call (device, cold L2 {row['device_ms']}), plain "
                     f"{row['plain_ms']:.4f} ms, no one PyTorch call, bound "
@@ -5070,12 +5073,48 @@ def sdpa_backward_device_ms(fn, reps: int = 10):
     return None
 
 
+def sdpa_backward_alone(qt, kt, vt, dt, causal: bool) -> dict:
+    """SDPA's backward alone (``enable_gqa``), over one kept forward
+    graph (``torch.autograd.grad(..., retain_graph=True)``): its events
+    ms, and the device ms of every kernel, copy and set it runs, summed
+    from the raw trace of 10 calls with the L2 overwritten before each by
+    an int32 ``bitwise_not_`` (left out of the sum); None if the trace
+    held nothing else (a launch the trace dropped reads short).  Every
+    dtype: SDPA's f32 path has no backward op of its own to read."""
+    from torch.profiler import ProfilerActivity, profile
+    with torch.enable_grad():
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                             enable_gqa=True)
+
+    def bwd():
+        return torch.autograd.grad(out, (qt, kt, vt), dt, retain_graph=True)
+    reps = 10
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32,
+                        device=DEVICE)
+    bwd()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.bitwise_not_()
+            bwd()
+        torch.cuda.synchronize()
+    per_name, _, _ = trace_sums(prof)
+    total = sum(us for name, us in per_name.items()
+                if "bitwise_not" not in name)
+    return dict(ms=event_ms(bwd, reps=10, warmup=2),
+                device_ms=total / reps / 1e3 if total else None)
+
+
 def time_bwd(q, k, v, o, dout, causal: bool, kv_valid: int = 0) -> dict:
-    """The backward kernel at one shape: events and device ms, the plain
-    backward, SDPA forward + backward under ``torch.autograd.grad``
-    (``enable_gqa``; its backward's device ms alone) and the bound."""
+    """The backward kernel at one shape: events and device ms (by
+    kernel: dQ, dK/dV and, with Hq > Hkv in bf16, the partials' sum), the
+    plain backward, SDPA forward + backward under ``torch.autograd.grad``
+    (``enable_gqa``; its backward op's device ms) and its backward alone
+    (``sdpa_backward_alone``), and the bound."""
     n_bytes, n_ops = bwd_bound(q, k, causal, kv_valid)
     b_ms, b_by, f32_ms = attn_bound(n_bytes, n_ops, q.dtype)
+    names = flash_check.bwd_kernel_names(q.dtype, q.shape[2] // k.shape[2])
 
     def kern():
         return flash_attention_bwd(q, k, v, o, dout, causal=causal,
@@ -5096,10 +5135,13 @@ def time_bwd(q, k, v, o, dout, causal: bool, kv_valid: int = 0) -> dict:
             return torch.autograd.grad(out, (qt, kt, vt), dt)
     lib = None if kv_valid or (causal and q.shape[1] != k.shape[1]) \
         else sdpa
-    # both kernels from one trace, or None (a trace late in the process
-    # can drop one of them: a sum of the other alone would read short)
-    by_kernel = device_ms_by_kernel(kern, flash_check.BWD_KERNEL_NAMES,
-                                    reps=10)
+    # the call's kernels from one trace, or None (a trace can drop one of
+    # them: a sum of the others would read short); three traces at most
+    for _ in range(3):
+        by_kernel = device_ms_by_kernel(kern, names, reps=10)
+        if None not in by_kernel.values():
+            break
+        time.sleep(TRACE_PAUSE_S)
     return dict(ms=event_ms(kern, reps=10, warmup=2),
                 device_ms=None if None in by_kernel.values()
                 else sum(by_kernel.values()),
@@ -5109,17 +5151,35 @@ def time_bwd(q, k, v, o, dout, causal: bool, kv_valid: int = 0) -> dict:
                 if lib else None,
                 library_backward_device_ms=sdpa_backward_device_ms(lib)
                 if lib else None,
+                library_backward_alone=sdpa_backward_alone(
+                    qt, kt, vt, dt, causal) if lib else None,
                 bound_ms=b_ms, bound_by=b_by, bound_f32_core_ms=f32_ms,
                 flops=n_ops, bytes=n_bytes)
 
 
 def check_flash_attention_bwd() -> dict:
     """The backward kernel against its plain version on the card over
-    ``flash_check.BWD_CASES`` (both dtypes; head dims 64, 112, 128), the
-    planted faults on the qwen2-0.5b S 500 case in both dtypes, then
-    timed at the S 500 case and at the train step's call (B 1, S 4096,
-    Hq 14, Hkv 2, D 64, causal, bf16).  -> {"cases": {...}, "main":
-    record, "s500": {dtype: record}}."""
+    ``flash_check.BWD_CASES`` (both dtypes; head dims 64, 112, 128; two
+    bf16 calls give the same bits), the planted faults on the qwen2-0.5b
+    S 500 case in both dtypes, the kernels each dtype and group launches
+    (by profiler name), then timed at the S 500 case and at the train
+    step's call (B 1, S 4096, Hq 14, Hkv 2, D 64, causal, bf16).  ->
+    {"cases": {...}, "main": record, "s500": {dtype: record}}."""
+    # bf16 with a group of 7 (three kernels) and of 1 (two), and f32
+    for case in flash_check.BWD_CASES:
+        if case[0] != "S500 causal" and (
+                case[0] != "D64 MHA12 Sq500 Skv1500 non-causal"
+                or case[1] != torch.bfloat16):
+            continue
+        hq, hkv, _ = case[6]
+        label = f"flash_attention_bwd {flash_check.case_id(case)}"
+        got = traced_kernels(lambda: flash_check.bwd_kernels_launched(
+            case, DEVICE, seconds=TRACE_SECONDS), label)
+        want = set(flash_check.bwd_kernel_names(case[1], hq // hkv))
+        if got != want:
+            raise AssertionError(f"{label}: the trace holds {sorted(got)},"
+                                 f" expected {sorted(want)}")
+        log(f"{label}: launches {sorted(got)} only")
     cases = {}
     for i, case in enumerate(flash_check.BWD_CASES):
         err, rel = flash_check.check_bwd_case(case, DEVICE, SEED + 50 + i)
@@ -5390,9 +5450,12 @@ def run_train(kernels: list) -> None:
         replaces="src/repro/kernels/flash_attention/kernel.py:98",
         replaces_note="no Pallas backward: the reference differentiates "
                       "this forward; the port's gradient of it",
-        design="two kernels, no atomics: dQ a (query tile, head, row) "
-               "block; dK and dV a (key tile, KV head, row) block summing "
-               "the group; f32 FMAs on CUDA cores out of shared memory",
+        design="bf16: three kernels on tensor cores (wgmma fed by TMA), "
+               "no atomics: dQ a (query tile, head, row) block; dK and dV "
+               "a (key tile, query head, row) block writing f32 partials, "
+               "summed over the group in head order by a third kernel; P "
+               "and dS as bf16 hi + lo; f32: two kernels of f32 FMAs on "
+               "CUDA cores (PR 31's)",
         launches=kern["launches"]["flash_attention_bwd"],
         max_abs_err=max(c["max_abs_err"] for c in bwd["cases"].values()),
         max_rel_err=max(c["max_rel_err"] for c in bwd["cases"].values()),

@@ -40,6 +40,7 @@ from repro_torch.kernels.flash_attention.ops import (
     flash_attention_ref)
 
 ATTN_F32_ATOL = 1e-5
+LOG2E = 1.4426950408889634
 B = 4
 # qwen2-0.5b's heads: 14 query heads over 2 KV heads of 64
 HQ, HKV, D = 14, 2, 64
@@ -190,25 +191,33 @@ def check_case(case, device, seed: int) -> float:
                        f"flash_attention {case_id(case)}")
 
 
-def kernels_launched(case, device, seconds: float = 0.05) -> set:
-    """The entries of ``KERNEL_NAMES`` whose names the profiler's trace
-    of ``seconds`` of calls on one of ``CASES`` holds as device kernels,
-    after one untraced call (a trace late in a long process can miss the
-    launches of its first milliseconds)."""
+def _traced_names(call, names, seconds: float) -> set:
+    """The entries of ``names`` that the profiler's trace of ``seconds``
+    of ``call()`` holds as device kernels, after one untraced call (a
+    trace late in a long process can miss the launches of its first
+    milliseconds)."""
     from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            call()
+        torch.cuda.synchronize()
+    return {name for ev in prof.key_averages() for name in names
+            if name in ev.key}
+
+
+def kernels_launched(case, device, seconds: float = 0.05) -> set:
+    """The entries of ``KERNEL_NAMES`` a trace of ``seconds`` of calls on
+    one of ``CASES`` holds (``_traced_names``)."""
     _, _, _, _, causal, kv_valid, _ = case
     q, k, v = case_operands(case, device, 0)
     with torch.inference_mode():
-        flash_attention(q, k, v, causal=causal, kv_valid=kv_valid)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            while time.perf_counter() - t0 < seconds:
-                flash_attention(q, k, v, causal=causal, kv_valid=kv_valid)
-            torch.cuda.synchronize()
-    return {name for ev in prof.key_averages() for name in KERNEL_NAMES
-            if name in ev.key}
+        return _traced_names(lambda: flash_attention(
+            q, k, v, causal=causal, kv_valid=kv_valid), KERNEL_NAMES,
+            seconds)
 
 
 def check_refusals(device) -> None:
@@ -258,11 +267,34 @@ _BWD_SHAPES = (
 BWD_CASES = tuple((name, dt, Sq, Skv, causal, kv_valid, heads)
                   for name, Sq, Skv, causal, kv_valid, heads in _BWD_SHAPES
                   for dt in (torch.bfloat16, torch.float32))
-BWD_KERNEL_NAMES = ("flash_attention_bwd_dq_kernel",
+# every CUDA kernel the backward may launch: bf16 on tensor cores (dQ,
+# dK/dV per query head, and the sum of a KV head's per-head partials
+# when Hq > Hkv), f32 on CUDA cores (profiler names contain these)
+BWD_KERNEL_NAMES = ("flash_attention_bwd_dq_wgmma_kernel",
+                    "flash_attention_bwd_dkdv_wgmma_kernel",
+                    "flash_attention_bwd_sum_kernel",
+                    "flash_attention_bwd_dq_kernel",
                     "flash_attention_bwd_dkdv_kernel")
 # planted faults of flash_attention_bwd_model; each must fail grads_agree
 BWD_FAULTS = ("Di dropped", "causal mask one off",
               "dK without the sum over the group")
+
+
+def bwd_kernel_names(dtype: torch.dtype, group: int) -> tuple:
+    """The entries of ``BWD_KERNEL_NAMES`` one call launches in
+    ``dtype`` with ``group`` = Hq / Hkv query heads a KV head."""
+    if dtype == torch.bfloat16:
+        return BWD_KERNEL_NAMES[:3] if group > 1 else BWD_KERNEL_NAMES[:2]
+    return BWD_KERNEL_NAMES[3:]
+
+
+def bwd_kernels_launched(case, device, seconds: float = 0.05) -> set:
+    """The entries of ``BWD_KERNEL_NAMES`` a trace of ``seconds`` of
+    backward calls on one of ``BWD_CASES`` holds (``_traced_names``)."""
+    _, _, _, _, causal, kv_valid, _ = case
+    args = bwd_case_operands(case, device, 0)
+    return _traced_names(lambda: flash_attention_bwd(
+        *args, causal=causal, kv_valid=kv_valid), BWD_KERNEL_NAMES, seconds)
 
 
 def bwd_case_operands(case, device, seed: int) -> list:
@@ -312,12 +344,13 @@ def flash_attention_bwd_model(q, k, v, o, dout, causal: bool = True,
                               sm_scale: Optional[float] = None,
                               kv_valid: int = 0,
                               fault: Optional[str] = None):
-    """The backward kernel's algorithm in plain PyTorch, f32: each row's
-    log-sum-exp over its visible keys, Di = rowsum(dO * O), P = exp(S -
-    lse), dS = P (dP - Di), dQ = scale dS K, and per KV head dV = P^T dO
-    and dK = scale dS^T Q summed over its group of query heads.
-    ``fault``: one of ``BWD_FAULTS``, planted.  -> (dq, dk, dv) in q's
-    dtype."""
+    """The backward kernels' algorithm in plain PyTorch, f32: each row's
+    log-sum-exp in log2 units over its visible keys, Di = rowsum(dO * O),
+    P = 2^(S sm_scale log2(e) - lse2), dS = P (dP - Di), dQ = scale dS K;
+    per query head the partials P^T dO and dS^T Q, and per KV head dV and
+    dK = scale times their sums over the group, in head order.  ``fault``:
+    one of ``BWD_FAULTS``, planted ("dK without the sum over the group"
+    keeps the group's first partial).  -> (dq, dk, dv) in q's dtype."""
     Bq, Sq, Hq, Dh = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -334,45 +367,53 @@ def flash_attention_bwd_model(q, k, v, o, dout, causal: bool = True,
         reach = 1 if fault == "causal mask one off" else 0
         vis = vis & (kpos[None, :] <= qpos[:, None] + reach)
     vis = vis[None, None]                            # (1, 1, Sq, Skv)
-    s = torch.einsum("bqhd,bkhd->bhqk", qf, kr) * scale
-    lse = torch.logsumexp(torch.where(vis, s, NEG_INF), dim=-1,
-                          keepdim=True)
+    s2 = torch.einsum("bqhd,bkhd->bhqk", qf, kr) * (scale * LOG2E)
+    lse2 = torch.logsumexp(torch.where(vis, s2, NEG_INF) / LOG2E, dim=-1,
+                           keepdim=True) * LOG2E
     seen = vis.any(dim=-1, keepdim=True)
-    p = torch.where(vis & seen, torch.exp(s - lse), 0.0)
+    p = torch.where(vis & seen, torch.exp2(s2 - lse2), 0.0)
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vr)
     di = (dof * of).sum(-1).transpose(1, 2)[..., None]   # (B, Hq, Sq, 1)
     if fault == "Di dropped":
         di = torch.zeros_like(di)
     ds = p * (dp - di)
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kr) * scale
-    dk_h = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
-    dv_h = torch.einsum("bhqk,bqhd->bkhd", p, dof)
-    dk_h = dk_h.reshape(Bq, Skv, Hkv, G, Dh)
-    dv_h = dv_h.reshape(Bq, Skv, Hkv, G, Dh)
-    if fault == "dK without the sum over the group":
-        dk = dk_h[:, :, :, 0]
-    else:
-        dk = dk_h.sum(3)
-    dv = dv_h.sum(3)
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    dk_h = torch.einsum("bhqk,bqhd->bkhd", ds, qf).reshape(Bq, Skv, Hkv, G,
+                                                           Dh)
+    dv_h = torch.einsum("bhqk,bqhd->bkhd", p, dof).reshape(Bq, Skv, Hkv, G,
+                                                           Dh)
+    dk, dv = dk_h[:, :, :, 0], dv_h[:, :, :, 0]
+    for g in range(1, G):
+        if fault != "dK without the sum over the group":
+            dk = dk + dk_h[:, :, :, g]
+        dv = dv + dv_h[:, :, :, g]
+    return dq.to(q.dtype), (dk * scale).to(k.dtype), dv.to(v.dtype)
 
 
 def check_bwd(q, k, v, o, dout, causal: bool, kv_valid: int, label: str
               ) -> Tuple[float, float]:
-    """One ``flash_attention_bwd`` call (two kernels, one counted launch)
-    on CUDA tensors against ``flash_attention_bwd_ref`` on the same
-    inputs (``grads_agree``); rows that see no key must have zero dq.
-    -> (max |d|, max |d| / max |plain|), the worst of dq, dk, dv."""
+    """One ``flash_attention_bwd`` call (two or three kernels, one
+    counted launch) on CUDA tensors against ``flash_attention_bwd_ref`` on
+    the same inputs (``grads_agree``); rows that see no key must have zero
+    dq; in bf16 a second call must give the same bits (no atomics).  ->
+    (max |d|, max |d| / max |plain|), the worst of dq, dk, dv."""
     before = flash_attention_bwd.launches
     got = flash_attention_bwd(q, k, v, o, dout, causal=causal,
                               kv_valid=kv_valid)
+    if q.dtype == torch.bfloat16:
+        again = flash_attention_bwd(q, k, v, o, dout, causal=causal,
+                                    kv_valid=kv_valid)
+        for name, a, b in zip(("dq", "dk", "dv"), got, again):
+            if not torch.equal(a.view(torch.int16), b.view(torch.int16)):
+                raise AssertionError(f"{label} {name}: two calls differ")
     want = flash_attention_bwd_ref(q, k, v, o, dout, causal=causal,
                                    kv_valid=kv_valid)
     torch.cuda.synchronize()
-    if flash_attention_bwd.launches != before + 1:
+    calls = 2 if q.dtype == torch.bfloat16 else 1
+    if flash_attention_bwd.launches != before + calls:
         raise AssertionError(f"{label}: "
                              f"{flash_attention_bwd.launches - before} "
-                             "launches")
+                             f"launches (want {calls})")
     err = grads_agree(got, want, label)
     Sq, Skv = q.shape[1], k.shape[1]
     if causal and Sq > Skv and got[0][:, :Sq - Skv].any():

@@ -24,7 +24,8 @@ averages V over the masked keys.  Rows that see a key are unaffected.
 Training: when grad mode is on and q, k or v requires grad, a CUDA call
 goes through ``FlashAttentionFn``, whose forward launches the same
 forward kernel and whose backward launches ``flash_attention_bwd``
-(``csrc/flash_attention_bwd.cu``: dQ, dK and dV, each sum in f32); every
+(``csrc/flash_attention_bwd.cu``: dQ, dK and dV, each sum in f32; bf16
+on tensor cores, f32 on CUDA cores); every
 other call (serving) launches the forward kernel as before.  On a CPU
 tensor ``flash_attention_ref`` runs under autograd, and its own graph is
 the gradient: the reference differentiates ``_chunked_jnp`` off the TPU,
@@ -57,11 +58,14 @@ DTYPES = (torch.float32, torch.bfloat16)
 #                        causal, sm_scale, bf16, stream)
 LAUNCH_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 8
                    + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
-# flash_attention_bwd_launch(q, k, v, o, dout, dq, dk, dv, lse, di, B, Sq,
-#                            Skv, Hq, Hkv, D, kv_valid, causal, sm_scale,
-#                            bf16, stream)
-BWD_LAUNCH_ARGTYPES = ((ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 8
+# flash_attention_bwd_launch(q, k, v, o, dout, dq, dk, dv, lse, di,
+#                            dk_part, dv_part, B, Sq, Skv, Hq, Hkv, D,
+#                            kv_valid, causal, sm_scale, bf16, stream)
+BWD_LAUNCH_ARGTYPES = ((ctypes.c_void_p,) * 12 + (ctypes.c_int,) * 8
                        + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
+# the backward's row statistics (lse, Di) are kept Sq rounded up to this
+# apart, so the bf16 kernels copy a tile's 64 rows whole
+BWD_ROWS = 64
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -164,8 +168,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The gradient of ``flash_attention(q, k, v, causal, sm_scale,
     kv_valid)``, whose output was ``o``, against ``dout`` (both (B, Sq,
     Hq, D)) -> (dq, dk, dv) in q's dtype.  On a CUDA tensor it launches
-    ``csrc/flash_attention_bwd.cu`` (two kernels a call, one launch
-    counted); on a CPU tensor it runs ``flash_attention_bwd_ref``."""
+    ``csrc/flash_attention_bwd.cu`` (two or three kernels a call, one
+    launch counted; bf16 with Hq > Hkv writes per-head f32 partials of dk
+    and dv into scratch allocated here, which a third kernel sums); on a
+    CPU tensor it runs ``flash_attention_bwd_ref``."""
     B, Sq, Hq, D = q.shape
     if k.ndim != 4 or k.shape != v.shape or k.shape[0] != B \
             or k.shape[3] != D or Hq % k.shape[2] \
@@ -184,14 +190,21 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if not B or not Hq or not D:
         return dq, dk, dv
-    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    rows = -(-Sq // BWD_ROWS) * BWD_ROWS
+    lse = torch.empty((B, Hq, rows), dtype=torch.float32, device=q.device)
     di = torch.empty_like(lse)
+    bf16 = q.dtype == torch.bfloat16
+    parts = [None, None]
+    if bf16 and Hq > Hkv:
+        parts = [torch.empty((B, Skv, Hq, D), dtype=torch.float32,
+                             device=q.device) for _ in range(2)]
     lib, fn = _bwd_launcher()
     with device_guard(q):
         err = fn(ptr(q), ptr(k), ptr(v), ptr(o), ptr(dout), ptr(dq),
-                 ptr(dk), ptr(dv), ptr(lse), ptr(di), B, Sq, Skv, Hq, Hkv,
-                 D, int(kv_valid), int(bool(causal)), float(sm_scale),
-                 int(q.dtype == torch.bfloat16), stream_of(q))
+                 ptr(dk), ptr(dv), ptr(lse), ptr(di),
+                 *(None if t is None else ptr(t) for t in parts), B, Sq,
+                 Skv, Hq, Hkv, D, int(kv_valid), int(bool(causal)),
+                 float(sm_scale), int(bf16), stream_of(q))
     check_launch(err, lib, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
     return dq, dk, dv

@@ -169,6 +169,24 @@ def test_flash_attention_bwd_kernel_matches_plain_version(dev, case):
     flash_check.check_bwd_case(case, dev, seed=0)
 
 
+# bf16 at a group of 7 (three kernels) and of 1 (two), f32 (two)
+BWD_KERNEL_CASES = [c for c in flash_check.BWD_CASES
+                    if c[0] == "S500 causal"
+                    or (c[0] == "D64 MHA12 Sq500 Skv1500 non-causal"
+                        and c[1] == torch.bfloat16)]
+
+
+@pytest.mark.parametrize("case", BWD_KERNEL_CASES,
+                         ids=[flash_check.case_id(c)
+                              for c in BWD_KERNEL_CASES])
+def test_flash_attention_bwd_launches_the_kernels_of_its_dtype(dev, case):
+    # bf16 runs the tensor-core kernels (the partials' sum only for a
+    # group), f32 the CUDA-core ones, never the other dtype's
+    hq, hkv, _ = case[6]
+    got = flash_check.bwd_kernels_launched(case, dev, seconds=0.25)
+    assert got == set(flash_check.bwd_kernel_names(case[1], hq // hkv))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["float32", "bfloat16"])
 def test_flash_attention_differentiates_through_its_kernels(dev, dtype):
