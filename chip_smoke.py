@@ -130,9 +130,26 @@ autograd (losses, first-step gradients leaf by leaf through
 steps at S 4096 with B 4 as ``accum`` 4 (step s, tokens/s, peak GiB,
 96 forward and 96 backward launches a step); one step each of
 ``deepseek-moe-16b``, ``pixtral-12b`` and ``whisper-small`` at full
-width and 2 layers, held the same way; ``mamba2-370m`` and
-``zamba2-7b`` must raise under autograd on the card (no scan backward
-yet, ROADMAP item 12g.1b).  Last the fleet
+width and 2 layers, held the same way; full-width, full-depth
+``mamba2-370m`` 3 steps at B 4, S 1024 through ``ssd_scan`` and its
+backward kernel (``SSDScanFn``), held to the plain route (losses; bf16
+gradients within 0.3 a leaf, where the forwards' rounding alone reads
+0.20; the backward kernel against the plain backward on the kernel
+forward within 0.05; f32 activations within 1e-3; a backward that
+drops dx must fail), and ``zamba2-7b`` at full width cut to 1 group of
+1 SSM layer, the shared block and 1 tail layer, one step at B 2, S 1024
+held the same way (the scan at (64, 64), H 112; flash's backward at D
+112); then ``ssd_scan_bwd`` against its plain backward over
+``ssd_check.CASES`` in both dtypes (within 1e-4 of max |plain|, bf16
+outputs two ulps; a final state's gradient in one case; two bf16 calls
+bit-equal), its planted faults (the carried dS dropped, dB summed over
+one head), its three kernels by profiler name, timed at both train
+calls beside autograd of the plain scan.  Then the LM example
+(``run_train_lm``: ``examples/torch_train_lm.py`` at its 300 steps in
+f32, the loss heading for the bigram floor, 1800 launches of each
+attention kernel's f32 instance) and a supervised run of its model
+crashed once at step 17 and resumed from its step-10 checkpoint,
+against one not crashed (bit for bit or not, logged).  Last the fleet
 (``run_fleet``, after every phase that
 reads the profiler, at the video cell's θ): caldot1 test clips 0-2 at 16
 frames, round-robin over concurrent streams, each stream's tracks held
@@ -273,7 +290,8 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     check as flash_check)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     ops as flash_attention_ops)
-from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan import (  # noqa: E402
+    SSDScanFn, ssd_scan, ssd_scan_bwd, ssd_scan_ref)
 from repro_torch import obs  # noqa: E402
 from repro_torch.obs import REGISTRY, TRACER, interp_quantile  # noqa: E402
 from repro_torch.obs import recorder as obs_recorder  # noqa: E402
@@ -298,8 +316,10 @@ from repro_torch.models import ssm as lm_ssm  # noqa: E402
 from repro_torch.models import transformer as lm_transformer  # noqa: E402
 from repro_torch.models.model import Model, build_model  # noqa: E402
 from repro_torch.data.tokens import TokenPipeline  # noqa: E402
+from repro_torch.distributed import (Checkpointer,  # noqa: E402
+                                     Supervisor, TrainState)
 from repro_torch.configs.shapes import TRAIN_4K  # noqa: E402
-from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.optim import adamw, cosine_schedule  # noqa: E402
 from repro_torch.params import lm_to_params  # noqa: E402
 from repro_torch.train import build_train_step  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
@@ -5035,14 +5055,42 @@ TRAIN_FAMILIES = (
     (dataclasses.replace(get_config("pixtral-12b"), n_layers=2), 2, 1536),
     (dataclasses.replace(get_config("whisper-small"), n_layers=2,
                          n_encoder_layers=2), 2, 448))
-# the SSD families raise on the card under grad (ROADMAP item 12g.1b)
-TRAIN_RAISES = (
-    dataclasses.replace(get_config("mamba2-370m"), n_layers=2),
-    dataclasses.replace(
-        get_config("zamba2-7b"), n_layers=3,
-        hybrid=dataclasses.replace(get_config("zamba2-7b").hybrid,
-                                   n_groups=1, ssm_per_group=1,
-                                   tail_ssm=1)))
+# the SSD families (ROADMAP item 12g.1b), through ssd_scan's forward and
+# backward kernels: mamba2-370m at full width and depth (48 layers, d
+# 1024, vocab 50,280), TRAIN_STEPS steps at (TRAIN_BATCH, TRAIN_SEQ), and
+# zamba2-7b at full width cut to 1 group of 1 SSM layer and the shared
+# block and 1 tail layer (the (64, 64) scan at H 112 and flash's backward
+# at D 112), one step at (batch, sequence); each held to the plain route
+# (the scan through ssd_scan_ref, attention through flash_attention_ref,
+# under autograd) as qwen2-0.5b is
+TRAIN_SSM_CFG = SSM_CFG
+TRAIN_HYBRID = (dataclasses.replace(
+    get_config("zamba2-7b"), n_layers=3,
+    hybrid=dataclasses.replace(get_config("zamba2-7b").hybrid,
+                               n_groups=1, ssm_per_group=1, tail_ssm=1)),
+    2, 1024)
+# mamba2-370m's 48 layers carry bf16 rounding far: the kernel forward
+# with the plain backward (``_scan_bwd_plain``) reads 0.20 of a leaf's
+# gradient from the plain route (the forwards' rounding alone), the
+# kernel backward against the plain backward on the kernel forward 0.022,
+# and f32 activations (no cast) 4.5e-5 for every leaf (NVIDIA H100 80GB
+# HBM3, 700 W).  So its bf16 gradients are held to the plain route
+# within TRAIN_SSM_BF16_GRAD_RTOL, to the kernel forward with the plain
+# backward within TRAIN_GRAD_RTOL, and in f32 to the plain route within
+# TRAIN_SSM_F32_GRAD_RTOL; the planted fault (dx dropped) reads 0.99
+TRAIN_SSM_BF16_GRAD_RTOL = 0.3
+TRAIN_SSM_F32_GRAD_RTOL = 1e-3
+# the scan backward's calls in those steps, checked and timed beside the
+# plain backward (autograd of ssd_scan_ref): (label, b, S, H, P, N, chunk)
+SSD_BWD_CALLS = (("mamba2-370m train call", TRAIN_BATCH, TRAIN_SEQ, 32, 64,
+                  128, 128),
+                 ("zamba2-7b train call", 2, 1024, 112, 64, 64, 128))
+# the example's LM (examples/torch_train_lm.py) at its 300 steps; then a
+# supervised run of its model that crashes once and resumes, against one
+# that does not: SUPERVISED_STEPS steps, a checkpoint every
+# SUPERVISED_EVERY, the crash at step SUPERVISED_CRASH
+TRAIN_LM_STEPS = 300
+SUPERVISED_STEPS, SUPERVISED_EVERY, SUPERVISED_CRASH = 30, 10, 17
 
 
 def bwd_bound(q, k, causal: bool, kv_valid: int):
@@ -5238,6 +5286,17 @@ def attention_plain():
                    lambda _: flash_attention_ref)
 
 
+def scan_plain():
+    """The scan of every SSM layer through the plain version under
+    autograd."""
+    return wrapped(lm_ssm, "ssd_scan", lambda _: ssd_scan_ref)
+
+
+TRAIN_COUNTERS = {"flash_attention": flash_attention,
+                  "flash_attention_bwd": flash_attention_bwd,
+                  "ssd_scan": ssd_scan, "ssd_scan_bwd": ssd_scan_bwd}
+
+
 def _bwd_drops_dk(fn):
     def wrapper(ctx, dout):
         dq, dk, dv, *rest = fn(ctx, dout)
@@ -5246,9 +5305,12 @@ def _bwd_drops_dk(fn):
 
 
 def train_route(cfg, batches: list, plain: bool, fault=None,
-                accum: int = 1, held: Optional[str] = "params") -> dict:
+                accum: int = 1, held: Optional[str] = "params",
+                cast_bf16: bool = True) -> dict:
     """Fresh weights (seed ``SEED``) trained one step a batch through the
-    kernels (or the plain route): the first batch's gradients, with
+    kernels (or the plain route: attention and the scan through their
+    plain versions; ``fault`` an (owner, name, wrap) planted with
+    ``wrapped``): the first batch's gradients, with
     ``held`` "params" as the reference's leaves (``lm_to_params``, on the
     host), with "device" one f32 tensor a parameter left on the card
     (no host copy of a model of billions of weights); each step's
@@ -5259,11 +5321,10 @@ def train_route(cfg, batches: list, plain: bool, fault=None,
     model = build_model(cfg)
     weights = model.init_params(SEED, device=DEVICE)
     opt = adamw(weights.parameters(), lr=TRAIN_LR)
-    ts = build_train_step(model, opt, accum=accum, cast_bf16=True)
-    routes = [attention_plain()] if plain else []
+    ts = build_train_step(model, opt, accum=accum, cast_bf16=cast_bf16)
+    routes = [attention_plain(), scan_plain()] if plain else []
     if fault is not None:
-        routes.append(wrapped(flash_attention_ops.FlashAttentionFn,
-                              "backward", fault))
+        routes.append(wrapped(*fault))
     with contextlib.ExitStack() as stack:
         for r in routes:
             stack.enter_context(r)
@@ -5282,7 +5343,8 @@ def train_route(cfg, batches: list, plain: bool, fault=None,
             for p in ts._params():
                 p.grad = None
         steps = []
-        flash_attention.launches = flash_attention_bwd.launches = 0
+        for counter in TRAIN_COUNTERS.values():
+            counter.launches = 0
         for b in batches:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -5293,8 +5355,7 @@ def train_route(cfg, batches: list, plain: bool, fault=None,
             steps.append(dict(
                 {k: float(v) for k, v in metrics.items()}, seconds=wall,
                 peak_gib=torch.cuda.max_memory_allocated() / 2**30))
-        launches = {"flash_attention": flash_attention.launches,
-                    "flash_attention_bwd": flash_attention_bwd.launches}
+        launches = {k: c.launches for k, c in TRAIN_COUNTERS.items()}
     del weights, opt, ts
     torch.cuda.empty_cache()
     return dict(grads=grads, steps=steps, launches=launches,
@@ -5332,9 +5393,10 @@ def grads_gap(got: dict, want: dict) -> Tuple[float, str]:
     return worst, at
 
 
-def held_to_plain(label: str, kern: dict, plain: dict) -> dict:
+def held_to_plain(label: str, kern: dict, plain: dict,
+                  grad_rtol: float = TRAIN_GRAD_RTOL) -> dict:
     """The kernel route's losses and first gradients against the plain
-    route's; raises outside TRAIN_LOSS_RTOL / TRAIN_GRAD_RTOL."""
+    route's; raises outside TRAIN_LOSS_RTOL / ``grad_rtol``."""
     gap, at = grads_gap(kern["grads"], plain["grads"])
     losses = [(s["loss"], p["loss"]) for s, p in zip(kern["steps"],
                                                      plain["steps"])]
@@ -5343,7 +5405,7 @@ def held_to_plain(label: str, kern: dict, plain: dict) -> dict:
         f"gap {loss_gap!r}; first-step gradients: largest leaf relative L2 "
         f"gap {gap!r} at {at}; routes {kern['seconds']:.1f} s / "
         f"{plain['seconds']:.1f} s wall")
-    if loss_gap > TRAIN_LOSS_RTOL or gap > TRAIN_GRAD_RTOL:
+    if loss_gap > TRAIN_LOSS_RTOL or gap > grad_rtol:
         raise AssertionError(f"train {label}: kernel route off the plain "
                              f"route (loss {loss_gap!r}, gradient {gap!r} "
                              f"at {at})")
@@ -5351,13 +5413,204 @@ def held_to_plain(label: str, kern: dict, plain: dict) -> dict:
                 losses=losses)
 
 
+def time_ssd_bwd(call) -> dict:
+    """The scan's backward kernel at one call (bf16): events and device
+    ms (by kernel), the plain backward (autograd of ``ssd_scan_ref`` on
+    the same bf16 leaves, as the plain train route runs it) and the
+    bound; no one PyTorch call computes it."""
+    label, b, S, H, P, N, chunk = call
+    *fwd, dy, dfin = ssd_check.bwd_operands(call, torch.bfloat16, DEVICE,
+                                            SEED + 95)
+    n_bytes, n_ops = ssd_check.bwd_bound(b, S, H, P, N, 2)
+    b_ms, b_by, f32_ms = attn_bound(n_bytes, n_ops, torch.bfloat16)
+
+    def kern():
+        return ssd_scan_bwd(*fwd, dy, dfin)
+    leaves = [t.detach().requires_grad_(True) for t in fwd]
+    with torch.enable_grad():
+        y, _ = ssd_scan_ref(*leaves, chunk=chunk)
+
+    def plain():
+        return torch.autograd.grad(y, leaves, dy, retain_graph=True)
+
+    # the call's kernels from one trace of 100 calls, or None (a trace
+    # late in the process can drop some or all of them); three at most
+    for _ in range(3):
+        per_kernel = device_ms_by_kernel(kern, ssd_check.BWD_KERNEL_NAMES,
+                                         reps=100)
+        if None not in per_kernel.values():
+            break
+        time.sleep(TRACE_PAUSE_S)
+    if None in per_kernel.values():
+        log(f"WARNING ssd_scan_bwd {label}: three profiler traces of 100 "
+            f"calls held no device time for "
+            f"{[k for k, v in per_kernel.items() if v is None]}; its "
+            "device_ms is null in this run (ms, by CUDA events, stands)")
+    return dict(ms=event_ms(kern, reps=10, warmup=2),
+                device_ms=None if None in per_kernel.values()
+                else sum(per_kernel.values()),
+                device_ms_by_kernel=per_kernel,
+                plain_ms=event_ms(plain, reps=3, warmup=1),
+                bound_ms=b_ms, bound_by=b_by, bound_f32_core_ms=f32_ms,
+                flops=n_ops, bytes=n_bytes)
+
+
+def check_ssd_scan_bwd() -> dict:
+    """The scan's backward kernel against its plain version on the card
+    over ``ssd_check.CASES`` in both dtypes (a final state's gradient in
+    ``BWD_FINAL_CASE``; two bf16 calls give the same bits), the planted
+    faults (the carried dS dropped, dB summed over one head) in both
+    dtypes, the three kernels a call launches by profiler name, and each
+    of ``SSD_BWD_CALLS`` checked and timed (``time_ssd_bwd``).  ->
+    {"cases", "plants", "calls"}."""
+    cases, plants, calls = {}, {}, {}
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[-1]
+        for i, case in enumerate(ssd_check.CASES):
+            r = ssd_check.check_bwd_case(case, dt, DEVICE, SEED + 60 + i)
+            cases[f"{case[0]} {name}"] = r
+            log(f"ssd_scan_bwd {case[0]} {name}: max |d| "
+                f"{r['max_abs_err']!r}, shares of the f32 bound "
+                f"{json.dumps(r['shares'])} (within tolerance)")
+        plants[name] = ssd_check.check_bwd_plants(ssd_check.CASES[0], dt,
+                                                  DEVICE, SEED)
+        log(f"ssd_scan_bwd planted faults {ssd_check.CASES[0][0]} {name} "
+            f"(max |d| / max |plain| of each output outside the "
+            f"tolerance): {json.dumps(plants[name])}")
+    for call in SSD_BWD_CALLS:
+        args = ssd_check.bwd_operands(call, torch.bfloat16, DEVICE, SEED + 95)
+        err, shares, _ = ssd_check.check_bwd(args, f"ssd_scan_bwd {call[0]}")
+        got = traced_kernels(lambda: ssd_check.bwd_kernels_launched(
+            args, seconds=TRACE_SECONDS), f"ssd_scan_bwd {call[0]}")
+        if got != set(ssd_check.BWD_KERNEL_NAMES):
+            raise AssertionError(f"ssd_scan_bwd {call[0]}: the trace holds "
+                                 f"{sorted(got)}")
+        del args
+        calls[call[0]] = dict(time_ssd_bwd(call), max_abs_err=err,
+                              shares=shares)
+        log(f"ssd_scan_bwd {call[0]} (B {call[1]}, S {call[2]}, H "
+            f"{call[3]}, N {call[5]}, bf16): launches {sorted(got)}; "
+            f"{json.dumps(calls[call[0]])}")
+    return {"cases": cases, "plants": plants, "calls": calls}
+
+
+def _scan_bwd_drops_dx(fn):
+    def wrapper(ctx, dy, d_final):
+        dx, *rest = fn(ctx, dy, d_final)
+        return (torch.zeros_like(dx), *rest)
+    return wrapper
+
+
+def _scan_bwd_plain(fn):
+    """``SSDScanFn.backward`` through the plain backward on the card (the
+    forward stays the kernel's): isolates the backward kernel."""
+    def wrapper(ctx, dy, d_final):
+        x, dt, A, B, C, D = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy
+        dx, ddt, dA, dB, dC, dD = ssd_check.ssd_scan_bwd_ref(
+            x, dt, A, B, C, D, dy, d_final, ctx.chunk)
+        return dx, ddt, dA, dB, dC, dD, None
+    return wrapper
+
+
+def train_ssd() -> dict:
+    """The SSD families on the card: ``TRAIN_SSM_CFG`` (mamba2-370m at
+    full width and depth) ``TRAIN_STEPS`` steps at B ``TRAIN_BATCH``, S
+    ``TRAIN_SEQ`` and ``TRAIN_HYBRID`` (cut zamba2-7b) one step, each
+    through both scan kernels and held to the plain route; a backward
+    that drops dx must break mamba2-370m's gradient check.  -> {config
+    name: held, launches, steps}."""
+    out = {}
+    cfg = TRAIN_SSM_CFG
+    pipe = TokenPipeline(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=SEED)
+    batches = [pipe.batch_at(i) for i in range(TRAIN_STEPS)]
+    plain = train_route(cfg, batches, plain=True)
+    kern = train_route(cfg, batches, plain=False)
+    label = f"{cfg.name} B {TRAIN_BATCH} S {TRAIN_SEQ}"
+    held = held_to_plain(label, kern, plain, TRAIN_SSM_BF16_GRAD_RTOL)
+    # the kernel forward with the plain backward: the backward kernel
+    # alone against the plain backward, and the forwards' rounding alone
+    kfpb = train_route(cfg, batches[:1], plain=False,
+                       fault=(SSDScanFn, "backward", _scan_bwd_plain))
+    bwd_gap, bwd_at = grads_gap(kern["grads"], kfpb["grads"])
+    fwd_gap, fwd_at = grads_gap(kfpb["grads"], plain["grads"])
+    del kfpb
+    f32cfg = dataclasses.replace(cfg, dtype="float32")
+    f32 = [train_route(f32cfg, batches[:1], plain=p, cast_bf16=False)
+           for p in (True, False)]
+    f32_gap, f32_at = grads_gap(f32[1]["grads"], f32[0]["grads"])
+    del f32
+    log(f"train {label}: the backward kernel against the plain backward on "
+        f"the kernel forward, leaf relative L2 gap {bwd_gap!r} at {bwd_at} "
+        f"(limit {TRAIN_GRAD_RTOL}); the kernel forward with the plain "
+        f"backward against the plain route {fwd_gap!r} at {fwd_at} (the "
+        f"forwards' bf16 rounding alone); f32 activations, kernel against "
+        f"plain route {f32_gap!r} at {f32_at} (limit "
+        f"{TRAIN_SSM_F32_GRAD_RTOL})")
+    if bwd_gap > TRAIN_GRAD_RTOL or f32_gap > TRAIN_SSM_F32_GRAD_RTOL:
+        raise AssertionError(f"train {label}: backward kernel off the plain "
+                             f"backward ({bwd_gap!r} at {bwd_at}) or f32 "
+                             f"route off ({f32_gap!r} at {f32_at})")
+    held.update(bwd_gap=bwd_gap, fwd_rounding_gap=fwd_gap, f32_gap=f32_gap)
+    n = TRAIN_STEPS * cfg.n_layers
+    want = {"flash_attention": 0, "flash_attention_bwd": 0, "ssd_scan": n,
+            "ssd_scan_bwd": n}
+    if kern["launches"] != want or any(plain["launches"].values()):
+        raise AssertionError(f"train {label} launches: kernel route "
+                             f"{kern['launches']} (want {want}), plain "
+                             f"route {plain['launches']}")
+    faulty = train_route(cfg, batches[:1], plain=False,
+                         fault=(SSDScanFn, "backward", _scan_bwd_drops_dx))
+    fault_gap, fault_at = grads_gap(faulty["grads"], plain["grads"])
+    log(f"train {label} planted fault (the scan backward's dx dropped): "
+        f"leaf relative L2 gap {fault_gap!r} at {fault_at}")
+    if fault_gap <= TRAIN_SSM_BF16_GRAD_RTOL:
+        raise AssertionError(f"train {label}: the gradient check misses a "
+                             "scan backward that drops dx")
+    del faulty, plain
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    steps = [dict(s, tokens_per_s=tokens / s["seconds"])
+             for s in kern["steps"]]
+    for i, s in enumerate(steps):
+        log(f"train {label} step {i}: {s['seconds']:.3f} s, "
+            f"{s['tokens_per_s']:.0f} tokens/s, peak {s['peak_gib']:.2f} "
+            f"GiB, loss {s['loss']:.4f}; launches of the {TRAIN_STEPS} "
+            f"steps {kern['launches']}")
+    out[cfg.name] = dict(held=held, launches=kern["launches"], steps=steps,
+                         fault_gap=fault_gap, fault_at=fault_at)
+    del kern
+    hcfg, hb, hs = TRAIN_HYBRID
+    hbatch = [train_batch(hcfg, hb, hs, 0)]
+    h_plain = train_route(hcfg, hbatch, plain=True, held="device")
+    h_kern = train_route(hcfg, hbatch, plain=False, held="device")
+    label = (f"{hcfg.name} ({hcfg.hybrid.n_groups} group of "
+             f"{hcfg.hybrid.ssm_per_group} SSM layer, "
+             f"{hcfg.hybrid.tail_ssm} tail layer) B {hb} S {hs}")
+    held = held_to_plain(label, h_kern, h_plain)
+    if not all(h_kern["launches"].values()) or any(
+            h_plain["launches"].values()):
+        raise AssertionError(f"train {label} launches: kernel route "
+                             f"{h_kern['launches']}, plain route "
+                             f"{h_plain['launches']}")
+    s = dict(h_kern["steps"][0], tokens_per_s=hb * hs
+             / h_kern["steps"][0]["seconds"])
+    log(f"train {label}: {s['seconds']:.3f} s, {s['tokens_per_s']:.0f} "
+        f"tokens/s, peak {s['peak_gib']:.2f} GiB, loss {s['loss']:.4f}; "
+        f"launches {h_kern['launches']}")
+    out[hcfg.name] = dict(held=held, launches=h_kern["launches"],
+                          steps=[s])
+    return out
+
+
 def run_train(kernels: list) -> None:
-    """The LM train step on the card: the backward kernel against its
-    plain version (``check_flash_attention_bwd``), qwen2-0.5b at full
-    width and depth, the other attention families at full width and 2
-    layers, and the SSD families' refusal.  Adds the
-    ``flash_attention_bwd`` record to ``kernels`` and ``launches_train``
-    to the forward's."""
+    """The LM train step on the card: the attention backward kernel
+    against its plain version (``check_flash_attention_bwd``),
+    qwen2-0.5b at full width and depth, the other attention families at
+    full width and 2 layers, the SSD families (``train_ssd``) and the
+    scan's backward kernel against its plain version
+    (``check_ssd_scan_bwd``).  Adds the ``flash_attention_bwd`` and
+    ``ssd_scan_bwd`` records to ``kernels`` and ``launches_train`` to
+    the forwards'."""
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     bwd = check_flash_attention_bwd()
@@ -5372,13 +5625,14 @@ def run_train(kernels: list) -> None:
                          plain)
     n_layers = cfg.n_layers
     want = {"flash_attention": TRAIN_STEPS * n_layers,
-            "flash_attention_bwd": TRAIN_STEPS * n_layers}
-    if kern["launches"] != want or plain["launches"] != {
-            "flash_attention": 0, "flash_attention_bwd": 0}:
+            "flash_attention_bwd": TRAIN_STEPS * n_layers,
+            "ssd_scan": 0, "ssd_scan_bwd": 0}
+    if kern["launches"] != want or any(plain["launches"].values()):
         raise AssertionError(f"train launches: kernel route "
                              f"{kern['launches']} (want {want}), plain "
                              f"route {plain['launches']}")
-    faulty = train_route(cfg, batches[:1], plain=False, fault=_bwd_drops_dk)
+    faulty = train_route(cfg, batches[:1], plain=False, fault=(
+        flash_attention_ops.FlashAttentionFn, "backward", _bwd_drops_dk))
     fault_gap, fault_at = grads_gap(faulty["grads"], plain["grads"])
     log(f"train planted fault (the backward's dK dropped): leaf relative "
         f"L2 gap {fault_gap!r} at {fault_at}")
@@ -5392,7 +5646,8 @@ def run_train(kernels: list) -> None:
     long = train_route(cfg, [long_pipe.batch_at(i)
                              for i in range(TRAIN_STEPS)],
                        plain=False, accum=TRAIN_LONG_ACCUM, held=None)
-    per_step = {k: n // TRAIN_STEPS for k, n in long["launches"].items()}
+    per_step = {k: n // TRAIN_STEPS for k, n in long["launches"].items()
+                if k.startswith("flash")}
     if per_step != {k: n_layers * TRAIN_LONG_ACCUM for k in per_step}:
         raise AssertionError(f"train S {TRAIN_LONG_SEQ}: launches a step "
                              f"{per_step}")
@@ -5422,22 +5677,7 @@ def run_train(kernels: list) -> None:
         if not f_kern["launches"]["flash_attention_bwd"]:
             raise AssertionError(f"train {label}: no backward launch")
         del f_plain, f_kern
-    for rcfg in TRAIN_RAISES:
-        torch.cuda.empty_cache()
-        model = build_model(rcfg)
-        weights = model.init_params(SEED, device=DEVICE)
-        ts = build_train_step(model, adamw(weights.parameters()),
-                              cast_bf16=True)
-        try:
-            ts(weights, train_batch(rcfg, 1, 256, 0))
-        except NotImplementedError as e:
-            if "12g.1b" not in str(e):
-                raise
-            log(f"train {rcfg.name}: raises on the card under grad: {e}")
-        else:
-            raise AssertionError(f"train {rcfg.name}: trained on the card "
-                                 "without an ssd_scan backward")
-        del model, weights, ts
+    ssd = train_ssd()
     torch.cuda.empty_cache()
 
     main = bwd["main"]
@@ -5472,6 +5712,140 @@ def run_train(kernels: list) -> None:
             steps_s1024=kern["steps"],
             steps_s4096=long_steps, launches_s4096_per_step=per_step,
             families=families)))
+    scan_bwd = check_ssd_scan_bwd()
+    main = scan_bwd["calls"][SSD_BWD_CALLS[0][0]]
+    by_name["ssd_scan"]["launches_train"] = {
+        name: cell["launches"]["ssd_scan"] for name, cell in ssd.items()}
+    kernels.append(dict(
+        name="ssd_scan_bwd", route="cuda",
+        source="src/repro_torch/csrc/ssd_scan_bwd.cu",
+        replaces="src/repro/kernels/ssd_scan/kernel.py:85",
+        replaces_note="no Pallas backward: the reference differentiates "
+                      "_chunked_jnp; the port's gradient of this forward",
+        design="three kernels, no atomics: the chunk-entry states by a "
+               "forward sweep into scratch; one block a (head, row) "
+               "walking 64-row steps in reverse, dS in shared memory, "
+               "f32 FMAs on CUDA cores in 64-row tiles, dB and dC as "
+               "per-head f32 partials; their sum in head order",
+        launches=ssd[TRAIN_SSM_CFG.name]["launches"]["ssd_scan_bwd"],
+        max_abs_err=max(c["max_abs_err"]
+                        for c in scan_bwd["cases"].values()),
+        ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+        bound_by=main["bound_by"], library_ms=None,
+        library_note="none: no one PyTorch call",
+        device_ms=main["device_ms"],
+        device_ms_by_kernel=main["device_ms_by_kernel"],
+        bound_f32_core_ms=main["bound_f32_core_ms"],
+        shape="B 4, S 1024, H 32, P 64, N 128, chunk 128, bf16",
+        calls=scan_bwd["calls"], cases=scan_bwd["cases"],
+        plants=scan_bwd["plants"], train=ssd))
+
+
+def supervised_run(root: str, crash_at: Optional[int]) -> dict:
+    """The example's LM (seed 0) trained ``SUPERVISED_STEPS`` steps under
+    a ``Supervisor`` checkpointing every ``SUPERVISED_EVERY`` into
+    ``root``; with ``crash_at`` the step function raises once, at that
+    step, before its update.  -> {"losses": {step: the loss its last
+    run gave}, "leaves": the final ``TrainState.leaves()``, "restarts",
+    "seconds"}."""
+    ex = example("torch_train_lm")
+    cfg = ex.make_100m_config()
+    model = build_model(cfg)
+    weights = model.init_params(0, device=DEVICE)
+    opt = adamw(weights.parameters(),
+                lr=cosine_schedule(3e-3, 30, TRAIN_LM_STEPS))
+    ts = build_train_step(model, opt, max_grad_norm=1.0)
+    pipe = TokenPipeline(cfg.vocab_size, 8, 128, seed=0)
+    sup = Supervisor(Checkpointer(root, keep=2),
+                     checkpoint_every=SUPERVISED_EVERY)
+    losses: Dict[int, float] = {}
+    crashed = []
+
+    def step_fn(state, step):
+        if step == crash_at and not crashed:
+            crashed.append(step)
+            raise RuntimeError(f"injected crash at step {step}")
+        losses[step] = float(ts(state.weights, pipe.batch_at(step))["loss"])
+        return state
+    t0 = time.perf_counter()
+    state = sup.run(TrainState(weights, opt), step_fn, 0, SUPERVISED_STEPS)
+    torch.cuda.synchronize()
+    return dict(losses=losses, leaves=state.leaves(), restarts=sup.restarts,
+                seconds=time.perf_counter() - t0)
+
+
+def run_train_lm(kernels: list) -> None:
+    """``examples/torch_train_lm.py`` at its ``TRAIN_LM_STEPS`` steps (f32:
+    ``flash_attention``'s f32 forward and its backward kernel's f32
+    instance), its launch counts set to 0 just before and read just
+    after; held: every loss finite, the last 20 steps' mean under a
+    tenth of the first loss, and its gap to the bigram floor logged.
+    Then ``supervised_run`` crashed at ``SUPERVISED_CRASH`` against one
+    not crashed: one restart, and whether every step's loss and the
+    final weights and moments agree bit for bit is logged (not held: a
+    kernel on the path that sums in a varying order makes them differ),
+    with the first step and leaves that differ.  Adds
+    ``launches_example`` to the attention records."""
+    t_phase = time.perf_counter()
+    for counter in TRAIN_COUNTERS.values():
+        counter.launches = 0
+    buf = io.StringIO()
+    with tempfile.TemporaryDirectory() as d, \
+            contextlib.redirect_stdout(buf):
+        t0 = time.perf_counter()
+        res = example("torch_train_lm").main(
+            ["--device", DEVICE, "--steps", str(TRAIN_LM_STEPS), "--ckpt",
+             f"{d}/ckpt"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in TRAIN_COUNTERS.items()}
+    losses = res["losses"]
+    final = float(np.mean(losses[-20:]))
+    log("example torch_train_lm --steps "
+        f"{TRAIN_LM_STEPS}: {wall:.1f} s wall, "
+        f"{res['tokens_per_s']:.0f} tokens/s; loss {losses[0]:.4f} -> "
+        f"{final:.4f} (mean of the last 20), bigram floor "
+        f"{res['floor']:.4f} (gap {final - res['floor']:.4f}); launches "
+        f"{launches}; its output:\n  "
+        + "\n  ".join(ln for ln in buf.getvalue().splitlines() if ln))
+    if not np.isfinite(losses).all() or final >= 0.1 * losses[0]:
+        raise AssertionError(f"torch_train_lm: loss {losses[0]} -> {final}")
+    layers = example("torch_train_lm").make_100m_config().n_layers
+    want = TRAIN_LM_STEPS * layers
+    if launches["flash_attention"] != want \
+            or launches["flash_attention_bwd"] != want:
+        raise AssertionError(f"torch_train_lm launches {launches}, want "
+                             f"{want} of each attention kernel")
+    by_name = {k["name"]: k for k in kernels}
+    for name in ("flash_attention", "flash_attention_bwd"):
+        by_name[name]["launches_example"] = {
+            "torch_train_lm (f32)": launches[name]}
+    with tempfile.TemporaryDirectory() as d:
+        once = supervised_run(f"{d}/crashed", SUPERVISED_CRASH)
+        clean = supervised_run(f"{d}/clean", None)
+    if once["restarts"] != 1 or sorted(once["losses"]) != sorted(
+            clean["losses"]):
+        raise AssertionError(f"supervised run: {once['restarts']} restarts,"
+                             f" steps {sorted(once['losses'])}")
+    differ = [s for s in sorted(clean["losses"])
+              if once["losses"][s] != clean["losses"][s]]
+    leaves = [k for k in clean["leaves"]
+              if not np.array_equal(once["leaves"][k], clean["leaves"][k])]
+    log(f"supervised run of {SUPERVISED_STEPS} steps, a checkpoint every "
+        f"{SUPERVISED_EVERY}, crashed once at step {SUPERVISED_CRASH} "
+        f"(restored from step "
+        f"{SUPERVISED_CRASH // SUPERVISED_EVERY * SUPERVISED_EVERY}) "
+        f"against one not crashed ({once['seconds']:.1f} s / "
+        f"{clean['seconds']:.1f} s wall): losses bit for bit "
+        f"{not differ} (first differing step "
+        f"{differ[0] if differ else None}; last loss "
+        f"{once['losses'][SUPERVISED_STEPS - 1]!r} / "
+        f"{clean['losses'][SUPERVISED_STEPS - 1]!r}); final weights and "
+        f"moments bit for bit {not leaves} ({len(leaves)} of "
+        f"{len(clean['leaves'])} leaves differ"
+        f"{', first ' + leaves[0] if leaves else ''})")
+    log(f"train_lm phase: {time.perf_counter() - t_phase:.1f} s wall; card "
+        f"{nvidia_smi()}")
 
 
 def main() -> int:
@@ -5492,7 +5866,7 @@ def main() -> int:
     kernels = video + lm_phase("lm", run_lm) + lm_phase("ssm", run_ssm)
     for name, run in (("hybrid", run_hybrid), ("moe", run_moe),
                       ("vlm", run_vlm), ("encdec", run_encdec),
-                      ("train", run_train)):
+                      ("train", run_train), ("train_lm", run_train_lm)):
         lm_phase(name, run, kernels)
     # the fleet last: after its stream threads, the profiler's traces
     # held no device kernel for the rest of the process (twice), and

@@ -13,9 +13,9 @@ Every kernel has, in its ``ops.py``:
     where the kernel is launched and nowhere else.
 
 Under autograd (grad mode on, an input that requires grad) a CUDA call
-differentiates (``flash_attention``, through its backward kernel) or
-raises (``ssd_scan``, ``decode_attention``): no wrapper hands back an
-output with no graph.
+differentiates (``flash_attention`` and ``ssd_scan``, through their
+backward kernels) or raises (``decode_attention``): no wrapper hands
+back an output with no graph.
 
 Kernels (sources in ``repro_torch/csrc/``, built by ``_build``):
   proxy_plan    — fused proxy head + threshold + detector-grid mapping +
@@ -67,7 +67,16 @@ Kernels (sources in ``repro_torch/csrc/``, built by ``_build``):
                   walking the chunks on tensor cores (wgmma fed by TMA,
                   the f32 state in registers), f32 as 3xTF32 in steps of
                   64 rows (replaces ``kernels/ssd_scan``'s
-                  ``ssd_scan_pallas``; the Mamba2 prefill).
+                  ``ssd_scan_pallas``; the Mamba2 prefill and the SSM
+                  train step's forward).
+  ssd_scan_bwd  — its gradient: the chunk-entry states by a forward
+                  sweep, then one block per (head, row) walking 64-row
+                  steps in reverse with the state's gradient in shared
+                  memory, f32 FMAs on CUDA cores, dB and dC as per-head
+                  partials summed in head order, no atomics (replaces no
+                  TPU kernel: the reference differentiates its plain
+                  chunked scan; the SSM train step's backward, through
+                  ``SSDScanFn``).
 
 The attention kernels share ``csrc/attention.cuh`` (f32 / bf16 loads
 and rounding); ``csrc/hopper.cuh`` holds the PTX of TMA, mbarriers, 1-D

@@ -17,7 +17,9 @@ head layouts; whisper-small's encoder, cross- and self-attention (1500
 keys non-causal, 500 queries against 1500 keys, MHA 12 of 12) and
 pixtral-12b's prompts (32 of 8 at S 1524) in ``SERVE_CASES``, with an
 8-step CUDA-graph replay of the 1500-frame cross decode; the scan at
-(P, N) = (64, 128) and (64, 64)), with
+(P, N) = (64, 128) and (64, 64), and its backward kernel in both
+dtypes against the plain backward, under autograd, bit for bit twice
+and with its planted faults caught), with
 refusals of unbuilt ones (head dims 32 and 96): ``ssd_scan``'s f32 y and final
 state within 1e-4 of max |plain|, bf16 y within 2 bf16 ulps of the
 plain version's f32 result on the same (bf16-valued) inputs, f32 at a
@@ -210,21 +212,63 @@ def test_flash_attention_differentiates_through_its_kernels(dev, dtype):
 
 
 def test_decode_and_scan_refuse_autograd_on_the_card(dev):
-    """``decode_attention`` and ``ssd_scan`` have no backward kernel: under
-    grad with an input that requires it they raise, never hand back an
-    output with no graph (the scan's names ROADMAP item 12g.1b)."""
-    from repro_torch.kernels.ssd_scan import ssd_scan
+    """``decode_attention`` has no backward kernel: under grad with an
+    input that requires it, it raises, never hands back an output with
+    no graph."""
     q, k, v, kv_len = decode_check.case_operands(
         decode_check.CASES[0], torch.bfloat16, dev, seed=0)
     with pytest.raises(NotImplementedError, match="no backward"):
         decode_check.decode_attention(q.requires_grad_(True), k, v, kv_len)
-    name, b, S, H, P, N, chunk = check.CASES[0]
-    args = check.operands(b, S, H, P, N, torch.bfloat16, dev, seed=0)
-    args[0].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="12g.1b"):
-        ssd_scan(*args, chunk=chunk)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("case", check.CASES, ids=[c[0] for c in
+                                                   check.CASES])
+def test_ssd_scan_bwd_kernel_matches_plain_version(dev, case, dtype):
+    # a final state's gradient in BWD_FINAL_CASE; bf16 twice, same bits
+    check.check_bwd_case(case, dtype, dev, seed=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_ssd_scan_differentiates_through_its_kernels(dev, dtype):
+    """Under grad on the card, ``ssd_scan`` launches the forward kernel
+    once and, at ``backward``, the backward kernel once (its three
+    kernels, by profiler name); the gradients, in the inputs' dtypes,
+    are the plain backward's.  Without grad it launches the forward
+    only and its output has no graph."""
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
+    case = check.CASES[3]
+    *fwd, dy, _ = check.bwd_operands(case, dtype, dev, seed=3)
+    chunk = case[6]
+    leaves = [t.detach().requires_grad_(True) for t in fwd]
+    f0, b0 = ssd_scan.launches, ssd_scan_bwd.launches
+    y, _ = ssd_scan(*leaves, chunk=chunk)
+    y.backward(dy)
+    assert (ssd_scan.launches - f0, ssd_scan_bwd.launches - b0) == (1, 1)
+    got = [t.grad for t in leaves]
+    assert [g.dtype for g in got] == [t.dtype for t in fwd]
+    want = check.ssd_scan_bwd_ref(*(a.float() for a in fwd), dy.float(),
+                                  None, chunk=chunk)
+    assert not any(check.bwd_outside(got, want).values())
+    args = check.bwd_operands(case, dtype, dev, seed=3)
+    assert check.bwd_kernels_launched(args, seconds=0.25) == set(
+        check.BWD_KERNEL_NAMES)
     with torch.no_grad():
-        ssd_scan(*args, chunk=chunk)
+        assert ssd_scan(*leaves, chunk=chunk)[0].grad_fn is None
+
+
+def test_ssd_scan_bwd_is_deterministic_and_catches_its_planted_faults(dev):
+    """Two bf16 calls give the same bits (no atomics), and each of
+    ``BWD_PLANTS`` fails the check."""
+    case = check.CASES[0]
+    args = check.bwd_operands(case, torch.bfloat16, dev, seed=4)
+    _, _, first = check.check_bwd(args, "first")
+    _, _, second = check.check_bwd(args, "second")
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    read = check.check_bwd_plants(case, torch.float32, dev, seed=4)
+    assert set(read) == set(check.BWD_PLANTS)
 
 
 @pytest.mark.parametrize("dtype", decode_check.DTYPES,

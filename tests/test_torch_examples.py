@@ -1,5 +1,6 @@
-"""The two MultiScope examples over the port, ``examples/torch_quickstart.py``
-and ``examples/torch_limit_query.py``, run to their end on the CPU at
+"""The examples over the port on the CPU.  The two MultiScope examples,
+``examples/torch_quickstart.py`` and ``examples/torch_limit_query.py``,
+run to their end at
 the reduced configuration with cut training steps and clip counts (the
 examples' own arguments; nothing else changes), and print their
 invariant lines: the quickstart's standing query agrees with the ad-hoc
@@ -8,7 +9,9 @@ the limit query reports ``correct=`` for both systems.  The quickstart's
 two "tracks bit-identical" lines must be printed, but their values are
 not held: the brokered feeds ride batches whose detector scores move by
 up to 5.96e-8 on the CPU, and the device tracker's assignment solver
-works in f32.  Asked for the card without one, each example raises.
+works in f32.  The LM example, ``examples/torch_train_lm.py``, runs 2
+of its 300 steps.  Asked for the card without one, each example
+raises.
 """
 import importlib.util
 import re
@@ -80,7 +83,8 @@ def test_limit_query_runs_on_cpu(run_example):
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="a card is present")
-@pytest.mark.parametrize("name", ["torch_quickstart", "torch_limit_query"])
+@pytest.mark.parametrize("name", ["torch_quickstart", "torch_limit_query",
+                                  "torch_train_lm"])
 def test_example_asked_for_the_card_raises_without_one(name):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _example(name).main(["--device", "cuda"])
@@ -95,3 +99,26 @@ def test_example_defaults_are_the_reference_workload(name):
     last = args.test_clips if name == "torch_quickstart" \
         else args.query_clips
     assert last == (3 if name == "torch_quickstart" else 8)
+
+
+def test_train_lm_runs_on_cpu(run_example, tmp_path):
+    # the LM example at 2 of its 300 steps, its checkpoints in tmp_path
+    out = run_example("torch_train_lm", ["--device", "cpu", "--steps", "2",
+                                         "--ckpt", str(tmp_path / "ck")])
+    assert re.search(r"^model qwen2-100m: 22\.3M params on cpu$", out,
+                     re.M), out
+    assert "bigram entropy floor: 1.816 nats/token" in out
+    assert re.search(r"^step    0 loss +[\d.]+ ", out, re.M), out
+    assert re.search(r"^final loss [\d.]+ \(floor 1\.816, start ~", out,
+                     re.M), out
+
+
+def test_train_lm_defaults_are_the_reference_workload():
+    ex = _example("torch_train_lm")
+    args = ex.parse_args([])
+    assert (args.device, args.steps, args.batch, args.seq) == (
+        "cuda", 300, 8, 128)
+    cfg = ex.make_100m_config()
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+            cfg.head_dim, cfg.d_ff, cfg.vocab_size) == (
+        6, 512, 8, 2, 64, 1536, 8192)

@@ -32,7 +32,7 @@ def test_modules_pull_in_no_jax_or_repro():
     assert "repro_torch.core.executor" in mods and len(mods) > 15
     assert "repro_torch.obs.__main__" in mods
     examples = [str(p) for p in EXAMPLES]
-    assert len(examples) == 2
+    assert len(examples) == 3
     code = (
         "import importlib, importlib.util, json, sys\n"
         f"for m in {mods!r}:\n"
